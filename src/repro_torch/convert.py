@@ -1,0 +1,112 @@
+"""Carry weights and cache state between the JAX package and the port.
+
+Everything crosses as numpy: the tests run ``jax.device_get`` on the JAX
+side and hand the numpy trees over, so this module needs neither JAX nor
+the JAX package. JAX objects are read by their field names (duck typing).
+
+Parameter layouts agree leaf by leaf (weights (in, out), applied as
+``x @ W``); only the stacking differs: JAX stacks each pattern slot over its
+repetitions, the port holds a plain list of layers in depth order (layer
+``r * period + p`` is repetition r of slot p, then the tail layers).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.paged_cache import PagedLayerCache
+from repro_torch.models.transformer import ModelCache
+
+CACHE_FIELDS = ("k", "v", "pos", "score", "block_table", "ref_count",
+                "cur_page", "cur_off", "stats")
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype) if dtype else t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu",
+                    dtype=None) -> dict:
+    """JAX ``init_model`` tree (numpy leaves) -> the port's parameters."""
+    layers = [_map(tree["pattern"][p], lambda a, r=r: np.asarray(a)[r])
+              for r in range(cfg.full_pattern_reps)
+              for p in range(cfg.pattern_period)] + list(tree["tail"])
+    out = {k: v for k, v in tree.items() if k not in ("pattern", "tail")}
+    out["layers"] = layers
+    return _map(out, lambda a: _tensor(a, device, dtype))
+
+
+def layer_cache_from_jax(c, device="cpu") -> PagedLayerCache:
+    """One JAX ``PagedLayerCache`` (numpy fields) -> the port's, adding the
+    trash row."""
+    k, v = np.asarray(c.k), np.asarray(c.v)
+    pos, score = np.asarray(c.pos), np.asarray(c.score)
+    trash = lambda a, fill: np.concatenate(
+        [a, np.full((1,) + a.shape[1:], fill, a.dtype)])
+    return PagedLayerCache(
+        k_buf=_tensor(trash(k, 0), device),
+        v_buf=_tensor(trash(v, 0), device),
+        pos_buf=_tensor(trash(pos, -1), device),
+        score_buf=_tensor(trash(score, -np.inf), device),
+        block_table=_tensor(c.block_table, device),
+        ref_count=_tensor(c.ref_count, device),
+        cur_page=_tensor(c.cur_page, device),
+        cur_off=_tensor(c.cur_off, device),
+        stats=None if c.stats is None else _tensor(c.stats, device))
+
+
+def layer_cache_to_numpy(c) -> dict:
+    """A layer cache -> {field: ndarray} over CACHE_FIELDS (stats None when
+    off). Accepts the port's cache or a JAX one with numpy-able fields."""
+    out = {}
+    for f in CACHE_FIELDS:
+        a = getattr(c, f)
+        if a is None:
+            out[f] = None
+        elif isinstance(a, torch.Tensor):
+            out[f] = a.detach().float().cpu().numpy() \
+                if a.dtype == torch.bfloat16 else a.detach().cpu().numpy()
+        else:
+            out[f] = np.asarray(a)
+    return out
+
+
+def jax_cache_layers(mc, period: int) -> list:
+    """A JAX ``ModelCache`` (numpy leaves) -> per-layer JAX layer caches in
+    depth order (pattern slots unstacked)."""
+    layers = []
+    pattern = list(mc.pattern)
+    reps = np.asarray(pattern[0].kv.ref_count).shape[0] if pattern else 0
+    for r in range(reps):
+        for p in range(period):
+            kv = pattern[p].kv
+            layers.append(type(kv)(*[None if a is None else np.asarray(a)[r]
+                                     for a in kv]))
+    return layers + [lc.kv for lc in mc.tail]
+
+
+def cache_from_jax(mc, cfg: ModelConfig, device="cpu") -> ModelCache:
+    """A JAX ``ModelCache`` (numpy leaves) -> the port's ``ModelCache``."""
+    layers = [layer_cache_from_jax(c, device)
+              for c in jax_cache_layers(mc, cfg.pattern_period)]
+    return ModelCache(layers=layers, cur_pos=_tensor(mc.cur_pos, device))
+
+
+def cache_to_numpy(cache: ModelCache) -> dict:
+    """The port's ``ModelCache`` -> {"layers": [field dicts], "cur_pos"}."""
+    return {"layers": [layer_cache_to_numpy(c) for c in cache.layers],
+            "cur_pos": cache.cur_pos.cpu().numpy()}

@@ -1,0 +1,36 @@
+"""Token / page importance proxies (paper §4.1, Algorithm 1).
+
+Scores follow the convention **higher = more important = keep**. The
+paper's proxy is S_i = ||V_i|| / ||K_i||, each norm averaged over the KV
+heads so one block table per (request, layer) suffices.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-6
+
+
+def _norms(x: torch.Tensor) -> torch.Tensor:
+    """L2 norm over head_dim, mean over KV heads. (..., KV, hd) -> (...,)."""
+    return torch.linalg.vector_norm(x.float(), dim=-1).mean(-1)
+
+
+def vk_ratio_score(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Paper Alg.1 token importance: mean_h ||V|| / mean_h ||K||.
+    k, v: (..., KV, hd) -> (...,) f32."""
+    return _norms(v) / _norms(k).clamp_min(_EPS)
+
+
+def page_scores_from_norms(kn, vn, pos_pages, mapped) -> torch.Tensor:
+    """Paper Alg.1 page scores from the attention kernels' norm epilogue.
+
+    kn, vn: (B, KV, P, page) per-token K/V L2 norms; pos_pages: (B, P, page)
+    positions, -1 for empty slots (``cache.pos_view()``); mapped: (B, P)
+    bool. Returns (B, P) f32; empty or unmapped pages score +inf. Plain
+    torch, as in the JAX package (it runs outside the kernels there too)."""
+    tok = vn.mean(1) / kn.mean(1).clamp_min(_EPS)
+    valid = (pos_pages >= 0) & mapped[:, :, None]
+    cnt = valid.sum(-1, dtype=torch.int32)
+    ssum = torch.where(valid, tok, 0.0).sum(-1)
+    return torch.where(cnt > 0, ssum / cnt.clamp_min(1), torch.inf)

@@ -1,0 +1,206 @@
+"""Eviction policies: the paper's PagedEviction and the no-eviction
+FullCache, as in the JAX package's ``repro.core.policies``.
+
+Each policy is a stateless strategy with three hooks:
+
+  write_score(k_tok, v_tok, pos)        score stored with each written token
+  chunk_prefill_evict(cache, cfg, ...)  paper Alg.2, incremental form: at a
+                                        chunked-prefill boundary evict the
+                                        lowest-score COMPLETED pages until
+                                        the budget holds
+  post_write(cache, cfg, active)        paper Alg.3: decode-time eviction
+                                        and page rollover
+
+Both eviction hooks take an optional ``page_scores`` (B, P): the attention
+kernels' fused norm epilogue. When given, PagedEviction ranks pages by it
+instead of the stored-score reduction ``cache.page_scores()``.
+
+Where JAX skips a hook body under ``lax.cond(any(mask))``, the port runs it
+masked (no host sync); the empty-page reclaim, the one part that is not an
+identity under an all-False mask, takes ``mask.any()`` as a device gate.
+StreamingLLM, InverseKeyL2 and KeyDiff are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import CacheConfig
+from repro_torch.core import importance
+from repro_torch.core.paged_cache import (
+    PagedLayerCache,
+    alloc_pages,
+    evict_page,
+    evict_pages_mask,
+    evict_token_mask,
+    find_free_slot,
+    reclaim_empty_pages,
+    rollover_to_free_page,
+    start_new_page,
+)
+
+
+class EvictionOutcome(NamedTuple):
+    cache: PagedLayerCache
+    pages_evicted: torch.Tensor     # (B,) bool: a full page was evicted
+    tokens_evicted: torch.Tensor    # (B,) bool: a single token was evicted
+    forced_evictions: torch.Tensor  # (B,) bool: fragmentation forced a page
+    # which logical page lost the argmin and at what score (meaningful
+    # where pages_evicted); None for policies that never evict pages
+    victim_page: torch.Tensor | None = None   # (B,) int32
+    victim_score: torch.Tensor | None = None  # (B,) f32
+
+
+def _false(cache: PagedLayerCache) -> torch.Tensor:
+    return torch.zeros((cache.batch,), dtype=torch.bool, device=cache.device)
+
+
+def _is_cur(cache: PagedLayerCache) -> torch.Tensor:
+    P = cache.num_pages
+    return torch.arange(P, device=cache.device)[None, :] == \
+        cache.cur_page[:, None]
+
+
+def _out_of_window(cache: PagedLayerCache, window: int, active):
+    """(B, P, page) bool: live tokens a windowed layer can never attend
+    again (pos <= newest - window)."""
+    pos = cache.pos_view()
+    valid = pos >= 0
+    cur = torch.where(valid, pos, -1).amax(dim=(1, 2), keepdim=True)
+    return valid & (pos <= cur - window) & active[:, None, None]
+
+
+class EvictionPolicy:
+    name: str = "base"
+
+    # --- slab sizing --------------------------------------------------------
+    def _round_slab(self, cfg: CacheConfig, pages: int) -> int:
+        m = max(cfg.slab_multiple, 1)
+        return -(-pages // m) * m
+
+    def slab_pages(self, cfg: CacheConfig, seq_len: int) -> int:
+        total = -(-seq_len // cfg.page_size)
+        return self._round_slab(cfg, min(total, cfg.budget_pages + 1))
+
+    # --- scores -------------------------------------------------------------
+    def write_score(self, k_tok, v_tok, pos_tok):
+        """k_tok, v_tok: (..., KV, hd) -> (...,) f32."""
+        raise NotImplementedError
+
+    # --- Alg.2, incremental: chunk-boundary compression ----------------------
+    def chunk_prefill_evict(self, cache: PagedLayerCache, cfg: CacheConfig,
+                            active=None, window: int = 0,
+                            page_scores=None) -> PagedLayerCache:
+        """Compress the pooled cache back to the budget at a chunked-prefill
+        boundary. ``active``: (B,) rows that consumed a prompt chunk;
+        ``window``: the layer's attention window; ``page_scores``: optional
+        fused-epilogue scores. A no-op when no row is active."""
+        if active is None:
+            active = torch.ones((cache.batch,), dtype=torch.bool,
+                                device=cache.device)
+        return self._chunk_evict_body(cache, cfg, active, window,
+                                      page_scores, gate=active.any())
+
+    def _chunk_evict_body(self, cache, cfg, active, window, page_scores,
+                          gate):
+        raise NotImplementedError
+
+    # --- Alg.3: decode bookkeeping -------------------------------------------
+    def post_write(self, cache: PagedLayerCache, cfg: CacheConfig,
+                   active=None, page_scores=None) -> EvictionOutcome:
+        raise NotImplementedError
+
+
+class FullCache(EvictionPolicy):
+    name = "full"
+
+    def slab_pages(self, cfg, seq_len):
+        return self._round_slab(cfg, -(-seq_len // cfg.page_size))
+
+    def write_score(self, k_tok, v_tok, pos_tok):
+        return torch.zeros(k_tok.shape[:-2], dtype=torch.float32,
+                           device=k_tok.device)
+
+    def _chunk_evict_body(self, cache, cfg, active, window, page_scores,
+                          gate):
+        # no budget: only windowed layers shed never-again-attendable tokens
+        if window:
+            evict_token_mask(cache, _out_of_window(cache, window, active))
+            reclaim_empty_pages(cache, gate=gate)
+        return cache
+
+    def post_write(self, cache, cfg, active=None, page_scores=None):
+        if active is None:
+            active = torch.ones((cache.batch,), dtype=torch.bool,
+                                device=cache.device)
+        need = active & (cache.cur_off >= cache.page_size)
+        slot, slot_ok = find_free_slot(cache)
+        _, phys, ok = alloc_pages(cache, need & slot_ok)
+        grow = need & slot_ok & ok
+        start_new_page(cache, slot, phys, enable=grow)
+        # saturated block table: never evict; park the head with off reset
+        cache.cur_off.masked_fill_(need & ~grow, 0)
+        f = _false(cache)
+        return EvictionOutcome(cache, f, f, f)
+
+
+class PagedEviction(EvictionPolicy):
+    """Structured block-wise eviction (paper Alg. 1-3)."""
+    name = "paged_eviction"
+
+    def write_score(self, k_tok, v_tok, pos_tok):
+        return importance.vk_ratio_score(k_tok, v_tok)
+
+    def _chunk_evict_body(self, cache, cfg, active, window, page_scores,
+                          gate):
+        """Evict the lowest-mean-score COMPLETED pages until at most
+        ``budget_pages`` remain (ranked by a stable argsort, so ties go to
+        the lower slot). Windowed layers drop out-of-window tokens first and
+        then rank by the stored scores: the fused ones predate the drop."""
+        if window:
+            page_scores = None
+            evict_token_mask(cache, _out_of_window(cache, window, active))
+        full = cache.tokens_per_page() >= cache.page_size
+        if cfg.protect_recent:
+            full &= ~_is_cur(cache)
+        m = (full.sum(-1) - cfg.budget_pages).clamp_min(0)
+        pscores = cache.page_scores() if page_scores is None else page_scores
+        cand = torch.where(full, pscores, torch.inf)
+        order = torch.argsort(cand, dim=-1, stable=True)
+        ranks = torch.argsort(order, dim=-1, stable=True)       # 0 == worst
+        evict = full & (ranks < m[:, None]) & active[:, None]
+        evict_pages_mask(cache, evict)
+        return reclaim_empty_pages(cache, gate=gate)
+
+    def post_write(self, cache, cfg, active=None, page_scores=None):
+        if active is None:
+            active = torch.ones((cache.batch,), dtype=torch.bool,
+                                device=cache.device)
+        page_full = active & (cache.cur_off >= cache.page_size)
+        do_evict = page_full & (cache.total_valid() > cfg.cache_budget)
+        pscores = cache.page_scores() if page_scores is None else page_scores
+        full_pages = cache.tokens_per_page() >= cache.page_size
+        if cfg.protect_recent:
+            full_pages &= ~_is_cur(cache)
+        cand = torch.where(full_pages, pscores, torch.inf)
+        victim = torch.argmin(cand, dim=-1).to(torch.int32)
+        vscore = pscores.gather(1, victim[:, None].long())[:, 0].float()
+        evict_page(cache, victim, enable=do_evict)
+        _, forced = rollover_to_free_page(cache, page_full,
+                                          gate=page_full.any())
+        return EvictionOutcome(cache, do_evict, _false(cache), forced,
+                               victim_page=victim, victim_score=vscore)
+
+
+POLICIES: dict[str, EvictionPolicy] = {
+    p.name: p for p in (FullCache(), PagedEviction())
+}
+
+
+def get_policy(name: str) -> EvictionPolicy:
+    try:
+        return POLICIES[name]
+    except KeyError:
+        raise KeyError(f"unknown policy {name!r}; the torch port has "
+                       f"{sorted(POLICIES)}") from None

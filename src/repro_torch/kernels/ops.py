@@ -1,0 +1,61 @@
+"""The wrappers the model calls: paged decode and paged chunked-prefill
+attention over a :class:`PagedLayerCache`, each returning
+``(out, page_scores | None)``.
+
+On a CUDA tensor a wrapper launches its hand-written kernel (or raises); on
+a CPU tensor it takes the kernel's plain torch version. It never falls back
+from one to the other. ``plain=True`` takes the plain version on the card
+too: an explicit switch for holding the kernels against it, never a
+fallback. The pool is read in its native (N, page, KV, hd) strides.
+
+``return_scores`` adds the paper's Alg.1 page scores (B, P), reduced from
+the kernels' per-token ||K|| / ||V|| epilogue by ``page_scores_from_norms``
+(plain torch, as in the JAX package).
+"""
+from __future__ import annotations
+
+from repro_torch.core.importance import page_scores_from_norms
+from repro_torch.core.paged_cache import PagedLayerCache
+from repro_torch.kernels.flash_prefill import (paged_prefill_cuda,
+                                               paged_prefill_plain)
+from repro_torch.kernels.paged_attention import (combine_splits,
+                                                 paged_attention_cuda,
+                                                 paged_attention_plain)
+
+
+def _scores(cache: PagedLayerCache, norms):
+    if norms is None:
+        return None
+    kn, vn = norms
+    return page_scores_from_norms(kn, vn, cache.pos_view(),
+                                  cache.mapped_mask())
+
+
+def paged_attention(q, cache: PagedLayerCache, *, cur_pos, window: int = 0,
+                    scale: float | None = None, num_splits: int = 1,
+                    return_scores: bool = False, plain: bool = False):
+    """Decode attention. q: (B, H, hd) current-token queries; cur_pos: (B,)
+    -> ((B, H, hd), page_scores (B, P) or None). ``num_splits``: split-K
+    factor of the page walk."""
+    B, H, hd = q.shape
+    KV = cache.k.shape[2]
+    fn = paged_attention_plain if plain or not q.is_cuda \
+        else paged_attention_cuda
+    acc, m, l, norms = fn(q.reshape(B, KV, H // KV, hd), cache.k, cache.v,
+                          cache.pos, cache.block_table, cur_pos,
+                          window=window, scale=scale, num_splits=num_splits,
+                          return_scores=return_scores)
+    out = combine_splits(acc, m, l).to(q.dtype).reshape(B, H, hd)
+    return out, _scores(cache, norms)
+
+
+def paged_prefill_attention(q, cache: PagedLayerCache, *, q_pos,
+                            window: int = 0, scale: float | None = None,
+                            return_scores: bool = False, plain: bool = False):
+    """Chunked-prefill attention (G-fold). q: (B, T, H, hd); q_pos: (B, T)
+    int32, -1 == padding -> ((B, T, H, hd), page_scores (B, P) or None).
+    The chunk's K/V must already be appended to the pool."""
+    fn = paged_prefill_plain if plain or not q.is_cuda else paged_prefill_cuda
+    out, norms = fn(q, cache.k, cache.v, cache.pos, cache.block_table, q_pos,
+                    window=window, scale=scale, return_scores=return_scores)
+    return out, _scores(cache, norms)

@@ -1,0 +1,147 @@
+"""Split-K paged decode attention: the CUDA kernel's wrapper, its plain
+torch version, and ``combine_splits``.
+
+Both compute, for q (B, KV, G, hd) over the pool (N, page, KV, hd) walked
+through the block table (B, P), the per-split UN-normalised partials
+``acc`` (B, KV, S, G, hd), ``m`` and ``l`` (B, KV, S, G) of an online
+softmax, and with ``return_scores`` the per-token norms ``kn``/``vn``
+(B, KV, P, page) of every slot's page (page ``max(bt, 0)`` when unmapped).
+A token is valid iff its slot is mapped, 0 <= pos <= cur_pos and, with a
+window, pos > cur_pos - window; masked scores take -1e30. ``combine_splits``
+merges the splits (plain torch, as in the JAX package).
+
+The kernel source is ``csrc/paged_attention.cu``; it replaces the JAX
+package's Pallas ``paged_attention_kernel``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import gather_block_table
+
+NEG_INF = -1e30
+
+
+def split_grid(P: int, num_splits: int) -> tuple[int, int]:
+    """(splits, pages per split) of a P-page walk."""
+    S = max(1, min(int(num_splits), P))
+    return S, -(-P // S)
+
+
+def combine_splits(acc, m, l):
+    """Reduce split partials to the attention output (B, KV, G, hd) f32.
+    Empty splits (m == -1e30, l == 0) contribute exactly 0; a fully empty
+    row divides 0 by the 1e-30 floor and gives zeros."""
+    m_max = m.amax(2)
+    coef = torch.exp(m - m_max[:, :, None])
+    l_tot = (coef * l).sum(2)
+    o = (coef[..., None] * acc).sum(2)
+    return o / l_tot.clamp_min(1e-30)[..., None]
+
+
+def paged_attention_plain(q, k_pool, v_pool, pos, block_table, cur_pos, *,
+                          window: int = 0, scale: float | None = None,
+                          num_splits: int = 1, return_scores: bool = False):
+    """Plain torch version of the decode kernel: same inputs, same outputs
+    ``(acc, m, l, (kn, vn) | None)``."""
+    B, KV, G, hd = q.shape
+    P = block_table.shape[1]
+    page = pos.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    S, pps = split_grid(P, num_splits)
+    kg, vg, pg = gather_block_table(k_pool, v_pool, pos, block_table)
+    kf, vf = kg.float(), vg.float()                     # (B, KV, P, page, hd)
+    s = torch.einsum("bkgd,bkpjd->bkgpj", q.float(), kf) * scale
+    cur = cur_pos[:, None, None]
+    valid = (pg >= 0) & (pg <= cur)
+    if window > 0:
+        valid &= pg > (cur - window)
+    # pad the page axis to S * pps (padding pages are all-invalid)
+    pad = S * pps - P
+    s = torch.nn.functional.pad(s, (0, 0, 0, pad)).reshape(
+        B, KV, G, S, pps * page)
+    valid = torch.nn.functional.pad(valid, (0, 0, 0, pad)).reshape(
+        B, 1, 1, S, pps * page)
+    vs = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad)).reshape(
+        B, KV, S, pps * page, hd)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1)                                      # (B, KV, G, S)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bkgsj,bksjd->bksgd", p, vs)
+    norms = None
+    if return_scores:
+        norms = (torch.linalg.vector_norm(kf, dim=-1),
+                 torch.linalg.vector_norm(vf, dim=-1))
+    return acc, m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2), norms
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_pool(q, k_pool, v_pool, pos, block_table):
+    """Validate what the kernels take; raise on anything else."""
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("pos", pos), ("block_table", block_table)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} is not a CUDA tensor")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or \
+            v_pool.dtype != q.dtype:
+        raise TypeError(f"q / pool dtypes {q.dtype}, {k_pool.dtype}, "
+                        f"{v_pool.dtype}: the kernels take float32 or "
+                        f"bfloat16, the same for all three")
+    if k_pool.stride() != v_pool.stride() or k_pool.stride(-1) != 1:
+        raise ValueError("k_pool / v_pool need equal strides and a "
+                         "contiguous head dim")
+    if pos.dtype != torch.int32 or not pos.is_contiguous() or \
+            block_table.dtype != torch.int32 or \
+            not block_table.is_contiguous():
+        raise ValueError("pos and block_table must be contiguous int32")
+    if k_pool.shape[1] > 128:
+        raise ValueError("page size above 128 is not supported")
+
+
+def paged_attention_cuda(q, k_pool, v_pool, pos, block_table, cur_pos, *,
+                         window: int = 0, scale: float | None = None,
+                         num_splits: int = 1, return_scores: bool = False):
+    """Launch the CUDA decode kernel; same contract as
+    :func:`paged_attention_plain`. Raises on CPU tensors or a failed launch.
+    ``paged_attention_cuda.launches`` counts the launches."""
+    _check_pool(q, k_pool, v_pool, pos, block_table)
+    q = q.contiguous()
+    cur_pos = cur_pos.to(torch.int32).contiguous()
+    B, KV, G, hd = q.shape
+    N, page = pos.shape
+    P = block_table.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    S, pps = split_grid(P, num_splits)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, KV, S, G, hd), **f32)
+    m = torch.empty((B, KV, S, G), **f32)
+    l = torch.empty((B, KV, S, G), **f32)
+    kn = vn = None
+    if return_scores:
+        kn = torch.empty((B, KV, P, page), **f32)
+        vn = torch.empty((B, KV, P, page), **f32)
+    lib = build.load("paged_attention")
+    fn = lib.paged_decode
+    vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    fn.argtypes = [vp] * 11 + [ci] * 6 + [cl] * 3 + [ci] * 3 + [cf, ci, vp]
+    fn.restype = ci
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    sn, sp, skv, _ = k_pool.stride()
+    rc = fn(ptr(q), ptr(k_pool), ptr(v_pool), ptr(pos), ptr(block_table),
+            ptr(cur_pos), ptr(acc), ptr(m), ptr(l), ptr(kn), ptr(vn),
+            B, KV, G, hd, P, page, sn, sp, skv, S, pps, int(window),
+            float(scale), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, "paged_decode")
+    paged_attention_cuda.launches += 1
+    return acc, m, l, ((kn, vn) if return_scores else None)
+
+
+paged_attention_cuda.launches = 0
