@@ -530,8 +530,7 @@ def rollover_times(cur_off, head_mapped, n_tok, page_size: int) -> list[int]:
 
 
 def append_chunk(cache: PagedLayerCache, k_chunk, v_chunk, pos_chunk,
-                 score_chunk, n_tok, times: list[int] | None = None
-                 ) -> PagedLayerCache:
+                 score_chunk, n_tok, times: list[int]) -> PagedLayerCache:
     """Append up to T tokens per request at the write head, rolling onto
     fresh pages from the shared free list as pages fill.
 
@@ -542,13 +541,10 @@ def append_chunk(cache: PagedLayerCache, k_chunk, v_chunk, pos_chunk,
     whose head is full, then write token t): the runs between consecutive
     rollover times hold no boundary, so each is one scatter, and the
     rollovers happen in the same order. ``times`` is the host plan of
-    :func:`rollover_times`; when omitted it is computed here, which reads
-    the heads from the device."""
+    :func:`rollover_times`, made by the caller from the heads as they stand
+    before this append (the step reads them once for every layer)."""
     B, T = pos_chunk.shape
     page = cache.page_size
-    if times is None:
-        times = rollover_times(cache.cur_off.cpu(), cache.head_mapped().cpu(),
-                               n_tok.cpu(), page)
     act = torch.arange(T, device=cache.device)[None, :] < n_tok[:, None]
     t0 = 0
     for t in list(times) + [T]:

@@ -23,6 +23,22 @@ from repro_torch.serving import Engine, SamplingParams
 from repro_torch.serving.engine import resolve_device
 
 
+def device_busy_us(events) -> tuple[float, float]:
+    """(union, sum) in microseconds of the device's own activity intervals
+    (kernels, copies, sets) among profiler ``events``. The union is the
+    time the device was busy; the sum exceeds it only where work overlaps.
+    CPU-side ops are left out: they carry their kernels' time again."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy, sum(e - s for s, e in spans)
+
+
 def profile_steps(eng: Engine, start: int, count: int) -> bool:
     """Run ``count`` engine steps under ``torch.profiler``; print the
     device time by kernel and the share of the window the device was busy.
@@ -43,12 +59,13 @@ def profile_steps(eng: Engine, start: int, count: int) -> bool:
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    busy_us, kernel_us = device_busy_us(prof.events())
     events = prof.key_averages()
     key = "self_device_time_total" if cuda else "self_cpu_time_total"
-    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
     print(f"profile: steps {start}..{start + len(kinds) - 1} ({kinds}), "
-          f"wall {wall * 1e3:.1f} ms, device busy {device_us / 1e3:.1f} ms "
-          f"({100 * device_us / 1e6 / wall:.1f}%), "
+          f"wall {wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+          f"({100 * busy_us / 1e6 / wall:.1f}%; device activities sum "
+          f"{kernel_us / 1e3:.1f} ms), "
           f"{sum(e.count for e in events if e.key.startswith('aten::'))} "
           f"aten ops")
     print(events.table(sort_by=key, row_limit=15))
@@ -73,7 +90,6 @@ def main() -> None:
                          "max_batch + chunk)")
     ap.add_argument("--decode-splits", type=int, default=1,
                     help="split-K factor of the decode kernel's page walk")
-    ap.add_argument("--greedy", action="store_true", default=True)
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable prefix sharing across requests")
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -97,7 +113,7 @@ def main() -> None:
     eng = Engine(cfg, params, cache_cfg=ccfg, max_batch=args.max_batch,
                  max_prompt_len=args.prompt_len,
                  max_new_tokens=args.new_tokens,
-                 sampling=SamplingParams(greedy=args.greedy),
+                 sampling=SamplingParams(greedy=True),
                  chunk_size=args.chunk, token_budget=args.token_budget,
                  prefix_sharing=not args.no_prefix_sharing,
                  decode_splits=args.decode_splits, device=device)

@@ -9,7 +9,8 @@ installed:
 (``--noconftest``: tests/conftest.py imports JAX.) Churned pools at the
 main path's shapes (page 16, 49 slots, batch 8; llama-3.2-1b and -3b
 heads), window 0 and 128, splits 1 and 4, padding rows; f32 within 1e-4,
-bf16 within 2e-2, norms within 1e-3 relative.
+bf16 within 1e-5 + 2**-7 of the value (both compute in f32, so a bf16
+output may differ by one rounding step), norms within 1e-3 relative.
 """
 import pytest
 import torch
@@ -30,10 +31,10 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0),
+                                             (torch.bfloat16, 1e-5, 2 ** -7)])
 @pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
-def test_cuda_decode_matches_plain(cuda, KV, G, hd, dtype, tol):
+def test_cuda_decode_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
     k, v, pos, bt, cur = (t.to(cuda) for t in ref.churned_pool(
         8, 49, 16, KV, hd, dtype, seed=hd))
     q = torch.randn((8, KV, G, hd), device=cuda).to(dtype)
@@ -45,16 +46,16 @@ def test_cuda_decode_matches_plain(cuda, KV, G, hd, dtype, tol):
                                                     **kw)
             torch.testing.assert_close(combine_splits(a, m, l).to(dtype),
                                        combine_splits(a2, m2, l2).to(dtype),
-                                       atol=tol, rtol=0)
+                                       atol=atol, rtol=rtol)
             for x, y in zip(nk, nk2):
                 torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0),
+                                             (torch.bfloat16, 1e-5, 2 ** -7)])
 @pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
-def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, tol):
+def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
     k, v, pos, bt, cur = (t.to(cuda) for t in ref.churned_pool(
         8, 49, 16, KV, hd, dtype, seed=hd))
     qp = ref.prefill_positions(cur.cpu(), 256).to(cuda)
@@ -63,6 +64,6 @@ def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, tol):
         kw = dict(window=window, return_scores=True)
         o, nk = paged_prefill_cuda(q, k, v, pos, bt, qp, **kw)
         o2, nk2 = paged_prefill_plain(q, k, v, pos, bt, qp, **kw)
-        torch.testing.assert_close(o, o2, atol=tol, rtol=0)
+        torch.testing.assert_close(o, o2, atol=atol, rtol=rtol)
         for x, y in zip(nk, nk2):
             torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)

@@ -47,14 +47,16 @@ class Pair:
         self.t = tpc.init_layer_cache(B, P, page, KV, hd, torch.float32,
                                       track_stats=True)
 
-    def apply(self, name, *args, **kw):
-        """Run op ``name`` on both; numpy args go to each as its arrays."""
+    def apply(self, name, *args, port_kw=None, **kw):
+        """Run op ``name`` on both; numpy args go to each as its arrays.
+        ``port_kw`` are keyword arguments only the port's op takes."""
         ja = [jnp.asarray(a) if isinstance(a, np.ndarray) else a
               for a in args]
         ta = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
               for a in args]
         jk = {k: jnp.asarray(v) for k, v in kw.items()}
         tk = {k: torch.from_numpy(v) for k, v in kw.items()}
+        tk.update(port_kw or {})
         jr = getattr(jpc, name)(self.j, *ja, **jk)
         tr = getattr(tpc, name)(self.t, *ta, **tk)
         if not isinstance(jr, jpc.PagedLayerCache):
@@ -79,12 +81,14 @@ def _churn(seed, steps=40):
             n = rng.integers(0, T + 1, B).astype(np.int32)
             t = np.arange(T, dtype=np.int32)
             pos = np.where(t[None] < n[:, None], nxt[:, None] + t, -1)
+            times = tpc.rollover_times(pair.t.cur_off.numpy(),
+                                       pair.t.head_mapped().numpy(), n, page)
             pair.apply("append_chunk",
                        rng.standard_normal((B, T, KV, hd), np.float32),
                        rng.standard_normal((B, T, KV, hd), np.float32),
                        pos.astype(np.int32),
                        (rng.integers(0, 4, (B, T)) / 4).astype(np.float32),
-                       n)
+                       n, port_kw=dict(times=times))
             nxt += n
         elif op == "write_token":
             pair.apply("write_token",
