@@ -6,16 +6,24 @@
 Phases (any failure exits non-zero; none is skipped):
   1. build    the CUDA kernels under src/repro_torch/csrc, one nvcc each, in
               parallel, into src/repro_torch/_build
-  2. kernels  each kernel against its plain torch version on churned pools
-              (freed and reallocated pages, unmapped slots, shared prefix
-              pages, padding rows, window 0 and > 0) at the shapes of
-              llama-3.2-1b, -3b and 3.1-8b in f32 and bf16; then its time at
-              the main path's shapes beside its bound, the plain version's
-              time and one PyTorch call's (scaled_dot_product_attention on
-              the gathered view, a yardstick only)
-  3. engine   a reduced f32 config (KV 2, G 2) served twice on the card,
-              through the kernels and through their plain versions: greedy
-              tokens, per-step devstats and final integer pool state equal
+  2. kernels  each kernel against its plain torch version: the paged ones on
+              churned pools (freed and reallocated pages, unmapped slots,
+              shared prefix pages, padding rows, window 0 and > 0; float and
+              int8 pools), the flash one on prompts of 128 and 4096 tokens
+              with and without a window, the page-score one on float and
+              dequantized int8 pools, at the shapes of llama-3.2-1b, -3b and
+              3.1-8b; the per-Q-head prefill kernel also bit for bit against
+              the G-fold one. Then each one's time at the main path's shapes
+              beside its bound, the plain version's time and one PyTorch
+              call's (scaled_dot_product_attention, a yardstick only)
+  3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
+              the kernels and through their plain versions: the engine on a
+              float and on an int8 pool, and the one-shot path
+              (forward_prefill + 8 decode_steps) on a float and an int8 pool,
+              and on a float pool with a ragged prompt of 3000 tokens;
+              greedy tokens, devstats and the integer pool state equal; on
+              int8 pools, where a quantizer input rounds differently on the
+              two runs, the first such value on both sides
   4. serve    llama-3.2-1b at full width (bf16, random weights from a seed):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
               prefix), 32 greedy tokens each, under paged_eviction (page 16,
@@ -23,6 +31,11 @@ Phases (any failure exits non-zero; none is skipped):
               every request's token count, that both kernels ran, that pages
               were evicted and prefixes shared, the pool invariants F1-F4 and
               the devstats conservation identities at every step.
+  5. one-shot llama-3.2-1b at full width, the paper's own experiment: 4
+              prompts of up to 4096 tokens prefilled through the flash
+              kernel, compressed to budget 512 by Alg. 2, then 32 greedy
+              tokens under Alg. 3, once on a bf16 and once on an int8 pool
+  6. int8     phase 4's workload (8 requests) served on an int8 pool
 
 Prints the card's name and power limit, one JSON line describing every
 kernel, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -51,9 +64,21 @@ KERNELS = {
     "paged_decode": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:249"),
+    "paged_decode_int8": dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:309"),
     "paged_prefill": dict(
         source="src/repro_torch/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill.py:240"),
+    "paged_prefill_per_qhead": dict(
+        source="src/repro_torch/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill.py:322"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_prefill.py:115"),
+    "block_score": dict(
+        source="src/repro_torch/csrc/block_score.cu",
+        replaces="src/repro/kernels/block_score.py:49"),
 }
 
 
@@ -67,6 +92,31 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def launch_counters():
+    """name -> (object, attribute) of every kernel wrapper's launch count."""
+    from repro_torch.kernels.block_score import block_score_cuda
+    from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                                   paged_prefill_cuda)
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_int8_cuda)
+    return {"paged_decode": (paged_attention_cuda, "launches"),
+            "paged_decode_int8": (paged_attention_int8_cuda, "launches"),
+            "paged_prefill": (paged_prefill_cuda, "launches"),
+            "paged_prefill_per_qhead": (paged_prefill_cuda,
+                                        "per_qhead_launches"),
+            "flash_attention": (flash_attention_cuda, "launches"),
+            "block_score": (block_score_cuda, "launches")}
+
+
+def reset_launches() -> None:
+    for obj, attr in launch_counters().values():
+        setattr(obj, attr, 0)
+
+
+def read_launches() -> dict:
+    return {n: getattr(o, a) for n, (o, a) in launch_counters().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +163,7 @@ SHAPES = {  # name: (KV, G, hd, page)
     "llama-3.1-8b": (8, 4, 128, 16),
 }
 B, P, T = 8, 49, 256     # the main path: max batch 8, 49 slots, chunk 256
+B1, S1 = 4, 4096         # the one-shot path: 4 prompts of 4096 tokens
 
 
 def _err(got, want, dname):
@@ -128,80 +179,140 @@ def _norm_err(got, want):
                for g, w in zip(got, want))
 
 
+def _check(worst, name, label, err, share, nerr=0.0, extra=""):
+    print(f"  {name:23s} {label}: max abs err {err:.3g}, {share:.3g} of the "
+          f"tolerance; norm rel err {nerr:.3g} (tol {NORM_RTOL}){extra}",
+          flush=True)
+    if not share <= 1 or not nerr <= NORM_RTOL:
+        fail(f"{name} disagrees with its plain version on {label}")
+    worst[name] = max(worst.get(name, 0.0), err)
+
+
 def check_kernels(torch):
-    from repro_torch.kernels.flash_prefill import (paged_prefill_cuda,
+    from repro_torch.kernels.block_score import (block_score_cuda,
+                                                 block_score_plain)
+    from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                                   flash_attention_plain,
+                                                   paged_prefill_cuda,
                                                    paged_prefill_plain)
-    from repro_torch.kernels.paged_attention import (combine_splits,
-                                                     paged_attention_cuda,
-                                                     paged_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        combine_splits, dequantize, paged_attention_cuda,
+        paged_attention_int8_cuda, paged_attention_int8_plain,
+        paged_attention_plain)
     from repro_torch.kernels.ref import churned_pool, prefill_positions
-    worst = {"paged_decode": 0.0, "paged_prefill": 0.0}
+    worst: dict = {}
     seed = 0
     for arch, (KV, G, hd, page) in SHAPES.items():
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
             seed += 1
-            k, v, pos, bt, cur = (t.cuda() for t in churned_pool(
-                B, P, page, KV, hd, dt, seed))
+            k, v, pos, bt, cur = churned_pool(B, P, page, KV, hd, dt, seed)
+            k8, v8, ks, vs, pos8, bt8, cur8 = churned_pool(
+                B, P, page, KV, hd, torch.int8, seed + 100)
             g = torch.Generator().manual_seed(seed)
             for window in (0, 8 * page):
                 q = torch.randn((B, KV, G, hd), generator=g).to(dt).cuda()
                 for splits in (1, 4):
                     kw = dict(window=window, num_splits=splits,
                               return_scores=True)
+                    label = f"{arch} {dname} window {window} splits {splits}"
                     a, m, l, nk = paged_attention_cuda(q, k, v, pos, bt, cur,
                                                        **kw)
                     a2, m2, l2, nk2 = paged_attention_plain(q, k, v, pos, bt,
                                                             cur, **kw)
                     torch.cuda.synchronize()
-                    err, share = _err(combine_splits(a, m, l).to(dt),
-                                      combine_splits(a2, m2, l2).to(dt),
-                                      dname)
-                    nerr = _norm_err(nk, nk2)
-                    print(f"  paged_decode  {arch:13s} {dname:8s} window "
-                          f"{window:3d} splits {splits}: max abs err "
-                          f"{err:.3g}, {share:.3g} of the tolerance (atol, "
-                          f"rtol) {TOL[dname]}; norm rel err {nerr:.3g} "
-                          f"(tol {NORM_RTOL})", flush=True)
-                    if not share <= 1 or not nerr <= NORM_RTOL:
-                        fail(f"paged_decode disagrees on {arch} {dname}")
-                    worst["paged_decode"] = max(worst["paged_decode"], err)
+                    _check(worst, "paged_decode", label,
+                           *_err(combine_splits(a, m, l).to(dt),
+                                 combine_splits(a2, m2, l2).to(dt), dname),
+                           _norm_err(nk, nk2))
+                    a, m, l, nk = paged_attention_int8_cuda(
+                        q, k8, v8, ks, vs, pos8, bt8, cur8, **kw)
+                    a2, m2, l2, nk2 = paged_attention_int8_plain(
+                        q, k8, v8, ks, vs, pos8, bt8, cur8, **kw)
+                    torch.cuda.synchronize()
+                    _check(worst, "paged_decode_int8", label,
+                           *_err(combine_splits(a, m, l).to(dt),
+                                 combine_splits(a2, m2, l2).to(dt), dname),
+                           _norm_err(nk, nk2))
                 qp = prefill_positions(cur.cpu(), T).cuda()
                 qf = torch.randn((B, T, KV * G, hd), generator=g).to(dt).cuda()
                 kw = dict(window=window, return_scores=True)
                 o, nk = paged_prefill_cuda(qf, k, v, pos, bt, qp, **kw)
                 o2, nk2 = paged_prefill_plain(qf, k, v, pos, bt, qp, **kw)
+                o3, _ = paged_prefill_cuda(qf, k, v, pos, bt, qp,
+                                           window=window, per_qhead=True)
                 torch.cuda.synchronize()
-                (err, share), nerr = _err(o, o2, dname), _norm_err(nk, nk2)
+                label = f"{arch} {dname} window {window}"
                 pad = float(o[B - 1].float().abs().max())
-                print(f"  paged_prefill {arch:13s} {dname:8s} window "
-                      f"{window:3d}: max abs err {err:.3g}, {share:.3g} of "
-                      f"the tolerance (atol, rtol) {TOL[dname]}; norm rel "
-                      f"err {nerr:.3g}, padding rows max |out| {pad}",
-                      flush=True)
-                if not share <= 1 or not nerr <= NORM_RTOL or pad:
-                    fail(f"paged_prefill disagrees on {arch} {dname}")
-                worst["paged_prefill"] = max(worst["paged_prefill"], err)
+                if pad:
+                    fail(f"paged_prefill: padding rows give {pad}, not 0")
+                _check(worst, "paged_prefill", label, *_err(o, o2, dname),
+                       _norm_err(nk, nk2))
+                fold = float((o3.float() - o.float()).abs().max())
+                _check(worst, "paged_prefill_per_qhead", label,
+                       *_err(o3, o2, dname),
+                       extra=f"; bit-equal to the G-fold kernel: "
+                             f"{bool(torch.equal(o3, o))} (max diff {fold})")
+                if not torch.equal(o3, o):
+                    fail("the per-Q-head prefill kernel is not bit-equal to "
+                         "the G-fold one")
+            # flash attention: 128 tokens (B 2) and 4096 (B 1: the plain
+            # version holds every head's (S, S) scores), window 0 and > 0
+            S = 128 if dname == "float32" else S1
+            nb = 2 if dname == "float32" else 1
+            for window in (0, S // 4):
+                x = [torch.randn((nb, S, n, hd), generator=g).to(dt).cuda()
+                     for n in (KV * G, KV, KV)]
+                o = flash_attention_cuda(*x, window=window)
+                o2 = flash_attention_plain(*x, window=window)
+                torch.cuda.synchronize()
+                _check(worst, "flash_attention",
+                       f"{arch} {dname} S {S} window {window}",
+                       *_err(o, o2, dname))
+                del x, o, o2
+            # page scores: the float pool and the dequantized int8 one
+            for label, kp, vp, pp in (
+                    (dname, k, v, pos),
+                    ("int8", dequantize(k8, ks), dequantize(v8, vs), pos8)):
+                got, want = block_score_cuda(kp, vp, pp), \
+                    block_score_plain(kp, vp, pp)
+                torch.cuda.synchronize()
+                if not torch.equal(torch.isinf(got), torch.isinf(want)):
+                    fail("block_score: empty pages differ")
+                fin = torch.isfinite(want)
+                err = float((got[fin] - want[fin]).abs().max())
+                rel = float(((got[fin] - want[fin]).abs() /
+                             want[fin].abs().clamp_min(1e-6)).max())
+                _check(worst, "block_score", f"{arch} {label} pool",
+                       err, 0.0, rel)
     return worst
 
 
 def time_kernels(torch, F):
-    """Times at the main path's shapes (llama-3.2-1b, bf16, decode splits
-    4, chunk 256) with each kernel's bound and the yardsticks."""
-    from repro_torch.kernels.flash_prefill import (paged_prefill_cuda,
+    """Times at the main paths' shapes (llama-3.2-1b, bf16): the serving
+    path's decode (splits 4) and mixed steps (chunk 256) on churned pools,
+    the one-shot prefill (B 4, 4096 tokens), the pool pass on the serving
+    pool, each with its bound and yardsticks."""
+    from repro_torch.kernels.block_score import (block_score_cuda,
+                                                 block_score_plain)
+    from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                                   flash_attention_plain,
+                                                   paged_prefill_cuda,
                                                    paged_prefill_plain)
-    from repro_torch.kernels.paged_attention import (combine_splits,
-                                                     paged_attention_cuda,
-                                                     paged_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        dequantize, paged_attention_cuda, paged_attention_int8_cuda,
+        paged_attention_int8_plain, paged_attention_plain)
     from repro_torch.kernels.ref import (churned_pool, gather_block_table,
                                          prefill_positions)
     KV, G, hd, page = SHAPES["llama-3.2-1b"]
+    H = KV * G
     dt, dname = torch.bfloat16, "bfloat16"
-    k, v, pos, bt, cur = (t.cuda() for t in churned_pool(
-        B, P, page, KV, hd, dt, 100))
+    k, v, pos, bt, cur = churned_pool(B, P, page, KV, hd, dt, 100)
+    k8, v8, ks, vs, _, _, _ = churned_pool(B, P, page, KV, hd, torch.int8,
+                                           100)
     g = torch.Generator().manual_seed(100)
     q = torch.randn((B, KV, G, hd), generator=g).to(dt).cuda()
-    qf = torch.randn((B, T, KV * G, hd), generator=g).to(dt).cuda()
+    qf = torch.randn((B, T, H, hd), generator=g).to(dt).cuda()
     qp = prefill_positions(cur.cpu(), T).cuda()
     dec = dict(num_splits=4, return_scores=True)
     pre = dict(return_scores=True)
@@ -212,13 +323,15 @@ def time_kernels(torch, F):
     # outputs; operations: 4 * hd per valid (query, key) pair
     kg, vg, pg = gather_block_table(k, v, pos, bt)
     phys = torch.unique(bt.clamp_min(0))
-    kv_bytes = 2 * phys.numel() * page * KV * hd * k.element_size() + \
-        phys.numel() * page * 4 + nbytes(bt)
+    n_el = phys.numel() * page * KV * hd
+    meta = phys.numel() * page * 4 + nbytes(bt)
+    kv_bytes = 2 * n_el * k.element_size() + meta
+    kv8_bytes = 2 * n_el + 2 * phys.numel() * page * KV * 4 + meta
     norms_bytes = 2 * B * KV * P * page * 4
     S = P * page
     kpos = pg.reshape(B, 1, S)
     valid_dec = (kpos >= 0) & (kpos <= cur[:, None, None])
-    flops = 4 * hd * KV * G * int(valid_dec.sum())
+    flops = 4 * hd * H * int(valid_dec.sum())
     res["paged_decode"] = dict(
         ms=timed(torch, lambda: paged_attention_cuda(q, k, v, pos, bt, cur,
                                                      **dec)),
@@ -226,9 +339,16 @@ def time_kernels(torch, F):
                                                             cur, **dec)),
         bound=bound_ms(kv_bytes + nbytes(q, cur) + nbytes(q) + norms_bytes,
                        flops, dname))
+    res["paged_decode_int8"] = dict(
+        ms=timed(torch, lambda: paged_attention_int8_cuda(
+            q, k8, v8, ks, vs, pos, bt, cur, **dec)),
+        plain_ms=timed(torch, lambda: paged_attention_int8_plain(
+            q, k8, v8, ks, vs, pos, bt, cur, **dec)),
+        bound=bound_ms(kv8_bytes + nbytes(q, cur) + nbytes(q) + norms_bytes,
+                       flops, dname))
     qpe = qp[:, :, None]
     valid_pre = (kpos >= 0) & (qpe >= 0) & (kpos <= qpe)       # (B, T, S)
-    flops = 4 * hd * KV * G * int(valid_pre.sum())
+    flops = 4 * hd * H * int(valid_pre.sum())
     res["paged_prefill"] = dict(
         ms=timed(torch, lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp,
                                                    **pre)),
@@ -236,26 +356,71 @@ def time_kernels(torch, F):
                                                           qp, **pre)),
         bound=bound_ms(kv_bytes + 2 * nbytes(qf) + nbytes(qp) + norms_bytes,
                        flops, dname))
+    res["paged_prefill_per_qhead"] = dict(
+        ms=timed(torch, lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp,
+                                                   per_qhead=True)),
+        plain_ms=timed(torch, lambda: paged_prefill_plain(qf, k, v, pos, bt,
+                                                          qp,
+                                                          per_qhead=True)),
+        bound=bound_ms(kv_bytes + 2 * nbytes(qf) + nbytes(qp), flops, dname))
     # yardstick: one SDPA call on the gathered (B, KV, P * page, hd) view
     kd = kg.reshape(B, KV, S, hd)
     vd = vg.reshape(B, KV, S, hd)
-    qd = q.reshape(B, KV * G, 1, hd)
+    qd = q.reshape(B, H, 1, hd)
     md = valid_dec[:, :, None, :]
-    res["paged_decode"]["library_ms"] = timed(torch, lambda: F.scaled_dot_product_attention(
+    sdpa_dec = timed(torch, lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=md, enable_gqa=True))
+    res["paged_decode"]["library_ms"] = sdpa_dec
+    kd8 = dequantize(k8, ks)[bt.clamp_min(0).long()].permute(0, 3, 1, 2, 4) \
+        .reshape(B, KV, S, hd).to(dt)
+    vd8 = dequantize(v8, vs)[bt.clamp_min(0).long()].permute(0, 3, 1, 2, 4) \
+        .reshape(B, KV, S, hd).to(dt)
+    res["paged_decode_int8"]["library_ms"] = timed(
+        torch, lambda: F.scaled_dot_product_attention(
+            qd, kd8, vd8, attn_mask=md, enable_gqa=True))
     qpf = qf.transpose(1, 2)
     mp = valid_pre[:, None]
-    res["paged_prefill"]["library_ms"] = timed(torch, lambda: F.scaled_dot_product_attention(
+    sdpa_pre = timed(torch, lambda: F.scaled_dot_product_attention(
         qpf, kd, vd, attn_mask=mp, enable_gqa=True))
+    res["paged_prefill"]["library_ms"] = sdpa_pre
+    res["paged_prefill_per_qhead"]["library_ms"] = sdpa_pre
+    del kd8, vd8
+
+    # the one-shot prefill: B 4 prompts of 4096 tokens; the plain version
+    # at B 1 (it holds every head's (S, S) scores)
+    x = [torch.randn((B1, S1, n, hd), generator=g).to(dt).cuda()
+         for n in (H, KV, KV)]
+    x1 = [t[:1] for t in x]
+    flops = 4 * hd * H * B1 * S1 * (S1 + 1) // 2
+    res["flash_attention"] = dict(
+        ms=timed(torch, lambda: flash_attention_cuda(*x), iters=5),
+        plain_ms=timed(torch, lambda: flash_attention_plain(*x1), iters=3,
+                       warmup=1),
+        plain_note=f"B 1 of {B1}",
+        bound=bound_ms(2 * nbytes(x[0]) + nbytes(x[1], x[2]), flops, dname),
+        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in x), is_causal=True,
+            enable_gqa=True), iters=5))
+    del x, x1
+    # the pool pass over the serving pool (every page, one score each)
+    res["block_score"] = dict(
+        ms=timed(torch, lambda: block_score_cuda(k, v, pos)),
+        plain_ms=timed(torch, lambda: block_score_plain(k, v, pos)),
+        bound=bound_ms(nbytes(k, v, pos) + 4 * pos.shape[0],
+                       4 * k.numel(), dname),
+        library_ms=None)
     for name, r in res.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        note = f" ({r['plain_note']})" if "plain_note" in r else ""
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
-              f"ms ({r['bound'][1]})", flush=True)
+              f"ms{note}, library {lib}, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})", flush=True)
     return res
 
 
 # ---------------------------------------------------------------------------
-# phase 3 / 4: the engine
+# phases 3-6: the engine and the one-shot path
 # ---------------------------------------------------------------------------
 
 def pool_totals(torch, eng):
@@ -277,8 +442,8 @@ def check_conservation(np, devstats, before, after, st):
              f"devstats say {want}")
 
 
-def check_invariants(np, eng):
-    for i, c in enumerate(eng.cache.layers):
+def check_invariants(np, layers):
+    for i, c in enumerate(layers):
         ref = c.ref_count.cpu().numpy()
         bt = c.block_table.cpu().numpy()
         pos = c.pos.cpu().numpy()
@@ -322,13 +487,101 @@ def run_engine(torch, np, devstats, eng, prompts, new_tokens):
     return tokens, per_step, wall
 
 
-def engine_parity(torch, np):
+def pool_state(np, layers):
+    """Per layer: the integer pool state (one array) and, on int8 pools,
+    (int8 K and V, their scales)."""
+    ints, q8 = [], []
+    for c in layers:
+        ints.append(np.concatenate([
+            t.cpu().numpy().ravel()
+            for t in (c.block_table, c.ref_count, c.pos, c.cur_page,
+                      c.cur_off)]))
+        if c.quantized:
+            q8.append(tuple(t.cpu().numpy()
+                            for t in (c.k, c.v, c.k_scale, c.v_scale)))
+    return ints, q8
+
+
+def compare_int8(np, q8k, q8p, what):
+    """int8 values and scales of two runs. Layer 0's inputs are the same
+    bits on both (embedding and projections only), so its int8 values and
+    scales must be equal; deeper layers see attention outputs that differ
+    in the last f32 bits, and a value on a rounding boundary may then land
+    one int8 step away: those are counted, and must stay one step and rare."""
+    flips = total = 0
+    for i, (a, b) in enumerate(zip(q8k, q8p)):
+        for name, x, y in zip(("k", "v", "k_scale", "v_scale"), a, b):
+            if i == 0 and not np.array_equal(x, y):
+                fail(f"{what}: layer 0 {name} differs")
+            if name.endswith("scale"):
+                if not np.allclose(x, y, rtol=1e-5, atol=0):
+                    fail(f"{what}: layer {i} {name} beyond 1e-5 relative")
+                continue
+            d = np.abs(x.astype(np.int32) - y.astype(np.int32))
+            if d.max() > 1:
+                fail(f"{what}: layer {i} {name} differs by {d.max()} steps")
+            flips += int((d > 0).sum())
+            total += d.size
+    if flips > 1e-4 * total:
+        fail(f"{what}: {flips} of {total} int8 values differ")
+    return flips, total
+
+
+def record_quantize():
+    """Wrap the pools' quantizer so that every input it is given is kept, in
+    call order. Returns (the list, a function that removes the wrap)."""
+    from repro_torch.core import paged_cache
+    orig = paged_cache.quantize_absmax
+    seen = []
+
+    def rec(x):
+        seen.append(x.detach().float().clone())
+        return orig(x)
+
+    paged_cache.quantize_absmax = rec
+    return seen, lambda: setattr(paged_cache, "quantize_absmax", orig)
+
+
+def first_flip(torch, xk, xp):
+    """Where two runs' quantizer inputs (same calls, same order) round to
+    different int8 values: how many values in how many calls, and the first
+    one with its input and its pre-rounding value x / absmax * 127 on both
+    sides."""
+    n_flip = n_calls = 0
+    first = "none"
+    for i, (a, b) in enumerate(zip(xk, xp)):
+        if a.shape != b.shape:
+            fail(f"quantizer call {i}: shapes {a.shape} and {b.shape}")
+        sa, sb = a.abs().amax(-1), b.abs().amax(-1)
+        ra = a / sa.clamp_min(1e-8)[..., None] * 127.0
+        rb = b / sb.clamp_min(1e-8)[..., None] * 127.0
+        d = torch.round(ra) != torch.round(rb)
+        if not d.any():
+            continue
+        n_flip += int(d.sum())
+        n_calls += 1
+        if first == "none":
+            j = tuple(int(t) for t in d.nonzero()[0])
+            first = (f"call {i} of {len(xk)}, element {j}: input "
+                     f"{float(a[j]):.9g} / {float(b[j]):.9g}, absmax "
+                     f"{float(sa[j[:-1]]):.9g} / {float(sb[j[:-1]]):.9g}, "
+                     f"x / absmax * 127 = {float(ra[j]):.9g} / "
+                     f"{float(rb[j]):.9g} -> {int(torch.round(ra[j]))} / "
+                     f"{int(torch.round(rb[j]))} (kernels / plain)")
+    return f"{n_flip} values in {n_calls} calls differ; first: {first}"
+
+
+def _reduced(get_arch):
+    return dataclasses.replace(get_arch("llama-3.2-1b").reduced(),
+                               num_heads=4, num_kv_heads=2)
+
+
+def engine_parity(torch, np, kv_dtype):
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
     from repro_torch.serving import Engine
-    cfg = dataclasses.replace(get_arch("llama-3.2-1b").reduced(),
-                              num_heads=4, num_kv_heads=2)
+    cfg = _reduced(get_arch)
     params = init_model(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 32)
@@ -337,41 +590,135 @@ def engine_parity(torch, np):
                                rng.integers(0, cfg.vocab_size,
                                             int(rng.integers(8, 64)))])
                .astype(np.int32) for i in range(8)]
-    out = []
+    out, inputs = [], []
     for plain in (False, True):
         eng = Engine(cfg, params, cache_cfg=CacheConfig(
-            page_size=8, cache_budget=48, dtype="float32"), max_batch=4,
+            page_size=8, cache_budget=48, dtype=kv_dtype), max_batch=4,
             max_prompt_len=96, max_new_tokens=16, chunk_size=32,
             decode_splits=2, device="cuda", plain_kernels=plain)
-        toks, steps, _ = run_engine(torch, np, devstats, eng, prompts, 16)
-        ints = [np.concatenate([c.block_table.cpu().numpy().ravel(),
-                                c.ref_count.cpu().numpy(),
-                                c.pos.cpu().numpy().ravel(),
-                                c.cur_page.cpu().numpy(),
-                                c.cur_off.cpu().numpy()])
-                for c in eng.cache.layers]
-        out.append((toks, steps, ints, eng.stats))
-    (tk, sk, ik, stk), (tp, sp, ip, stp) = out
+        seen, undo = record_quantize()
+        try:
+            toks, steps, _ = run_engine(torch, np, devstats, eng, prompts, 16)
+        finally:
+            undo()
+        inputs.append(seen)
+        out.append((toks, steps, *pool_state(np, eng.cache.layers), eng.stats))
+    (tk, sk, ik, qk, stk), (tp, sp, ip, qp, stp) = out
+    what = f"engine parity ({kv_dtype})"
     if tk != tp:
-        fail("engine parity: greedy tokens differ between kernels and "
-             "plain versions")
+        fail(f"{what}: greedy tokens differ between kernels and plain")
     if len(sk) != len(sp) or any(not np.array_equal(a, b)
                                  for a, b in zip(sk, sp)):
-        fail("engine parity: per-step devstats differ")
+        fail(f"{what}: per-step devstats differ")
     if any(not np.array_equal(a, b) for a, b in zip(ik, ip)):
-        fail("engine parity: final integer pool state differs")
+        fail(f"{what}: final integer pool state differs")
+    flips = compare_int8(np, qk, qp, what) if qk else (0, 0)
+    if qk:
+        print(f"  engine int8 quantizer inputs: {first_flip(torch, *inputs)}",
+              flush=True)
     if not stk.pages_evicted or not stk.shared_prefix_hits:
-        fail(f"engine parity run exercised too little: {stk}")
-    print(f"  {len(tk)} requests, {len(sk)} steps: tokens, per-step devstats "
-          f"and pool state equal; evicted {stk.pages_evicted} pages, "
-          f"{stk.shared_prefix_hits} prefix adoptions", flush=True)
+        fail(f"{what} exercised too little: {stk}")
+    print(f"  engine {kv_dtype:8s}: {len(tk)} requests, {len(sk)} steps: "
+          f"tokens, per-step devstats and pool state equal; int8 values "
+          f"one step apart {flips[0]} of {flips[1]}; evicted "
+          f"{stk.pages_evicted} pages, {stk.shared_prefix_hits} prefix "
+          f"adoptions", flush=True)
 
 
-def serve_full_width(torch, np):
+def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
+                decode_splits=1):
+    """forward_prefill, then ``steps`` greedy decode_steps (the kernels'
+    eviction ranking, fused_scores, on both). The caches get devstats
+    vectors after the prefill (a wholesale reset, it emits none), so every
+    decode step's events are read. Returns (tokens (B, steps), layer
+    caches, live tokens per row after prefill, per-step devstats (steps,
+    NSTATS), prefill seconds, decode seconds)."""
+    from repro_torch.core import devstats
+    from repro_torch.core.policies import get_policy
+    from repro_torch.models.transformer import (collect_step_stats,
+                                                decode_step, forward_prefill)
+    pol = get_policy(ccfg.policy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = forward_prefill(params, cfg, tokens, pol, ccfg,
+                                    valid=valid,
+                                    total_seq_hint=tokens.shape[1] + steps,
+                                    plain_kernels=plain)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    live = torch.stack([c.total_valid() for c in cache.layers])
+    for c in cache.layers:
+        c.stats = devstats.zeros(c.device)
+    out, stats = [], []
+    for _ in range(steps):
+        logits, cache = decode_step(params, cfg, tok, cache, pol, ccfg,
+                                    decode_splits=decode_splits,
+                                    fused_scores=True, plain_kernels=plain)
+        stats.append(collect_step_stats(cache))
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not bool(torch.isfinite(logits).all()):
+        fail("one-shot: non-finite logits")
+    return (torch.stack(out, 1).cpu().numpy(), cache.layers, live,
+            torch.stack(stats).cpu().numpy(), t1 - t0, t2 - t1)
+
+
+def oneshot_parity(torch, np, kv_dtype, S=128):
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
-    from repro_torch.kernels.flash_prefill import paged_prefill_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.transformer import init_model
+    cfg = _reduced(get_arch)
+    params = init_model(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(1)
+    Bp = 3
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (Bp, S))
+                              .astype(np.int32)).cuda()
+    valid = torch.arange(S, device="cuda")[None, :] < \
+        torch.tensor([[S], [S - 5], [S - 19]], device="cuda")
+    ccfg = CacheConfig(page_size=8, cache_budget=32, dtype=kv_dtype)
+    reset_launches()
+    runs, inputs = [], []
+    for plain in (False, True):
+        seen, undo = record_quantize()
+        try:
+            runs.append(oneshot_run(torch, params, cfg, ccfg, tokens, valid,
+                                    8, plain, decode_splits=2))
+        finally:
+            undo()
+        inputs.append(seen)
+    launches = read_launches()
+    (tk, lk, _, sk, _, _), (tp, lp, _, sp, _, _) = runs
+    what = f"one-shot parity ({kv_dtype}, S {S})"
+    dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
+    if not launches["flash_attention"] or not launches[dec]:
+        fail(f"{what}: kernels not launched: {launches}")
+    if not np.array_equal(tk, tp):
+        fail(f"{what}: greedy tokens differ")
+    if not np.array_equal(sk, sp):
+        fail(f"{what}: per-step devstats differ")
+    ik, qk = pool_state(np, lk)
+    ip, qp = pool_state(np, lp)
+    if any(not np.array_equal(a, b) for a, b in zip(ik, ip)):
+        fail(f"{what}: integer cache state differs")
+    flips = compare_int8(np, qk, qp, what) if qk else (0, 0)
+    evicted = int(sk[:, devstats.PAGES_EVICTED].sum())
+    if not evicted:
+        fail(f"{what}: no page was evicted in decode")
+    if qk:
+        print(f"  one-shot int8 quantizer inputs: "
+              f"{first_flip(torch, *inputs)}", flush=True)
+    print(f"  one-shot {kv_dtype:8s} S {S}: {tk.shape[0]} prompts, 8 steps: "
+          f"tokens, per-step devstats and integer cache state equal; int8 "
+          f"values one step apart {flips[0]} of {flips[1]}; evicted "
+          f"{evicted} pages; launches {launches}", flush=True)
+
+
+def serve_full_width(torch, np, kv_dtype, n_requests):
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
     from repro_torch.serving import Engine
     cfg = get_arch("llama-3.2-1b")
@@ -379,25 +726,23 @@ def serve_full_width(torch, np):
     params = init_model(cfg, seed=0, device="cuda")
     eng = Engine(cfg, params, cache_cfg=CacheConfig(
         page_size=16, cache_budget=512, policy="paged_eviction",
-        dtype="bfloat16"), max_batch=8, max_prompt_len=2048,
+        dtype=kv_dtype), max_batch=8, max_prompt_len=2048,
         max_new_tokens=32, chunk_size=256, decode_splits=4, device="cuda")
     torch.cuda.synchronize()
     print(f"  model + caches ready in {time.perf_counter() - t0:.1f} s; "
           f"pool payload {eng.pool_bytes()['payload_total'] / 2 ** 20:.1f} "
-          f"MiB over {cfg.num_layers} layers", flush=True)
+          f"MiB over {cfg.num_layers} layers ({kv_dtype})", flush=True)
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 256)
     prompts = []
-    for i in range(16):
+    for i in range(n_requests):
         n = int(rng.integers(1024, 2049))
         head = shared if i % 2 == 0 else rng.integers(0, cfg.vocab_size, 256)
         prompts.append(np.concatenate(
             [head, rng.integers(0, cfg.vocab_size, n - 256)]).astype(np.int32))
-    paged_attention_cuda.launches = 0
-    paged_prefill_cuda.launches = 0
+    reset_launches()
     tokens, _, wall = run_engine(torch, np, devstats, eng, prompts, 32)
-    launches = {"paged_decode": paged_attention_cuda.launches,
-                "paged_prefill": paged_prefill_cuda.launches}
+    launches = read_launches()
     s = eng.stats
     print(f"  {len(tokens)} requests, {s.tokens_generated} tokens, "
           f"{s.steps} steps ({s.steps - s.decode_steps} mixed, "
@@ -410,17 +755,90 @@ def serve_full_width(torch, np):
           f"prefix adoptions {s.shared_prefix_hits} "
           f"({s.shared_prefix_tokens} prompt tokens skipped); "
           f"pool {eng.pool_stats()}", flush=True)
-    if len(tokens) != 16 or any(len(t) != 32 for t in tokens.values()):
+    if len(tokens) != n_requests or any(len(t) != 32
+                                        for t in tokens.values()):
         fail(f"not every request finished with 32 tokens: "
              f"{ {k: len(t) for k, t in tokens.items()} }")
     if any(not 0 <= x < cfg.vocab_size for t in tokens.values() for x in t):
         fail("a sampled token is outside the vocabulary")
-    if not all(launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
+    dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
+    others = {"paged_decode", "paged_decode_int8"} - {dec}
+    if not launches[dec] or not launches["paged_prefill"] or \
+            any(launches[n] for n in others):
+        fail(f"the {kv_dtype} path's kernels did not run as expected: "
+             f"{launches}")
     if not s.pages_evicted or not s.shared_prefix_hits:
         fail(f"no eviction or no prefix sharing at full width: {s}")
-    check_invariants(np, eng)
-    return launches, wall, s
+    check_invariants(np, eng.cache.layers)
+    return launches
+
+
+def oneshot_full_width(torch, np):
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.core import devstats
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+    cfg = get_arch("llama-3.2-1b")
+    params = init_model(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B1, S1))
+                              .astype(np.int32)).cuda()
+    lens = torch.tensor([S1, S1 - 96, S1 - 1000, S1 - 2049], device="cuda")
+    valid = torch.arange(S1, device="cuda")[None, :] < lens[:, None]
+    budget, page, steps = 512, 16, 32
+    out, launches_all = {}, {}
+    for kv_dtype in ("bfloat16", "int8"):
+        ccfg = CacheConfig(page_size=page, cache_budget=budget,
+                           policy="paged_eviction", dtype=kv_dtype)
+        reset_launches()
+        toks, layers, live, stats, t_pre, t_dec = oneshot_run(
+            torch, params, cfg, ccfg, tokens, valid, steps, plain=False,
+            decode_splits=4)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        # the pool pass (block_score) is the oracle of the fused epilogue:
+        # both score the pool after decode the same, bf16 or int8
+        q = torch.randn((B1, cfg.num_heads, cfg.resolved_head_dim),
+                        device="cuda").to(torch.bfloat16)
+        worst = 0.0
+        for c in layers:
+            _, fused = ops.paged_attention(q, c, cur_pos=c.pos.max().expand(
+                B1), return_scores=True)
+            pool = ops.page_scores(c)
+            fin = torch.isfinite(pool)
+            if not torch.equal(fin, torch.isfinite(fused)):
+                fail("one-shot: the pool pass and the epilogue disagree on "
+                     "which pages are empty")
+            worst = max(worst, float(((pool[fin] - fused[fin]).abs() /
+                                      pool[fin].abs()).max()))
+        if worst > NORM_RTOL:
+            fail(f"one-shot: pool page scores vs the epilogue: {worst}")
+        dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
+        if not launches["flash_attention"] or not launches[dec]:
+            fail(f"one-shot {kv_dtype}: kernels not launched: {launches}")
+        max_live = int(live.max())
+        if max_live > budget + page:
+            fail(f"one-shot {kv_dtype}: {max_live} live tokens after "
+                 f"prefill, above budget + page")
+        evicted = int(stats[:, devstats.PAGES_EVICTED].sum())
+        if not evicted:
+            fail(f"one-shot {kv_dtype}: no page evicted during decode")
+        check_invariants(np, layers)
+        pool_b = sum(nbytes(c.k_buf, c.v_buf, c.k_scale_buf, c.v_scale_buf)
+                     for c in layers)
+        print(f"  {kv_dtype:8s}: prefill {1e3 * t_pre:.1f} ms, mean decode "
+              f"step {1e3 * t_dec / steps:.2f} ms, {B1 * steps / t_dec:.1f} "
+              f"decode tok/s; live tokens after prefill <= {max_live}; "
+              f"{evicted} pages evicted in decode; pool "
+              f"payload {pool_b} bytes; pool pass vs epilogue page scores "
+              f"rel err {worst:.3g}; launches {launches}", flush=True)
+        out[kv_dtype] = toks
+        launches_all[kv_dtype] = launches
+        del layers
+    agree = float((out["bfloat16"] == out["int8"]).mean())
+    print(f"  greedy tokens equal on bf16 and int8 pools: {agree:.4f} of "
+          f"{out['int8'].size}", flush=True)
+    return launches_all
 
 
 def main() -> None:
@@ -432,6 +850,7 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"the port's sources are not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -442,32 +861,63 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/4] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/6] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    print("[2/4] kernels against their plain versions", flush=True)
+    def phase(title):
+        print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
+              flush=True)
+
+    phase("[2/6] kernels against their plain versions")
+    reset_launches()
     worst = check_kernels(torch)
+    checked = read_launches()
     timing = time_kernels(torch, F)
 
-    print("[3/4] engine through the kernels vs their plain versions",
-          flush=True)
-    engine_parity(torch, np)
+    phase("[3/6] kernels vs plain versions: engine and one-shot, float and "
+          "int8 pools")
+    for kv_dtype in ("float32", "int8"):
+        engine_parity(torch, np, kv_dtype)
+    for kv_dtype in ("float32", "int8"):
+        oneshot_parity(torch, np, kv_dtype)
+    # a ragged prompt above 2048 tokens: the flash kernel on the card
+    oneshot_parity(torch, np, "float32", S=3000)
 
-    print("[4/4] llama-3.2-1b at full width", flush=True)
-    launches, _, _ = serve_full_width(torch, np)
+    phase("[4/6] llama-3.2-1b at full width: serving, bf16 pool")
+    serve = serve_full_width(torch, np, "bfloat16", 16)
+    torch.cuda.empty_cache()
 
+    phase("[5/6] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    oneshot = oneshot_full_width(torch, np)
+    torch.cuda.empty_cache()
+
+    phase("[6/6] llama-3.2-1b at full width: serving, int8 pool")
+    serve8 = serve_full_width(torch, np, "int8", 8)
+
+    # launches on the main paths: decode and prefill from serving (phases 4
+    # and 6), flash attention from the one-shot prefill (phase 5); the
+    # per-Q-head kernel and the pool pass, oracles on no path, from phase 2
+    launches = {"paged_decode": serve["paged_decode"],
+                "paged_decode_int8": serve8["paged_decode_int8"],
+                "paged_prefill": serve["paged_prefill"],
+                "paged_prefill_per_qhead": checked["paged_prefill_per_qhead"],
+                "flash_attention": oneshot["bfloat16"]["flash_attention"],
+                "block_score": checked["block_score"]}
     rows = []
     for name, meta in KERNELS.items():
         r = timing[name]
+        if not launches[name]:
+            fail(f"{name} was never launched")
         rows.append({"name": name, "route": "cuda", **meta,
                      "launches": launches[name],
                      "max_abs_err": worst[name], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"]})
+    print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

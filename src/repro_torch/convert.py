@@ -7,7 +7,12 @@ the JAX package. JAX objects are read by their field names (duck typing).
 Parameter layouts agree leaf by leaf (weights (in, out), applied as
 ``x @ W``); only the stacking differs: JAX stacks each pattern slot over its
 repetitions, the port holds a plain list of layers in depth order (layer
-``r * period + p`` is repetition r of slot p, then the tail layers).
+``r * period + p`` is repetition r of slot p, then the tail layers). Caches
+cross with their int8 values and scales when quantized; a JAX cache from
+``forward_prefill`` or ``init_decode_caches`` converts alike.
+
+Functions that make tensors put them on ``device``: default CUDA, raising
+without a card (tests pass ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -16,10 +21,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_cache import PagedLayerCache
+from repro_torch.device import resolve_device
 from repro_torch.models.transformer import ModelCache
 
 CACHE_FIELDS = ("k", "v", "pos", "score", "block_table", "ref_count",
-                "cur_page", "cur_off", "stats")
+                "cur_page", "cur_off", "stats", "k_scale", "v_scale")
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -39,9 +45,10 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu",
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
                     dtype=None) -> dict:
     """JAX ``init_model`` tree (numpy leaves) -> the port's parameters."""
+    device = resolve_device(device)
     layers = [_map(tree["pattern"][p], lambda a, r=r: np.asarray(a)[r])
               for r in range(cfg.full_pattern_reps)
               for p in range(cfg.pattern_period)] + list(tree["tail"])
@@ -50,13 +57,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu",
     return _map(out, lambda a: _tensor(a, device, dtype))
 
 
-def layer_cache_from_jax(c, device="cpu") -> PagedLayerCache:
+def layer_cache_from_jax(c, device=None) -> PagedLayerCache:
     """One JAX ``PagedLayerCache`` (numpy fields) -> the port's, adding the
-    trash row."""
+    trash row (to the int8 scales too)."""
+    device = resolve_device(device)
     k, v = np.asarray(c.k), np.asarray(c.v)
     pos, score = np.asarray(c.pos), np.asarray(c.score)
     trash = lambda a, fill: np.concatenate(
         [a, np.full((1,) + a.shape[1:], fill, a.dtype)])
+    scale = lambda a: None if a is None else \
+        _tensor(trash(np.asarray(a), 0), device)
     return PagedLayerCache(
         k_buf=_tensor(trash(k, 0), device),
         v_buf=_tensor(trash(v, 0), device),
@@ -66,12 +76,15 @@ def layer_cache_from_jax(c, device="cpu") -> PagedLayerCache:
         ref_count=_tensor(c.ref_count, device),
         cur_page=_tensor(c.cur_page, device),
         cur_off=_tensor(c.cur_off, device),
-        stats=None if c.stats is None else _tensor(c.stats, device))
+        stats=None if c.stats is None else _tensor(c.stats, device),
+        k_scale_buf=scale(c.k_scale),
+        v_scale_buf=scale(c.v_scale))
 
 
 def layer_cache_to_numpy(c) -> dict:
-    """A layer cache -> {field: ndarray} over CACHE_FIELDS (stats None when
-    off). Accepts the port's cache or a JAX one with numpy-able fields."""
+    """A layer cache -> {field: ndarray} over CACHE_FIELDS (stats and the
+    scales None when off). Accepts the port's cache or a JAX one with
+    numpy-able fields."""
     out = {}
     for f in CACHE_FIELDS:
         a = getattr(c, f)
@@ -99,8 +112,9 @@ def jax_cache_layers(mc, period: int) -> list:
     return layers + [lc.kv for lc in mc.tail]
 
 
-def cache_from_jax(mc, cfg: ModelConfig, device="cpu") -> ModelCache:
+def cache_from_jax(mc, cfg: ModelConfig, device=None) -> ModelCache:
     """A JAX ``ModelCache`` (numpy leaves) -> the port's ``ModelCache``."""
+    device = resolve_device(device)
     layers = [layer_cache_from_jax(c, device)
               for c in jax_cache_layers(mc, cfg.pattern_period)]
     return ModelCache(layers=layers, cur_pos=_tensor(mc.cur_pos, device))

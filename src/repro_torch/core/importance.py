@@ -22,6 +22,11 @@ def vk_ratio_score(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _norms(v) / _norms(k).clamp_min(_EPS)
 
 
+def recency_score(positions: torch.Tensor) -> torch.Tensor:
+    """StreamingLLM ordering: newer = more important. positions: (...)."""
+    return positions.float()
+
+
 def page_scores_from_norms(kn, vn, pos_pages, mapped) -> torch.Tensor:
     """Paper Alg.1 page scores from the attention kernels' norm epilogue.
 

@@ -11,6 +11,8 @@ Layout (per attention layer):
     ref_count   : (N,) int32          block-table entries mapping the page;
                                       0 == on the free list
     cur_page, cur_off : (B,) int32    write head (LOGICAL slot, offset)
+    k_scale, v_scale  : (N, page, KV) f32  int8 pools only: absmax scale per
+                                      (token, head); K = int8 * scale / 127
 
 Differences from the JAX package, all invisible at the public layout:
 
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import devstats
+from repro_torch.device import resolve_device
 
 
 @dataclass
@@ -58,6 +61,9 @@ class PagedLayerCache:
     cur_page: torch.Tensor     # (B,) int32 logical slot
     cur_off: torch.Tensor      # (B,) int32
     stats: torch.Tensor | None = None  # (devstats.NSTATS,) int32; None == off
+    # int8 pools: (N + 1, page, KV) f32 absmax scales; None when not quantized
+    k_scale_buf: torch.Tensor | None = None
+    v_scale_buf: torch.Tensor | None = None
 
     # ---------------------------------------------------------- pool views
     @property
@@ -75,6 +81,30 @@ class PagedLayerCache:
     @property
     def score(self) -> torch.Tensor:
         return self.score_buf[:-1]
+
+    @property
+    def k_scale(self) -> torch.Tensor | None:
+        return None if self.k_scale_buf is None else self.k_scale_buf[:-1]
+
+    @property
+    def v_scale(self) -> torch.Tensor | None:
+        return None if self.v_scale_buf is None else self.v_scale_buf[:-1]
+
+    # ------------------------------------------------------- quantization
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale_buf is not None
+
+    def k_dequant(self) -> torch.Tensor:
+        """The K pool (N, page, KV, hd) in f32 when quantized, else as is."""
+        if not self.quantized:
+            return self.k
+        return self.k.float() * (self.k_scale / 127.0)[..., None]
+
+    def v_dequant(self) -> torch.Tensor:
+        if not self.quantized:
+            return self.v
+        return self.v.float() * (self.v_scale / 127.0)[..., None]
 
     # ------------------------------------------------------------ derived
     @property
@@ -124,10 +154,12 @@ class PagedLayerCache:
                            self.gather_pages(self.score), -torch.inf)
 
     def k_view(self) -> torch.Tensor:
-        return self.gather_pages(self.k)
+        """(B, P, page, KV, hd) dequantized per-request K (garbage where
+        unmapped: mask with valid_mask())."""
+        return self.gather_pages(self.k_dequant())
 
     def v_view(self) -> torch.Tensor:
-        return self.gather_pages(self.v)
+        return self.gather_pages(self.v_dequant())
 
     def head_mapped(self) -> torch.Tensor:
         """(B,) bool: the write head's logical slot holds a page."""
@@ -163,13 +195,25 @@ class PagedLayerCache:
         return self.free_mask().sum(dtype=torch.int32)
 
 
+def quantize_absmax(x: torch.Tensor):
+    """x: (..., hd) -> (int8 values, (...,) f32 absmax scales). The order of
+    the JAX package (divide, scale by 127, round half to even, clip), so
+    equal inputs give bit-equal int8 values."""
+    xf = x.float()
+    scale = xf.abs().amax(-1)
+    q = torch.round(xf / scale.clamp_min(1e-8)[..., None] * 127.0)
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
 def init_layer_cache(batch: int, num_pages: int, page_size: int,
                      num_kv_heads: int, head_dim: int, dtype,
                      pool_pages: int | None = None, track_stats: bool = False,
-                     device="cpu") -> PagedLayerCache:
+                     device=None) -> PagedLayerCache:
     """Empty cache: a pool of ``pool_pages`` (default batch*num_pages)
     physical pages, block tables of ``num_pages`` logical slots; slot 0 of
-    request b is pre-mapped to physical page b.
+    request b is pre-mapped to physical page b. ``dtype`` "int8" (or
+    torch.int8) makes a quantized pool with per-(token, head) scales.
+    ``device``: default CUDA (raises without a card).
 
     The pool must hold at least ``batch * num_pages`` pages: then every
     rollover finds a free page (each needing row maps fewer than P pages),
@@ -179,8 +223,11 @@ def init_layer_cache(batch: int, num_pages: int, page_size: int,
     if N < batch * num_pages:
         raise ValueError(f"pool of {N} pages is smaller than batch * "
                          f"num_pages = {batch * num_pages}")
-    device = torch.device(device)
+    device = resolve_device(device)
+    quantized = dtype in ("int8", torch.int8)
+    dtype = torch.int8 if quantized else dtype
     shape = (N + 1, page_size, num_kv_heads, head_dim)
+    sshape = (N + 1, page_size, num_kv_heads)
     bt = torch.full((batch, num_pages), -1, dtype=torch.int32, device=device)
     bt[:, 0] = torch.arange(batch, dtype=torch.int32, device=device)
     ref = torch.zeros((N,), dtype=torch.int32, device=device)
@@ -197,6 +244,10 @@ def init_layer_cache(batch: int, num_pages: int, page_size: int,
         cur_page=torch.zeros((batch,), dtype=torch.int32, device=device),
         cur_off=torch.zeros((batch,), dtype=torch.int32, device=device),
         stats=devstats.zeros(device) if track_stats else None,
+        k_scale_buf=torch.zeros(sshape, dtype=torch.float32, device=device)
+        if quantized else None,
+        v_scale_buf=torch.zeros(sshape, dtype=torch.float32, device=device)
+        if quantized else None,
     )
 
 
@@ -328,10 +379,15 @@ def _write_run(cache: PagedLayerCache, k, v, pos, score, act
     tgt = torch.where(land, phys[:, None], cache.pool_pages).long().reshape(-1)
     o = torch.where(land, off, 0).long().reshape(-1)
     KV, hd = k.shape[-2:]
-    cache.k_buf.index_put_((tgt, o), k.reshape(B * L, KV, hd)
-                           .to(cache.k_buf.dtype))
-    cache.v_buf.index_put_((tgt, o), v.reshape(B * L, KV, hd)
-                           .to(cache.v_buf.dtype))
+    k, v = k.reshape(B * L, KV, hd), v.reshape(B * L, KV, hd)
+    if cache.quantized:
+        # per (token, head), as the JAX package's per-token write_token
+        k, ks = quantize_absmax(k)
+        v, vs = quantize_absmax(v)
+        cache.k_scale_buf.index_put_((tgt, o), ks)
+        cache.v_scale_buf.index_put_((tgt, o), vs)
+    cache.k_buf.index_put_((tgt, o), k.to(cache.k_buf.dtype))
+    cache.v_buf.index_put_((tgt, o), v.to(cache.v_buf.dtype))
     cache.pos_buf.index_put_((tgt, o), pos.reshape(-1).to(torch.int32))
     cache.score_buf.index_put_((tgt, o), score.reshape(-1).float())
     cache.cur_off += oki.sum(1, dtype=torch.int32)
@@ -347,6 +403,66 @@ def write_token(cache: PagedLayerCache, k_tok, v_tok, pos_tok, score_tok,
         active = _true(cache)
     return _write_run(cache, k_tok[:, None], v_tok[:, None],
                       pos_tok[:, None], score_tok[:, None], active[:, None])
+
+
+def write_prompt_pages(cache: PagedLayerCache, k_sel, v_sel, pos_sel,
+                       score_sel) -> PagedLayerCache:
+    """Bulk-write C selected prompt tokens (already compressed by the
+    prefill policy) into logical pages [0, C / page). C must be a multiple
+    of the page size. RESETS the whole cache: every row is rewritten and
+    all previous mappings are dropped. A wholesale reset, it emits no
+    devstats events (the engine's step never calls it; it is the one-shot
+    path's).
+
+    Placement is row-major over the first B * (n + 1) pool pages: row b's
+    prompt page j goes to physical page b * stride + j, and one more page
+    per row is mapped, empty, as the decode working page wherever the block
+    table has room (else the head parks full on the last page).
+
+    k_sel, v_sel: (B, C, KV, hd); pos_sel: (B, C) (-1 = padding);
+    score_sel: (B, C)."""
+    B, C = pos_sel.shape
+    page, P, N = cache.page_size, cache.num_pages, cache.pool_pages
+    if C % page:
+        raise ValueError(f"{C} tokens do not fill whole pages of {page}")
+    n = C // page
+    extra = 1 if n < P else 0
+    stride = n + extra
+    if n > P or B * stride > N:
+        raise ValueError(f"{B} rows of {n} + {extra} pages do not fit "
+                         f"{P} slots / a pool of {N} pages")
+    dev = cache.device
+    KV, hd = k_sel.shape[2], k_sel.shape[3]
+    rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None] * stride
+    phys = rows + torch.arange(stride, dtype=torch.int32, device=dev)[None, :]
+    idx = (rows + torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+           ).reshape(-1).long()
+    k_sel = k_sel.reshape(B * n, page, KV, hd)
+    v_sel = v_sel.reshape(B * n, page, KV, hd)
+    for buf in (cache.k_buf, cache.v_buf, cache.k_scale_buf,
+                cache.v_scale_buf):
+        if buf is not None:
+            buf.zero_()
+    if cache.quantized:
+        k_sel, ks = quantize_absmax(k_sel)
+        v_sel, vs = quantize_absmax(v_sel)
+        cache.k_scale_buf[idx] = ks
+        cache.v_scale_buf[idx] = vs
+    cache.k_buf[idx] = k_sel.to(cache.k_buf.dtype)
+    cache.v_buf[idx] = v_sel.to(cache.v_buf.dtype)
+    pos_pages = pos_sel.reshape(B * n, page).to(torch.int32)
+    cache.pos_buf.fill_(-1)
+    cache.pos_buf[idx] = pos_pages
+    cache.score_buf.fill_(-torch.inf)
+    cache.score_buf[idx] = torch.where(
+        pos_pages >= 0, score_sel.reshape(B * n, page).float(), -torch.inf)
+    cache.block_table.fill_(-1)
+    cache.block_table[:, :stride] = phys
+    cache.ref_count.zero_()
+    cache.ref_count[phys.reshape(-1).long()] = 1
+    cache.cur_page.fill_(min(n, P - 1))
+    cache.cur_off.fill_(0 if extra else page)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +501,10 @@ def fork_page(cache: PagedLayerCache, slot, enable=None):
     _, newp, ok = alloc_pages(cache, need)
     do = need & ok
     tgt = torch.where(do, newp, N).long()
-    for buf in (cache.k_buf, cache.v_buf, cache.pos_buf, cache.score_buf):
-        buf.index_put_((tgt,), buf[src])
+    for buf in (cache.k_buf, cache.v_buf, cache.pos_buf, cache.score_buf,
+                cache.k_scale_buf, cache.v_scale_buf):
+        if buf is not None:
+            buf.index_put_((tgt,), buf[src])
     cache.block_table[b, s] = torch.where(do, newp, phys)
     devstats.bump(cache.stats, devstats.PAGES_FORKED, do)
     return _unref_pages(cache, torch.where(do, src, N)), do
@@ -604,3 +722,19 @@ def row_intact_prefix_pages(cache: PagedLayerCache, row: int) -> torch.Tensor:
     ok = (bt >= 0) & (pos == want).all(-1)
     run = torch.cumprod(ok.to(torch.int32), 0).sum()
     return run.clamp_max(P - 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# gather to contiguous (tests / reference paths)
+# ---------------------------------------------------------------------------
+
+def to_contiguous(cache: PagedLayerCache):
+    """(k, v, pos, mask) flattened over logical pages: (B, P * page, KV, hd)
+    dequantized, (B, P * page) positions and validity. Physical-within-
+    logical order, not position order."""
+    B, P, page = cache.batch, cache.num_pages, cache.page_size
+    KV, hd = cache.k.shape[2], cache.k.shape[3]
+    return (cache.k_view().reshape(B, P * page, KV, hd),
+            cache.v_view().reshape(B, P * page, KV, hd),
+            cache.pos_view().reshape(B, P * page),
+            cache.valid_mask().reshape(B, P * page))

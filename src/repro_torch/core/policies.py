@@ -4,6 +4,9 @@ FullCache, as in the JAX package's ``repro.core.policies``.
 Each policy is a stateless strategy with three hooks:
 
   write_score(k_tok, v_tok, pos)        score stored with each written token
+  prefill_keep(k, v, positions, valid)  paper Alg.2, one-shot form: pick the
+                                        prompt tokens that survive, before
+                                        paging (the one-shot path)
   chunk_prefill_evict(cache, cfg, ...)  paper Alg.2, incremental form: at a
                                         chunked-prefill boundary evict the
                                         lowest-score COMPLETED pages until
@@ -88,6 +91,20 @@ class EvictionPolicy:
         """k_tok, v_tok: (..., KV, hd) -> (...,) f32."""
         raise NotImplementedError
 
+    def prefill_scores(self, k, v, positions):
+        """k, v: (B, S, KV, hd); positions (B, S) -> (B, S) f32."""
+        raise NotImplementedError
+
+    # --- Alg.2: prefill compression ------------------------------------------
+    def prefill_keep(self, k, v, positions, valid, cfg: CacheConfig):
+        """Select ``keep = min(budget, S)`` tokens. Returns (indices
+        (B, keep) in ascending position order, scores (B, S); padding
+        scores -inf)."""
+        S = positions.shape[1]
+        scores = torch.where(valid, self.prefill_scores(k, v, positions),
+                             -torch.inf)
+        return top_k_sorted(scores, min(cfg.cache_budget, S)), scores
+
     # --- Alg.2, incremental: chunk-boundary compression ----------------------
     def chunk_prefill_evict(self, cache: PagedLayerCache, cfg: CacheConfig,
                             active=None, window: int = 0,
@@ -112,6 +129,14 @@ class EvictionPolicy:
         raise NotImplementedError
 
 
+def top_k_sorted(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, S) -> (B, k) indices of the k largest scores per row, ties to
+    the lower index (as ``jax.lax.top_k``; ``torch.topk`` promises no order
+    on ties, and the -inf of padding always ties), in ascending order."""
+    order = torch.sort(-scores, dim=-1, stable=True).indices[:, :k]
+    return order.sort(dim=-1).values
+
+
 class FullCache(EvictionPolicy):
     name = "full"
 
@@ -121,6 +146,17 @@ class FullCache(EvictionPolicy):
     def write_score(self, k_tok, v_tok, pos_tok):
         return torch.zeros(k_tok.shape[:-2], dtype=torch.float32,
                            device=k_tok.device)
+
+    def prefill_scores(self, k, v, positions):
+        # recency: irrelevant when nothing is dropped; for windowed layers
+        # the slab-capacity cap (compress_and_page) then keeps the newest
+        return importance.recency_score(positions)
+
+    def prefill_keep(self, k, v, positions, valid, cfg):
+        B, S = positions.shape
+        idx = torch.arange(S, device=positions.device).expand(B, S)
+        return idx, torch.where(valid, self.prefill_scores(k, v, positions),
+                                -torch.inf)
 
     def _chunk_evict_body(self, cache, cfg, active, window, page_scores,
                           gate):
@@ -151,6 +187,9 @@ class PagedEviction(EvictionPolicy):
 
     def write_score(self, k_tok, v_tok, pos_tok):
         return importance.vk_ratio_score(k_tok, v_tok)
+
+    def prefill_scores(self, k, v, positions):
+        return importance.vk_ratio_score(k, v)
 
     def _chunk_evict_body(self, cache, cfg, active, window, page_scores,
                           gate):

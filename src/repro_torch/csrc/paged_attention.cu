@@ -1,9 +1,13 @@
 // Split-K paged decode attention with block-table indirection and the
 // fused ||K|| / ||V|| score epilogue.
 //
-// Replaces: the Pallas TPU kernel `paged_attention_kernel` of the JAX
-// package (src/repro/kernels/paged_attention.py, bodies
-// `_decode_step_body` / `_paged_attn_kernel`).
+// Replaces: the Pallas TPU kernels `paged_attention_kernel` and
+// `paged_attention_kernel_int8` of the JAX package
+// (src/repro/kernels/paged_attention.py, bodies `_decode_step_body` /
+// `_paged_attn_kernel` / `_paged_attn_kernel_int8`). The int8 variant is
+// the same kernel instantiated on an int8 pool: each element is
+// dequantized on load with its (token, head) scale, so the pool is read at
+// one byte per element plus one f32 scale per (token, head) and row.
 //
 // What it computes: one query token per request, G query heads per KV head,
 // attends over the shared page pool through the block table. Block
@@ -31,9 +35,9 @@
 
 namespace {
 
-template <typename T>
+template <typename TQ, typename TK>
 __global__ void __launch_bounds__(paged::kThreads)
-    paged_decode_kernel(const T* __restrict__ q, paged::Pool pool,
+    paged_decode_kernel(const TQ* __restrict__ q, paged::Pool pool,
                         const int* __restrict__ bt,
                         const int* __restrict__ cur_pos, float* acc_out,
                         float* m_out, float* l_out, float* kn, float* vn,
@@ -45,7 +49,7 @@ __global__ void __launch_bounds__(paged::kThreads)
   const paged::Smem s = paged::carve(smem, G, page, hd);
   const int cur = cur_pos[b];
   const long long bk = (long long)b * KV + kv;
-  const T* qb = q + bk * G * hd;
+  const TQ* qb = q + bk * G * hd;
   for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
     const int g = i / hd, d = i - g * hd;
     s.q[g * (hd + 1) + d] = paged::to_float(qb[i]);
@@ -61,8 +65,8 @@ __global__ void __launch_bounds__(paged::kThreads)
   const int p1 = min(P, p0 + pps);
   float* kn_b = kn ? kn + bk * P * page : nullptr;
   float* vn_b = vn ? vn + bk * P * page : nullptr;
-  paged::walk_pages<T>(s, pool, kv, bt + (long long)b * P, p0, p1, G, scale,
-                       window, cur, cur, kn_b, vn_b);
+  paged::walk_pages<TK>(s, pool, kv, bt + (long long)b * P, p0, p1, G,
+                        scale, window, cur, cur, kn_b, vn_b);
   const long long part = (bk * S + sp) * G;
   for (int i = threadIdx.x; i < G * hd; i += blockDim.x)
     acc_out[part * hd + i] = s.acc[i];
@@ -72,19 +76,34 @@ __global__ void __launch_bounds__(paged::kThreads)
   }
 }
 
-template <typename T>
+template <typename TQ, typename TK>
 int launch(const void* q, paged::Pool pool, const int* bt, const int* cur_pos,
            float* acc, float* m, float* l, float* kn, float* vn, int B, int KV,
            int G, int P, int S, int pps, int window, float scale,
            cudaStream_t stream) {
   const size_t smem = paged::smem_bytes(G, pool.page, pool.hd);
-  cudaError_t err = paged::allow_smem(paged_decode_kernel<T>, smem);
+  cudaError_t err = paged::allow_smem(paged_decode_kernel<TQ, TK>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(S, KV, B);
-  paged_decode_kernel<T><<<grid, paged::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), pool, bt, cur_pos, acc, m, l, kn, vn, KV, G,
-      P, pps, S, window, scale);
+  paged_decode_kernel<TQ, TK><<<grid, paged::kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), pool, bt, cur_pos, acc, m, l, kn, vn, KV,
+      G, P, pps, S, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename TQ>
+int launch_q(int pool_dtype, const void* q, paged::Pool pool, const int* bt,
+             const int* cur_pos, float* acc, float* m, float* l, float* kn,
+             float* vn, int B, int KV, int G, int P, int S, int pps,
+             int window, float scale, cudaStream_t st) {
+  if (pool_dtype == 0)
+    return launch<TQ, float>(q, pool, bt, cur_pos, acc, m, l, kn, vn, B, KV,
+                             G, P, S, pps, window, scale, st);
+  if (pool_dtype == 1)
+    return launch<TQ, __nv_bfloat16>(q, pool, bt, cur_pos, acc, m, l, kn, vn,
+                                     B, KV, G, P, S, pps, window, scale, st);
+  return launch<TQ, int8_t>(q, pool, bt, cur_pos, acc, m, l, kn, vn, B, KV,
+                            G, P, S, pps, window, scale, st);
 }
 
 }  // namespace
@@ -92,25 +111,31 @@ int launch(const void* q, paged::Pool pool, const int* bt, const int* cur_pos,
 extern "C" {
 
 // q (B, KV, G, hd) contiguous; k/v pool (N, page, KV, hd) with element
-// strides s_n, s_page, s_kv and hd contiguous; pos (N, page) int32; bt (B, P)
-// int32; cur_pos (B,) int32. Outputs f32: acc (B, KV, S, G, hd), m and l
-// (B, KV, S, G), and when kn / vn are not null (B, KV, P, page) norms.
-// dtype: 0 = float32, 1 = bfloat16 (q and pool alike). Returns the CUDA
-// error code of the launch (0 == success).
-int paged_decode(const void* q, const void* k, const void* v, const int* pos,
+// strides s_n, s_page, s_kv and hd contiguous; k_scale / v_scale (N, page,
+// KV) f32 contiguous for an int8 pool, else null; pos (N, page) int32; bt
+// (B, P) int32; cur_pos (B,) int32. Outputs f32: acc (B, KV, S, G, hd), m
+// and l (B, KV, S, G), and when kn / vn are not null (B, KV, P, page)
+// norms. q_dtype: 0 = float32, 1 = bfloat16; pool_dtype: 0 = float32,
+// 1 = bfloat16, 2 = int8. Returns the CUDA error code of the launch
+// (0 == success).
+int paged_decode(const void* q, const void* k, const void* v,
+                 const float* k_scale, const float* v_scale, const int* pos,
                  const int* bt, const int* cur_pos, float* acc, float* m,
                  float* l, float* kn, float* vn, int B, int KV, int G, int hd,
                  int P, int page, long long s_n, long long s_page,
                  long long s_kv, int num_splits, int pages_per_split,
-                 int window, float scale, int dtype, void* stream) {
-  const paged::Pool pool{k, v, pos, s_n, s_page, s_kv, page, hd};
+                 int window, float scale, int q_dtype, int pool_dtype,
+                 void* stream) {
+  const paged::Pool pool{k,    v,    k_scale, v_scale, pos, s_n,
+                         s_page, s_kv, page,    hd,      KV};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, pool, bt, cur_pos, acc, m, l, kn, vn, B, KV, G,
-                         P, num_splits, pages_per_split, window, scale, st);
-  return launch<__nv_bfloat16>(q, pool, bt, cur_pos, acc, m, l, kn, vn, B,
-                               KV, G, P, num_splits, pages_per_split, window,
-                               scale, st);
+  if (q_dtype == 0)
+    return launch_q<float>(pool_dtype, q, pool, bt, cur_pos, acc, m, l, kn,
+                           vn, B, KV, G, P, num_splits, pages_per_split,
+                           window, scale, st);
+  return launch_q<__nv_bfloat16>(pool_dtype, q, pool, bt, cur_pos, acc, m, l,
+                                 kn, vn, B, KV, G, P, num_splits,
+                                 pages_per_split, window, scale, st);
 }
 
 const char* kernel_error_string(int code) {

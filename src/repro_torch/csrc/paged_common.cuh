@@ -12,7 +12,15 @@
 // kpos > qpos - window; masked scores take -1e30 (not -inf) and their
 // probabilities are zeroed. A page with no valid pair for the tile leaves
 // (m, l, acc) unchanged (alpha == 1, p == 0), so it is skipped outright.
+//
+// Pools are f32, bf16 or int8. An int8 pool carries (N, page, KV) f32
+// absmax scales and each element is dequantized on load as
+// x * (scale / 127), the JAX package's order, so the tiles in shared memory
+// (and the norms taken from them) are the dequantized values.
 #pragma once
+
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -25,6 +33,9 @@ constexpr int kThreads = 128;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -86,9 +97,11 @@ __device__ __forceinline__ Smem carve(float* base, int rows, int page,
 struct Pool {
   const void* k;     // (N, page, KV, hd) element strides below, hd contiguous
   const void* v;
+  const float* k_scale;  // int8 pools: (N, page, KV) contiguous; else null
+  const float* v_scale;
   const int* pos;    // (N, page) contiguous
   long long s_n, s_page, s_kv;
-  int page, hd;
+  int page, hd, kv_heads;
 };
 
 __device__ __forceinline__ bool pair_valid(bool mapped, int kp, int qp,
@@ -103,7 +116,7 @@ __device__ __forceinline__ bool pair_valid(bool mapped, int kp, int qp,
 // positions of the tile (qmax < 0: no valid row) and only serve to skip
 // pages. When kn_out is not null, the per-token ||k|| and ||v|| of every
 // page are written at kn_out[p * page + j] (the fused score epilogue).
-template <typename T>
+template <typename TK>
 __device__ void walk_pages(const Smem& s, const Pool& pool, int kv,
                            const int* bt_row, int p0, int p1, int rows,
                            float scale, int window, int qmin, int qmax,
@@ -111,8 +124,8 @@ __device__ void walk_pages(const Smem& s, const Pool& pool, int kv,
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
   const int page = pool.page, hd = pool.hd;
-  const T* kp = static_cast<const T*>(pool.k);
-  const T* vp = static_cast<const T*>(pool.v);
+  const TK* kp = static_cast<const TK*>(pool.k);
+  const TK* vp = static_cast<const TK*>(pool.v);
   const bool norms = kn_out != nullptr;
   for (int p = p0; p < p1; ++p) {
     const int phys = bt_row[p];
@@ -131,8 +144,14 @@ __device__ void walk_pages(const Smem& s, const Pool& pool, int kv,
       for (int i = tid; i < page * hd; i += nthr) {
         const int j = i / hd, d = i - j * hd;
         const long long off = base + (long long)j * pool.s_page + d;
-        s.k[j * (hd + 1) + d] = to_float(kp[off]);
-        s.v[j * hd + d] = to_float(vp[off]);
+        float kx = to_float(kp[off]), vx = to_float(vp[off]);
+        if constexpr (std::is_same_v<TK, int8_t>) {
+          const long long si = (pg * page + j) * pool.kv_heads + kv;
+          kx *= pool.k_scale[si] / 127.f;
+          vx *= pool.v_scale[si] / 127.f;
+        }
+        s.k[j * (hd + 1) + d] = kx;
+        s.v[j * hd + d] = vx;
       }
       __syncthreads();
     }

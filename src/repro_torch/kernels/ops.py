@@ -1,6 +1,7 @@
 """The wrappers the model calls: paged decode and paged chunked-prefill
 attention over a :class:`PagedLayerCache`, each returning
-``(out, page_scores | None)``.
+``(out, page_scores | None)``; the pool's page scores; contiguous causal
+flash attention.
 
 On a CUDA tensor a wrapper launches its hand-written kernel (or raises); on
 a CPU tensor it takes the kernel's plain torch version. It never falls back
@@ -11,15 +12,26 @@ fallback. The pool is read in its native (N, page, KV, hd) strides.
 ``return_scores`` adds the paper's Alg.1 page scores (B, P), reduced from
 the kernels' per-token ||K|| / ||V|| epilogue by ``page_scores_from_norms``
 (plain torch, as in the JAX package).
+
+int8 pools: decode reads them natively (the int8 kernel dequantizes in
+registers); chunked prefill and page scoring dequantize the pool in plain
+torch first and run the float kernels, as the JAX package does.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.importance import page_scores_from_norms
 from repro_torch.core.paged_cache import PagedLayerCache
-from repro_torch.kernels.flash_prefill import (paged_prefill_cuda,
+from repro_torch.kernels.block_score import block_score_cuda, block_score_plain
+from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                               flash_attention_plain,
+                                               paged_prefill_cuda,
                                                paged_prefill_plain)
 from repro_torch.kernels.paged_attention import (combine_splits,
                                                  paged_attention_cuda,
+                                                 paged_attention_int8_cuda,
+                                                 paged_attention_int8_plain,
                                                  paged_attention_plain)
 
 
@@ -39,10 +51,15 @@ def paged_attention(q, cache: PagedLayerCache, *, cur_pos, window: int = 0,
     factor of the page walk."""
     B, H, hd = q.shape
     KV = cache.k.shape[2]
-    fn = paged_attention_plain if plain or not q.is_cuda \
-        else paged_attention_cuda
-    acc, m, l, norms = fn(q.reshape(B, KV, H // KV, hd), cache.k, cache.v,
-                          cache.pos, cache.block_table, cur_pos,
+    kernel = not plain and q.is_cuda
+    args = (q.reshape(B, KV, H // KV, hd), cache.k, cache.v)
+    if cache.quantized:
+        fn = paged_attention_int8_cuda if kernel \
+            else paged_attention_int8_plain
+        args += (cache.k_scale, cache.v_scale)
+    else:
+        fn = paged_attention_cuda if kernel else paged_attention_plain
+    acc, m, l, norms = fn(*args, cache.pos, cache.block_table, cur_pos,
                           window=window, scale=scale, num_splits=num_splits,
                           return_scores=return_scores)
     out = combine_splits(acc, m, l).to(q.dtype).reshape(B, H, hd)
@@ -56,6 +73,26 @@ def paged_prefill_attention(q, cache: PagedLayerCache, *, q_pos,
     int32, -1 == padding -> ((B, T, H, hd), page_scores (B, P) or None).
     The chunk's K/V must already be appended to the pool."""
     fn = paged_prefill_plain if plain or not q.is_cuda else paged_prefill_cuda
-    out, norms = fn(q, cache.k, cache.v, cache.pos, cache.block_table, q_pos,
-                    window=window, scale=scale, return_scores=return_scores)
+    out, norms = fn(q, cache.k_dequant(), cache.v_dequant(), cache.pos,
+                    cache.block_table, q_pos, window=window, scale=scale,
+                    return_scores=return_scores)
     return out, _scores(cache, norms)
+
+
+def page_scores(cache: PagedLayerCache) -> torch.Tensor:
+    """Standalone Alg.1 page scoring (B, P) f32: each physical page is
+    scored once on the (dequantized) pool, then gathered through the block
+    tables; unmapped slots +inf. The oracle of the fused epilogue."""
+    k, v = cache.k_dequant(), cache.v_dequant()
+    fn = block_score_cuda if k.is_cuda else block_score_plain
+    pool = fn(k, v, cache.pos)                                  # (N,)
+    return torch.where(cache.mapped_mask(), pool[cache._phys()], torch.inf)
+
+
+def flash_attention(q, k, v, *, window: int = 0, scale: float | None = None,
+                    plain: bool = False):
+    """Causal GQA flash attention (causal by index). q: (B, S, H, hd);
+    k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
+    fn = flash_attention_plain if plain or not q.is_cuda \
+        else flash_attention_cuda
+    return fn(q, k, v, window=window, scale=scale)

@@ -10,8 +10,13 @@ A token is valid iff its slot is mapped, 0 <= pos <= cur_pos and, with a
 window, pos > cur_pos - window; masked scores take -1e30. ``combine_splits``
 merges the splits (plain torch, as in the JAX package).
 
+The int8 variant reads a quantized pool (int8 K/V with (N, page, KV) f32
+absmax scales) and dequantizes each element as ``x * (s / 127)``; its norm
+tiles are those of the dequantized values.
+
 The kernel source is ``csrc/paged_attention.cu``; it replaces the JAX
-package's Pallas ``paged_attention_kernel``.
+package's Pallas ``paged_attention_kernel`` and
+``paged_attention_kernel_int8``.
 """
 from __future__ import annotations
 
@@ -79,20 +84,50 @@ def paged_attention_plain(q, k_pool, v_pool, pos, block_table, cur_pos, *,
     return acc, m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2), norms
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+def dequantize(x, scale):
+    """int8 values (..., hd) and their absmax scales (...,) -> f32, as the
+    JAX package's ``k_dequant``: ``x * (scale / 127)``."""
+    return x.float() * (scale / 127.0)[..., None]
 
 
-def _check_pool(q, k_pool, v_pool, pos, block_table):
-    """Validate what the kernels take; raise on anything else."""
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("pos", pos), ("block_table", block_table)):
+def paged_attention_int8_plain(q, k_pool, v_pool, k_scale, v_scale, pos,
+                               block_table, cur_pos, **kw):
+    """Plain torch version of the int8 decode kernel: dequantize the pool,
+    then :func:`paged_attention_plain`. k_pool/v_pool: (N, page, KV, hd)
+    int8; k_scale/v_scale: (N, page, KV) f32."""
+    return paged_attention_plain(q, dequantize(k_pool, k_scale),
+                                 dequantize(v_pool, v_scale), pos,
+                                 block_table, cur_pos, **kw)
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _check_pool(q, k_pool, v_pool, pos, block_table, scales=None):
+    """Validate what the kernels take; raise on anything else. q is f32 or
+    bf16; the pool f32 or bf16 (either, whatever q is), or int8 when
+    ``scales`` (k_scale, v_scale) are given."""
+    tensors = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+               ("pos", pos), ("block_table", block_table)]
+    if scales is not None:
+        tensors += [("k_scale", scales[0]), ("v_scale", scales[1])]
+    for name, t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name} is not a CUDA tensor")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or \
-            v_pool.dtype != q.dtype:
+    pool_types = (torch.int8,) if scales is not None else \
+        (torch.float32, torch.bfloat16)
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k_pool.dtype not in pool_types or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"q / pool dtypes {q.dtype}, {k_pool.dtype}, "
-                        f"{v_pool.dtype}: the kernels take float32 or "
-                        f"bfloat16, the same for all three")
+                        f"{v_pool.dtype}: q is float32 or bfloat16, the "
+                        f"pool {' or '.join(map(str, pool_types))}")
+    if scales is not None:
+        N, page, KV = k_pool.shape[:3]
+        for sc in scales:
+            if sc.dtype != torch.float32 or not sc.is_contiguous() or \
+                    sc.shape != (N, page, KV):
+                raise ValueError("scales must be contiguous float32 "
+                                 "(N, page, KV)")
     if k_pool.stride() != v_pool.stride() or k_pool.stride(-1) != 1:
         raise ValueError("k_pool / v_pool need equal strides and a "
                          "contiguous head dim")
@@ -111,6 +146,28 @@ def paged_attention_cuda(q, k_pool, v_pool, pos, block_table, cur_pos, *,
     :func:`paged_attention_plain`. Raises on CPU tensors or a failed launch.
     ``paged_attention_cuda.launches`` counts the launches."""
     _check_pool(q, k_pool, v_pool, pos, block_table)
+    out = _launch(q, k_pool, v_pool, None, pos, block_table, cur_pos,
+                  window, scale, num_splits, return_scores)
+    paged_attention_cuda.launches += 1
+    return out
+
+
+def paged_attention_int8_cuda(q, k_pool, v_pool, k_scale, v_scale, pos,
+                              block_table, cur_pos, *, window: int = 0,
+                              scale: float | None = None, num_splits: int = 1,
+                              return_scores: bool = False):
+    """Launch the CUDA decode kernel on an int8 pool; same contract as
+    :func:`paged_attention_int8_plain`. Raises on CPU tensors or a failed
+    launch. ``paged_attention_int8_cuda.launches`` counts the launches."""
+    _check_pool(q, k_pool, v_pool, pos, block_table, (k_scale, v_scale))
+    out = _launch(q, k_pool, v_pool, (k_scale, v_scale), pos, block_table,
+                  cur_pos, window, scale, num_splits, return_scores)
+    paged_attention_int8_cuda.launches += 1
+    return out
+
+
+def _launch(q, k_pool, v_pool, scales, pos, block_table, cur_pos, window,
+            scale, num_splits, return_scores):
     q = q.contiguous()
     cur_pos = cur_pos.to(torch.int32).contiguous()
     B, KV, G, hd = q.shape
@@ -130,18 +187,21 @@ def paged_attention_cuda(q, k_pool, v_pool, pos, block_table, cur_pos, *,
     fn = lib.paged_decode
     vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    fn.argtypes = [vp] * 11 + [ci] * 6 + [cl] * 3 + [ci] * 3 + [cf, ci, vp]
+    fn.argtypes = [vp] * 13 + [ci] * 6 + [cl] * 3 + [ci] * 3 + \
+        [cf, ci, ci, vp]
     fn.restype = ci
     ptr = lambda t: t.data_ptr() if t is not None else None
+    ks, vs = scales if scales is not None else (None, None)
     sn, sp, skv, _ = k_pool.stride()
-    rc = fn(ptr(q), ptr(k_pool), ptr(v_pool), ptr(pos), ptr(block_table),
-            ptr(cur_pos), ptr(acc), ptr(m), ptr(l), ptr(kn), ptr(vn),
-            B, KV, G, hd, P, page, sn, sp, skv, S, pps, int(window),
-            float(scale), _DTYPES[q.dtype],
+    rc = fn(ptr(q), ptr(k_pool), ptr(v_pool), ptr(ks), ptr(vs), ptr(pos),
+            ptr(block_table), ptr(cur_pos), ptr(acc), ptr(m), ptr(l),
+            ptr(kn), ptr(vn), B, KV, G, hd, P, page, sn, sp, skv, S, pps,
+            int(window), float(scale), _DTYPES[q.dtype],
+            _DTYPES[k_pool.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "paged_decode")
-    paged_attention_cuda.launches += 1
     return acc, m, l, ((kn, vn) if return_scores else None)
 
 
 paged_attention_cuda.launches = 0
+paged_attention_int8_cuda.launches = 0

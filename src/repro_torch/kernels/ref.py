@@ -1,9 +1,14 @@
-"""Plain torch oracles for the paged attention kernels: dense softmax over
-the pool gathered through the block table. Pools are in the native
+"""Plain torch oracles of the attention and page-score kernels: dense
+softmax over the pool gathered through the block table, causal attention
+over contiguous K/V, and the Alg.1 page score. Pools are in the native
 (N, page, KV, hd) layout the port's kernels read."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.device import resolve_device
+
+_EPS = 1e-6
 
 
 def gather_block_table(k_pool, v_pool, pos, block_table):
@@ -70,16 +75,60 @@ def paged_prefill_attention_block_table_ref(q, k_pool, v_pool, pos,
     return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd).to(q.dtype)
 
 
+def flash_attention_ref(q, k, v, *, window: int = 0,
+                        scale: float | None = None):
+    """Causal GQA attention, causal by index. q: (B, S, H, hd); k, v:
+    (B, S, KV, hd) -> (B, S, H, hd) in q.dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(B, S, KV, H // KV, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    i = torch.arange(S, device=q.device)
+    mask = i[None, :, None] >= i[None, None, :]                  # (1, Sq, Sk)
+    if window > 0:
+        mask &= i[None, None, :] > (i[None, :, None] - window)
+    p = torch.softmax(torch.where(mask[:, None, None], s, -torch.inf), -1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def block_score_ref(k_pages, v_pages, pos):
+    """Alg.1 page score: the mean over valid tokens of
+    mean_h ||v|| / max(mean_h ||k||, 1e-6); +inf for an empty page.
+    k_pages, v_pages: (..., page, KV, hd); pos: (..., page) -> (...,)."""
+    kn = torch.linalg.vector_norm(k_pages.float(), dim=-1).mean(-1)
+    vn = torch.linalg.vector_norm(v_pages.float(), dim=-1).mean(-1)
+    tok = vn / kn.clamp_min(_EPS)
+    valid = pos >= 0
+    cnt = valid.sum(-1)
+    ssum = torch.where(valid, tok, 0.0).sum(-1)
+    return torch.where(cnt > 0, ssum / cnt.clamp_min(1), torch.inf)
+
+
+def page_scores_ref(cache):
+    """Per-request Alg.1 page scores (B, P) from the gathered, dequantized
+    view of a :class:`PagedLayerCache`; unmapped or empty pages +inf."""
+    scores = block_score_ref(cache.k_view(), cache.v_view(),
+                             cache.pos_view())
+    return torch.where(cache.mapped_mask(), scores, torch.inf)
+
+
 # ---------------------------------------------------------------------------
 # test inputs
 # ---------------------------------------------------------------------------
 
-def churned_pool(B, P, page, KV, hd, dtype, seed, shared=4, holes=3):
+def churned_pool(B, P, page, KV, hd, dtype, seed, shared=4, holes=3,
+                 device=None):
     """A pool as the serving path leaves it: block tables over a shuffled
     pool (pages freed and reallocated), each row's slots holding ascending
     pages of its sequence with evicted gaps, a partly filled last page,
     unmapped slots, the first ``shared`` slots of the odd rows mapping row
-    0's pages (a shared prefix), and garbage positions on free pages."""
+    0's pages (a shared prefix), and garbage positions on free pages.
+    Returns (k, v, pos, bt, cur_pos) on ``device`` (default CUDA); dtype
+    torch.int8 gives an int8 pool, and then (k, v, k_scale, v_scale, pos,
+    bt, cur_pos) with scales (N, page, KV) f32."""
+    device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     N = B * P + 8
     bt = torch.randperm(N, generator=g)[:B * P].reshape(B, P).int()
@@ -98,18 +147,25 @@ def churned_pool(B, P, page, KV, hd, dtype, seed, shared=4, holes=3):
         for _ in range(holes):
             s = int(torch.randint(shared, P - 1, (1,), generator=g))
             bt[b, s] = -1
-    k = torch.randn((N, page, KV, hd), generator=g).to(dtype)
-    v = torch.randn((N, page, KV, hd), generator=g).to(dtype)
-    return k, v, pos, bt, cur
+    k = torch.randn((N, page, KV, hd), generator=g)
+    v = torch.randn((N, page, KV, hd), generator=g)
+    out = [k.to(dtype), v.to(dtype)]
+    if dtype == torch.int8:
+        out = [torch.randint(-127, 128, k.shape, generator=g).to(dtype),
+               torch.randint(-127, 128, v.shape, generator=g).to(dtype),
+               torch.rand((N, page, KV), generator=g) * 4,
+               torch.rand((N, page, KV), generator=g) * 4]
+    return tuple(t.to(device) for t in (*out, pos, bt, cur))
 
 
 def prefill_positions(cur, T):
     """q_pos of a mixed step: row 0 prefills a full chunk ending at its
     newest token, row 1 a partial one, the last row is idle (all padding),
-    the other rows decode one token (T - 1 padding queries)."""
+    the other rows decode one token (T - 1 padding queries). On
+    ``cur``'s device."""
     B = cur.shape[0]
-    qp = torch.full((B, T), -1, dtype=torch.int32)
-    t = torch.arange(T, dtype=torch.int32)
+    qp = torch.full((B, T), -1, dtype=torch.int32, device=cur.device)
+    t = torch.arange(T, dtype=torch.int32, device=cur.device)
     qp[0] = cur[0] - (T - 1) + t
     n1 = T // 3
     qp[1, :n1] = cur[1] - (n1 - 1) + t[:n1]

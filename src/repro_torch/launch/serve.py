@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs import CacheConfig, get_arch
 from repro_torch.models.transformer import init_model
 from repro_torch.serving import Engine, SamplingParams
-from repro_torch.serving.engine import resolve_device
+from repro_torch.device import resolve_device
 
 
 def device_busy_us(events) -> tuple[float, float]:

@@ -1,19 +1,25 @@
-"""GQA attention over the paged KV pool (the serving path).
+"""GQA attention: over the paged KV pool (serving and one-shot decode) and
+over contiguous K/V (the one-shot prefill).
 
 ``step_attention`` is the unified step's dispatch: T == 1 goes to the
-split-K decode kernel, longer chunks to the G-fold chunked-prefill kernel,
-both through ``kernels.ops`` (CUDA kernel on the card, plain torch on the
-CPU)."""
+split-K decode kernel, longer chunks to the G-fold chunked-prefill kernel.
+``attention_forward`` sends a whole prompt on the card to the flash kernel,
+whatever its length. On the CPU it routes as the JAX package does: the
+flash kernel's plain version when S % 128 == 0 and hd % 8 == 0 (128 is the
+Pallas kernel's tile), the position-masked full causal attention otherwise.
+Kernels go through ``kernels.ops`` (CUDA kernel on the card, plain torch on
+the CPU)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init, dtype_of
+from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
+                                       full_causal_attention)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -49,10 +55,48 @@ def project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v.reshape(B, S, KV, hd)
 
 
+def spec_window(cfg: ModelConfig, spec: LayerSpec) -> int:
+    if spec.attn_kind == "swa":
+        return cfg.sliding_window
+    if spec.attn_kind == "local":
+        return cfg.local_window
+    return 0
+
+
+def attention_forward(params: dict, cfg: ModelConfig, spec: LayerSpec, x,
+                      positions, plain: bool = False):
+    """Causal self-attention over a contiguous sequence. x: (B, S, D);
+    positions: (B, S) (-1 on padding, RoPE'd as is, as in the JAX package)
+    -> (out (B, S, D), (k, v) post-RoPE). ``plain``: the flash kernel's
+    plain version on the card (a test switch).
+
+    The flash kernel masks by index, so with right-padded prompts the valid
+    queries never see padding; the position-masked route lets them see the
+    padding keys (position -1), as the JAX package's plain route does. Only
+    the CPU takes that route, for parity with the JAX package at S % 128."""
+    q, k, v = project_qkv(params, cfg, x, positions)
+    window = spec_window(cfg, spec)
+    B, S = x.shape[:2]
+    if q.is_cuda or (S % 128 == 0 and cfg.resolved_head_dim % 8 == 0):
+        out = ops.flash_attention(q, k, v, window=window, plain=plain)
+    else:
+        out = full_causal_attention(q, k, v, q_positions=positions,
+                                    kv_positions=positions, window=window)
+    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+
+
+def decode_project_qkv(params: dict, cfg: ModelConfig, x, cur_pos):
+    """x: (B, D) single token -> q (B, H, hd), k, v (B, KV, hd), RoPE at
+    cur_pos."""
+    q, k, v = project_qkv(params, cfg, x[:, None], cur_pos[:, None])
+    return q[:, 0], k[:, 0], v[:, 0]
+
+
 def decode_attention(q, cache: PagedLayerCache, *, cur_pos, window: int = 0,
                      num_splits: int = 1, want_scores: bool = False,
                      plain: bool = False):
-    """Single-token attention. q: (B, H, hd) -> (o, page_scores | None)."""
+    """Single-token attention (float or int8 pool). q: (B, H, hd) ->
+    (o, page_scores | None)."""
     return ops.paged_attention(q, cache, cur_pos=cur_pos, window=window,
                                num_splits=num_splits,
                                return_scores=want_scores, plain=plain)

@@ -1,4 +1,6 @@
-"""Shared model substrate: RMSNorm, RoPE, initialisers.
+"""Shared model substrate: RMSNorm, RoPE, initialisers, and the plain
+causal attention of the one-shot prefill on the CPU (the full score
+matrix; on the card every prompt goes to the flash kernel).
 
 Parameters are plain dicts of tensors laid out as in the JAX package:
 weights are (in, out) and applied as ``x @ W``."""
@@ -8,7 +10,8 @@ import math
 
 import torch
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int8": torch.int8}
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -73,3 +76,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x2 = x[..., 1::2].float()
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# causal attention over contiguous K/V (plain torch, as the JAX package's
+# jnp path; the flash kernel is the card's path)
+# ---------------------------------------------------------------------------
+
+def full_causal_attention(q, k, v, *, q_positions, kv_positions,
+                          window: int = 0, scale: float | None = None):
+    """Causal (optionally windowed) GQA attention over the full (Sq, Sk)
+    score matrix, masked by POSITION: a key is visible iff kv_pos <= q_pos
+    (and kv_pos > q_pos - window). q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd);
+    rows with no visible key give zeros."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, H // KV, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    mask = kv_positions[:, None, :] <= q_positions[:, :, None]  # (B, Sq, Sk)
+    if window:
+        mask &= kv_positions[:, None, :] > (q_positions[:, :, None] - window)
+    p = torch.softmax(torch.where(mask[:, None, None], s, -torch.inf), -1)
+    p = torch.nan_to_num(p, nan=0.0)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)

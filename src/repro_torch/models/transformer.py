@@ -1,10 +1,16 @@
-"""Decoder stack and the unified mixed-batch serving step.
+"""Decoder stack: the unified mixed-batch serving step and the one-shot
+prefill -> compress -> decode path.
 
 ``forward_step`` is the serving hot path, as in the JAX package: up to T
 tokens per request in one step (decode rows append 1, prefilling rows a
 prompt chunk), written straight into each layer's shared page pool,
 attended write-then-attend through block tables, then Alg.3 eviction on
 decode rows and incremental Alg.2 compression on prefill rows.
+
+``forward_prefill`` + ``decode_step`` are the paper's own experiment (the
+offline / whole-prompt path): a contiguous forward over the whole prompt
+(the flash kernel), each layer's K/V compressed to the budget by Alg.2 and
+paged (``compress_and_page``), then one token per step under Alg.3.
 
 Layout: the JAX package stacks each pattern slot's parameters over its
 repetitions (``pattern``/``tail``) for ``lax.scan``; the port holds a plain
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import CacheConfig, LayerSpec, ModelConfig
+from repro_torch.core.decode import decode_append
 from repro_torch.core.paged_cache import (
     adopt_prefix,
     append_chunk,
@@ -32,6 +39,8 @@ from repro_torch.core.paged_cache import (
     row_intact_prefix_pages,
 )
 from repro_torch.core.policies import EvictionPolicy
+from repro_torch.core.prefill import compress_and_page
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm)
@@ -63,13 +72,13 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random parameters from a seeded ``torch.Generator`` on ``device``:
-    {"embed", "layers": [...], "final_norm"[, "lm_head"]}. The draws differ
-    from the JAX package's (tests hand its tree over with
-    ``convert.params_from_jax`` instead)."""
+def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (default CUDA; raises without a card): {"embed", "layers": [...],
+    "final_norm"[, "lm_head"]}. The draws differ from the JAX package's
+    (tests hand its tree over with ``convert.params_from_jax`` instead)."""
     check_supported(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = dtype_of(cfg.dtype)
     params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt)}
@@ -113,20 +122,12 @@ class ModelCache:
     cur_pos: torch.Tensor  # (B,) int32: next token position per request
 
 
-def _spec_window(cfg: ModelConfig, spec: LayerSpec) -> int:
-    if spec.attn_kind == "swa":
-        return cfg.sliding_window
-    if spec.attn_kind == "local":
-        return cfg.local_window
-    return 0
-
-
 def _layer_cache_shapes(cfg: ModelConfig, spec: LayerSpec, seq_len: int,
                         policy: EvictionPolicy, ccfg: CacheConfig,
                         chunk_tokens: int = 0) -> int:
     """Block-table width of one layer (window-aware): the policy's slab,
     plus ceil(chunk / page) slots of chunked-prefill headroom."""
-    window = _spec_window(cfg, spec)
+    window = attn_mod.spec_window(cfg, spec)
     hint = seq_len if not window else min(seq_len, window + ccfg.page_size)
     pages = policy.slab_pages(ccfg, hint)
     if chunk_tokens:
@@ -139,9 +140,12 @@ def _layer_cache_shapes(cfg: ModelConfig, spec: LayerSpec, seq_len: int,
 def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
                        policy: EvictionPolicy, ccfg: CacheConfig, dtype=None,
                        chunk_tokens: int = 0, track_stats: bool = False,
-                       device="cuda") -> ModelCache:
-    """Empty per-layer caches (pool N = batch * P pages each)."""
+                       device=None) -> ModelCache:
+    """Empty per-layer caches (pool N = batch * P pages each) on ``device``
+    (default CUDA; raises without a card); ``ccfg.dtype`` "int8" makes
+    quantized pools."""
     check_supported(cfg)
+    device = resolve_device(device)
     dt = dtype or dtype_of(ccfg.dtype)
     hd = cfg.resolved_head_dim
     layers = [
@@ -181,7 +185,7 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
         adopt_prefix(kvc, share_src, share_pages, enable=reset_mask)
     score = policy.write_score(k, v, positions)
     append_chunk(kvc, k, v, positions, score, n_tok, times=times)
-    window = _spec_window(cfg, spec)
+    window = attn_mod.spec_window(cfg, spec)
     o, pscores = attn_mod.step_attention(
         q, kvc, q_pos=positions, window=window, decode_splits=decode_splits,
         want_scores=fused_scores, plain=plain_kernels)
@@ -275,3 +279,116 @@ def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
     admission probe."""
     return torch.stack([row_intact_prefix_pages(c, row)
                         for c in cache.layers]).min()
+
+
+# ---------------------------------------------------------------------------
+# one-shot path: contiguous prefill that builds the paged caches, then
+# single-token decode steps
+# ---------------------------------------------------------------------------
+
+def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                  plain_kernels: bool = False):
+    """One attention + dense-MLP layer over a contiguous sequence.
+    Returns (x, (k, v)) with k post-RoPE."""
+    h = apply_norm(lp["norm1"], x)
+    a, kv = attn_mod.attention_forward(lp["attn"], cfg, spec, h, positions,
+                                       plain=plain_kernels)
+    x = x + a
+    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["norm2"], x)), kv
+
+
+def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                   valid, policy: EvictionPolicy, ccfg: CacheConfig,
+                   seq_len_hint: int, plain_kernels: bool):
+    """Layer forward that also builds its decode cache (Alg.2)."""
+    x, (k, v) = layer_forward(lp, cfg, spec, x, positions, plain_kernels)
+    window = attn_mod.spec_window(cfg, spec)
+    hint = seq_len_hint if not window else min(seq_len_hint,
+                                               window + ccfg.page_size)
+    kv_valid = valid
+    if window:
+        # windowed layers never attend past the window again: drop the
+        # out-of-window tokens at paging time (keeps the slab small)
+        cur = torch.where(valid, positions, -1).amax(-1, keepdim=True)
+        kv_valid = valid & (positions > cur - window)
+    cache = compress_and_page(k, v, positions, kv_valid, policy, ccfg,
+                              seq_len_hint=hint,
+                              cache_dtype=dtype_of(ccfg.dtype))
+    return x, cache
+
+
+def forward_prefill(params: dict, cfg: ModelConfig, tokens,
+                    policy: EvictionPolicy, ccfg: CacheConfig, valid=None,
+                    total_seq_hint: int | None = None,
+                    plain_kernels: bool = False):
+    """Process whole prompts, compress each layer's K/V by Alg.2 and page
+    it: tokens (B, S) int32; ``valid`` (B, S) bool marks right-padded
+    prompts' real tokens. ``total_seq_hint``: expected prompt + generation
+    length, which sizes the page slabs (default S). The caches live on
+    ``tokens``' device. Returns (last valid token's logits (B, vocab) f32,
+    ModelCache)."""
+    check_supported(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[0], x.shape[1]
+    dev = x.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    if valid is None:
+        valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    positions = torch.where(valid, positions, -1)
+    hint = total_seq_hint or S
+    layers = []
+    for lp, spec in zip(params["layers"], cfg.layer_specs()):
+        x, c = _prefill_layer(lp, cfg, spec, x, positions, valid, policy,
+                              ccfg, hint, plain_kernels)
+        layers.append(c)
+    n_valid = valid.sum(-1, dtype=torch.int32)
+    last = (n_valid.long() - 1).clamp_min(0)
+    logits = lm_logits(params, cfg, x[torch.arange(B, device=dev), last])
+    return logits, ModelCache(layers=layers, cur_pos=n_valid)
+
+
+def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc,
+                  cur_pos, policy: EvictionPolicy, ccfg: CacheConfig, active,
+                  decode_splits: int, fused_scores: bool,
+                  plain_kernels: bool):
+    """One layer, one token. x: (B, D)."""
+    h = apply_norm(lp["norm1"], x)
+    q, k, v = attn_mod.decode_project_qkv(lp["attn"], cfg, h, cur_pos)
+    if kvc.stats is not None:
+        kvc.stats.zero_()
+    out = []
+
+    def attend(c):
+        o, pscores = attn_mod.decode_attention(
+            q, c, cur_pos=cur_pos, window=attn_mod.spec_window(cfg, spec),
+            num_splits=decode_splits, want_scores=fused_scores,
+            plain=plain_kernels)
+        out.append(o)
+        return pscores
+
+    decode_append(kvc, k, v, cur_pos, policy, ccfg, active=active,
+                  attend=attend)
+    x = x + out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
+    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["norm2"], x))
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens, cache: ModelCache,
+                policy: EvictionPolicy, ccfg: CacheConfig, active=None,
+                decode_splits: int = 1, fused_scores: bool = False,
+                plain_kernels: bool = False):
+    """One decode step of every request: tokens (B,) -> (logits (B, vocab)
+    f32, cache), the cache updated in place. ``active`` (B,) bool: rows
+    that take a token. ``decode_splits`` / ``fused_scores`` /
+    ``plain_kernels``: see :func:`forward_step`."""
+    x = params["embed"][tokens.long()]
+    B = x.shape[0]
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=x.device)
+    cur_pos = cache.cur_pos
+    for lp, spec, kvc in zip(params["layers"], cfg.layer_specs(),
+                             cache.layers):
+        x = _decode_layer(lp, cfg, spec, x, kvc, cur_pos, policy, ccfg,
+                          active, decode_splits, fused_scores, plain_kernels)
+    logits = lm_logits(params, cfg, x)
+    cache.cur_pos = torch.where(active, cur_pos + 1, cur_pos)
+    return logits, cache

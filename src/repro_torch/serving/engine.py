@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import CacheConfig, ModelConfig
 from repro_torch.core import devstats
 from repro_torch.core.policies import EvictionPolicy, get_policy
+from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (
     ModelCache,
     collect_step_stats,
@@ -54,16 +55,6 @@ class EngineStats:
     @property
     def decode_tok_per_s(self) -> float:
         return self.decode_tokens / self.decode_s if self.decode_s else 0.0
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` or CUDA; raises when CUDA is asked for and absent, so an
-    entry point never carries on quietly on the CPU."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain torch versions on the CPU")
-    return dev
 
 
 class Engine:
@@ -250,12 +241,13 @@ class Engine:
                 "shared_pages": shared, "pages_saved_by_sharing": extra}
 
     def pool_bytes(self) -> dict:
-        """Device bytes of the page-pool payload (K/V, trash row included)
-        and of the pool metadata."""
+        """Device bytes of the page-pool payload (K/V and the int8 scales,
+        trash row included) and of the pool metadata."""
         payload = meta = 0
         for c in self.cache.layers:
-            for t in (c.k_buf, c.v_buf):
-                payload += t.numel() * t.element_size()
+            for t in (c.k_buf, c.v_buf, c.k_scale_buf, c.v_scale_buf):
+                if t is not None:
+                    payload += t.numel() * t.element_size()
             for t in (c.pos_buf, c.score_buf, c.block_table, c.ref_count,
                       c.cur_page, c.cur_off, c.stats):
                 if t is not None:

@@ -8,19 +8,36 @@ installed:
 
 (``--noconftest``: tests/conftest.py imports JAX.) Churned pools at the
 main path's shapes (page 16, 49 slots, batch 8; llama-3.2-1b and -3b
-heads), window 0 and 128, splits 1 and 4, padding rows; f32 within 1e-4,
-bf16 within 1e-5 + 2**-7 of the value (both compute in f32, so a bf16
-output may differ by one rounding step), norms within 1e-3 relative.
+heads), window 0 and 128, splits 1 and 4, padding rows, float and int8
+pools; contiguous prompts for the flash kernel (a length that is not a
+multiple of its tile, window 0 and 256). f32 within 1e-4, bf16 within
+1e-5 + 2**-7 of the value (both compute in f32, so a bf16 output may
+differ by one rounding step), norms and page scores within 1e-3 relative.
+The per-Q-head prefill kernel must equal the G-fold one bit for bit. The
+one-shot prefill of a ragged prompt above 2048 tokens (not a multiple of
+128) goes through the flash kernel and agrees with its plain version.
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import CacheConfig, get_arch
+from repro_torch.core.policies import get_policy
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_prefill import (paged_prefill_cuda,
+from repro_torch.kernels.block_score import block_score_cuda, block_score_plain
+from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                               flash_attention_plain,
+                                               paged_prefill_cuda,
                                                paged_prefill_plain)
 from repro_torch.kernels.paged_attention import (combine_splits,
                                                  paged_attention_cuda,
+                                                 paged_attention_int8_cuda,
+                                                 paged_attention_int8_plain,
                                                  paged_attention_plain)
+from repro_torch.models.transformer import forward_prefill, init_model
+
+TOL = [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 1e-5, 2 ** -7)]
 
 
 @pytest.fixture
@@ -31,12 +48,11 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0),
-                                             (torch.bfloat16, 1e-5, 2 ** -7)])
+@pytest.mark.parametrize("dtype,atol,rtol", TOL)
 @pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
 def test_cuda_decode_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
-    k, v, pos, bt, cur = (t.to(cuda) for t in ref.churned_pool(
-        8, 49, 16, KV, hd, dtype, seed=hd))
+    k, v, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd, dtype, seed=hd,
+                                          device=cuda)
     q = torch.randn((8, KV, G, hd), device=cuda).to(dtype)
     for window in (0, 128):
         for splits in (1, 4):
@@ -52,12 +68,38 @@ def test_cuda_decode_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0),
-                                             (torch.bfloat16, 1e-5, 2 ** -7)])
+@pytest.mark.parametrize("dtype,atol,rtol", TOL)
 @pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
-def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
-    k, v, pos, bt, cur = (t.to(cuda) for t in ref.churned_pool(
-        8, 49, 16, KV, hd, dtype, seed=hd))
+def test_cuda_decode_int8_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
+    k, v, ks, vs, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd,
+                                                  torch.int8, seed=hd + 1,
+                                                  device=cuda)
+    q = torch.randn((8, KV, G, hd), device=cuda).to(dtype)
+    for window in (0, 128):
+        for splits in (1, 4):
+            kw = dict(window=window, num_splits=splits, return_scores=True)
+            a, m, l, nk = paged_attention_int8_cuda(q, k, v, ks, vs, pos,
+                                                    bt, cur, **kw)
+            a2, m2, l2, nk2 = paged_attention_int8_plain(q, k, v, ks, vs,
+                                                         pos, bt, cur, **kw)
+            torch.testing.assert_close(combine_splits(a, m, l).to(dtype),
+                                       combine_splits(a2, m2, l2).to(dtype),
+                                       atol=atol, rtol=rtol)
+            for x, y in zip(nk, nk2):
+                torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pool_dtype,atol,rtol", [
+    (torch.float32, torch.float32, 1e-4, 0.0),
+    (torch.bfloat16, torch.bfloat16, 1e-5, 2 ** -7),
+    (torch.bfloat16, torch.float32, 1e-5, 2 ** -7),   # a dequantized pool
+])
+@pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
+def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, pool_dtype, atol,
+                                    rtol):
+    k, v, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd, pool_dtype,
+                                          seed=hd, device=cuda)
     qp = ref.prefill_positions(cur.cpu(), 256).to(cuda)
     q = torch.randn((8, 256, KV * G, hd), device=cuda).to(dtype)
     for window in (0, 128):
@@ -67,3 +109,58 @@ def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
         torch.testing.assert_close(o, o2, atol=atol, rtol=rtol)
         for x, y in zip(nk, nk2):
             torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
+        # the per-Q-head grid: bit-equal to the fold
+        o3, _ = paged_prefill_cuda(q, k, v, pos, bt, qp, window=window,
+                                   per_qhead=True)
+        assert torch.equal(o3, o), float((o3.float() - o.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", TOL)
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 64), (24, 8, 128)])
+def test_cuda_flash_matches_plain(cuda, H, KV, hd, dtype, atol, rtol):
+    for B, S, window in ((2, 128, 0), (1, 1000, 0), (1, 1024, 256)):
+        q = torch.randn((B, S, H, hd), device=cuda).to(dtype)
+        k = torch.randn((B, S, KV, hd), device=cuda).to(dtype)
+        v = torch.randn((B, S, KV, hd), device=cuda).to(dtype)
+        o = flash_attention_cuda(q, k, v, window=window)
+        o2 = flash_attention_plain(q, k, v, window=window)
+        torch.testing.assert_close(o, o2, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,hd", [(8, 64), (8, 128)])
+def test_cuda_block_score_matches_plain(cuda, KV, hd, dtype):
+    k, v, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd, dtype,
+                                          seed=hd + 2, device=cuda)
+    pos[bt[0, 0]] = -1                                  # an empty page
+    got, want = block_score_cuda(k, v, pos), block_score_plain(k, v, pos)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.isinf(got[bt[0, 0]])
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_ragged_long_prompt(cuda):
+    cfg = dataclasses.replace(get_arch("llama-3.2-1b").reduced(),
+                              num_heads=4, num_kv_heads=2)
+    params = init_model(cfg, seed=0, device=cuda)
+    S = 3000
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=g,
+                           dtype=torch.int32).to(cuda)
+    valid = torch.arange(S, device=cuda)[None] < \
+        torch.tensor([[S], [S - 77]], device=cuda)
+    ccfg = CacheConfig(page_size=8, cache_budget=64, dtype="float32")
+    pol = get_policy(ccfg.policy)
+    before = flash_attention_cuda.launches
+    lk, ck = forward_prefill(params, cfg, tokens, pol, ccfg, valid=valid)
+    assert flash_attention_cuda.launches == before + cfg.num_layers
+    lp, cp = forward_prefill(params, cfg, tokens, pol, ccfg, valid=valid,
+                             plain_kernels=True)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+    for a, b in zip(ck.layers, cp.layers):
+        for f in ("block_table", "pos", "cur_page", "cur_off"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -63,7 +63,8 @@ def _prompts(vocab, n=4, seed=0):
 def test_engine_matches_jax(arch, fused):
     jcfg, tcfg = _configs(arch)
     jparams = jinit_model(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_jax(jax.device_get(jparams), tcfg)
+    tparams = params_from_jax(jax.device_get(jparams), tcfg,
+                              device="cpu")
     ck = dict(page_size=8, cache_budget=32, policy="paged_eviction",
               dtype="float32")
     common = dict(max_batch=3, max_prompt_len=48, max_new_tokens=8,

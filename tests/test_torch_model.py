@@ -92,7 +92,7 @@ def test_forward_step_matches_jax(arch):
     rng = np.random.default_rng(0)
     jcfg, tcfg = _configs(arch)
     jparams, tree = _params(jcfg, rng)
-    tparams = params_from_jax(tree, tcfg)
+    tparams = params_from_jax(tree, tcfg, device="cpu")
     ck = dict(page_size=8, cache_budget=24, policy="paged_eviction",
               dtype="float32")
     jccfg, tccfg = JCacheConfig(**ck), CacheConfig(**ck)

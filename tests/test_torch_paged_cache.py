@@ -45,7 +45,7 @@ class Pair:
         self.j = jpc.init_layer_cache(B, P, page, KV, hd, jnp.float32,
                                       track_stats=True)
         self.t = tpc.init_layer_cache(B, P, page, KV, hd, torch.float32,
-                                      track_stats=True)
+                                      track_stats=True, device="cpu")
 
     def apply(self, name, *args, port_kw=None, **kw):
         """Run op ``name`` on both; numpy args go to each as its arrays.
@@ -150,4 +150,5 @@ def test_rollover_plan_marks_every_boundary():
 
 def test_small_pool_is_refused():
     with pytest.raises(ValueError, match="smaller"):
-        tpc.init_layer_cache(2, 4, 4, 1, 8, torch.float32, pool_pages=7)
+        tpc.init_layer_cache(2, 4, 4, 1, 8, torch.float32, pool_pages=7,
+                             device="cpu")

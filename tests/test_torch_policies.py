@@ -76,7 +76,7 @@ def _same_cache(jc, tc):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_post_write_matches_jax(seed, policy, protect, fused):
     jc, rng = _state(seed)
-    tc = layer_cache_from_jax(jc)
+    tc = layer_cache_from_jax(jc, device="cpu")
     ck = dict(page_size=page, cache_budget=8, policy=policy,
               protect_recent=protect, dtype="float32")
     active = rng.random(B) < 0.8
@@ -105,7 +105,7 @@ def test_post_write_matches_jax(seed, policy, protect, fused):
 def test_chunk_prefill_evict_matches_jax(seed, policy, protect, fused,
                                          window):
     jc, rng = _state(seed, steps=6)
-    tc = layer_cache_from_jax(jc)
+    tc = layer_cache_from_jax(jc, device="cpu")
     ck = dict(page_size=page, cache_budget=8, policy=policy,
               protect_recent=protect, dtype="float32")
     jps, tps = _page_scores(rng, fused)
