@@ -13,9 +13,13 @@ Phases (any failure exits non-zero; none is skipped):
               with and without a window, the page-score one on float and
               dequantized int8 pools, at the shapes of llama-3.2-1b, -3b and
               3.1-8b; the per-Q-head prefill kernel also bit for bit against
-              the G-fold one. Then each one's time at the main path's shapes
-              beside its bound, the plain version's time and one PyTorch
-              call's (scaled_dot_product_attention, a yardstick only)
+              the G-fold one. f32 cases within 1e-4; the tensor-core routes
+              (bf16 prefill over a bf16 pool, bf16 flash) within the derived
+              bound 1e-5 + 2**-7 |plain| + 2**-8 (P |V|) / l; each case
+              names its route. Then each one's time at the main path's
+              shapes beside its bound, the plain version's time and one
+              PyTorch call's (scaled_dot_product_attention, a yardstick
+              only)
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions: the engine on a
               float and on an int8 pool, and the one-shot path
@@ -28,17 +32,22 @@ Phases (any failure exits non-zero; none is skipped):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
               prefix), 32 greedy tokens each, under paged_eviction (page 16,
               budget 512, max batch 8, chunk 256, decode splits 4). Checks
-              every request's token count, that both kernels ran, that pages
-              were evicted and prefixes shared, the pool invariants F1-F4 and
-              the devstats conservation identities at every step.
+              every request's token count, that both kernels ran (every
+              prefill launch on the tensor-core route), that pages were
+              evicted and prefixes shared, the pool invariants F1-F4 and the
+              devstats conservation identities at every step.
   5. one-shot llama-3.2-1b at full width, the paper's own experiment: 4
               prompts of up to 4096 tokens prefilled through the flash
-              kernel, compressed to budget 512 by Alg. 2, then 32 greedy
-              tokens under Alg. 3, once on a bf16 and once on an int8 pool
-  6. int8     phase 4's workload (8 requests) served on an int8 pool
+              kernel (all 16 launches on the tensor-core route), compressed
+              to budget 512 by Alg. 2, then 32 greedy tokens under Alg. 3,
+              once on a bf16 and once on an int8 pool
+  6. int8     phase 4's workload (8 requests) served on an int8 pool (every
+              prefill launch on the CUDA-core route: a bf16 query over the
+              dequantized f32 pool)
 
 Prints the card's name and power limit, one JSON line describing every
-kernel, and as the last line {"ok": true, "device": {...}}. Exits non-zero
+kernel (with the route each timing took, "timed_route"), and as the last
+line {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device or without the repository's sources beside it.
 """
 from __future__ import annotations
@@ -54,10 +63,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
               "bfloat16": 989e12}    # dense tensor-core rate
-# |kernel - plain| <= atol + rtol * |plain|, elementwise. Both compute in
-# f32; a bf16 output differs from the plain one only where the two f32
-# values round to neighbouring bf16 numbers: one step, at most 2**-7 of
-# the value.
+# |kernel - plain| <= atol + rtol * |plain|, elementwise, on the CUDA-core
+# routes. Both compute in f32; a bf16 output differs from the plain one only
+# where the two f32 values round to neighbouring bf16 numbers: one step, at
+# most 2**-7 of the value. The tensor-core routes (bf16 q over bf16 K/V)
+# round each probability to bf16 before P V and are held to
+# ref.tc_bf16_bound: 1e-5 + 2**-7 |plain| + 2**-8 (P |V|) / l.
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-5, 2 ** -7)}
 NORM_RTOL = 1e-3
 KERNELS = {
@@ -95,7 +106,9 @@ def card_line() -> str:
 
 
 def launch_counters():
-    """name -> (object, attribute) of every kernel wrapper's launch count."""
+    """name -> (object, attribute) of every kernel wrapper's launch count,
+    and of the prefill and flash wrappers' counts per route
+    ("paged_prefill/tensor_core", ...)."""
     from repro_torch.kernels.block_score import block_score_cuda
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                    paged_prefill_cuda)
@@ -107,7 +120,11 @@ def launch_counters():
             "paged_prefill_per_qhead": (paged_prefill_cuda,
                                         "per_qhead_launches"),
             "flash_attention": (flash_attention_cuda, "launches"),
-            "block_score": (block_score_cuda, "launches")}
+            "block_score": (block_score_cuda, "launches"),
+            **{f"{name}/{route}": (fn, f"{route}_launches")
+               for name, fn in (("paged_prefill", paged_prefill_cuda),
+                                ("flash_attention", flash_attention_cuda))
+               for route in ("tensor_core", "cuda_core")}}
 
 
 def reset_launches() -> None:
@@ -166,12 +183,17 @@ B, P, T = 8, 49, 256     # the main path: max batch 8, 49 slots, chunk 256
 B1, S1 = 4, 4096         # the one-shot path: 4 prompts of 4096 tokens
 
 
-def _err(got, want, dname):
-    """(max abs error, its largest share of the elementwise tolerance)."""
-    atol, rtol = TOL[dname]
+def _err(got, want, dname, weight=None):
+    """(max abs error, its largest share of the elementwise tolerance): the
+    tensor-core bound when ``weight`` ((P |V|) / l) is given."""
+    from repro_torch.kernels.ref import tc_bf16_bound
     d = (got.float() - want.float()).abs()
-    share = d / (atol + rtol * want.float().abs())
-    return float(d.max()), float(share.max())
+    if weight is not None:
+        tol = tc_bf16_bound(want, weight)
+    else:
+        atol, rtol = TOL[dname]
+        tol = atol + rtol * want.float().abs()
+    return float(d.max()), float((d / tol).max())
 
 
 def _norm_err(got, want):
@@ -193,13 +215,16 @@ def check_kernels(torch):
                                                  block_score_plain)
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                    flash_attention_plain,
+                                                   flash_route,
                                                    paged_prefill_cuda,
-                                                   paged_prefill_plain)
+                                                   paged_prefill_plain,
+                                                   prefill_route)
     from repro_torch.kernels.paged_attention import (
         combine_splits, dequantize, paged_attention_cuda,
         paged_attention_int8_cuda, paged_attention_int8_plain,
         paged_attention_plain)
-    from repro_torch.kernels.ref import churned_pool, prefill_positions
+    from repro_torch.kernels.ref import (abs_value_weight, churned_pool,
+                                         prefill_positions)
     worst: dict = {}
     seed = 0
     for arch, (KV, G, hd, page) in SHAPES.items():
@@ -242,15 +267,19 @@ def check_kernels(torch):
                 o3, _ = paged_prefill_cuda(qf, k, v, pos, bt, qp,
                                            window=window, per_qhead=True)
                 torch.cuda.synchronize()
-                label = f"{arch} {dname} window {window}"
+                route = prefill_route(qf.dtype, k.dtype, hd)
+                wt = abs_value_weight(qf, k, v, window=window, pos=pos,
+                                      block_table=bt, q_pos=qp) \
+                    if route == "tensor_core" else None
+                label = f"{arch} {dname} window {window} ({route})"
                 pad = float(o[B - 1].float().abs().max())
                 if pad:
                     fail(f"paged_prefill: padding rows give {pad}, not 0")
-                _check(worst, "paged_prefill", label, *_err(o, o2, dname),
-                       _norm_err(nk, nk2))
+                _check(worst, "paged_prefill", label,
+                       *_err(o, o2, dname, wt), _norm_err(nk, nk2))
                 fold = float((o3.float() - o.float()).abs().max())
                 _check(worst, "paged_prefill_per_qhead", label,
-                       *_err(o3, o2, dname),
+                       *_err(o3, o2, dname, wt),
                        extra=f"; bit-equal to the G-fold kernel: "
                              f"{bool(torch.equal(o3, o))} (max diff {fold})")
                 if not torch.equal(o3, o):
@@ -266,10 +295,13 @@ def check_kernels(torch):
                 o = flash_attention_cuda(*x, window=window)
                 o2 = flash_attention_plain(*x, window=window)
                 torch.cuda.synchronize()
+                route = flash_route(dt, hd)
+                wt = abs_value_weight(*x, window=window) \
+                    if route == "tensor_core" else None
                 _check(worst, "flash_attention",
-                       f"{arch} {dname} S {S} window {window}",
-                       *_err(o, o2, dname))
-                del x, o, o2
+                       f"{arch} {dname} S {S} window {window} ({route})",
+                       *_err(o, o2, dname, wt))
+                del x, o, o2, wt
             # page scores: the float pool and the dequantized int8 one
             for label, kp, vp, pp in (
                     (dname, k, v, pos),
@@ -297,8 +329,10 @@ def time_kernels(torch, F):
                                                  block_score_plain)
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                    flash_attention_plain,
+                                                   flash_route,
                                                    paged_prefill_cuda,
-                                                   paged_prefill_plain)
+                                                   paged_prefill_plain,
+                                                   prefill_route)
     from repro_torch.kernels.paged_attention import (
         dequantize, paged_attention_cuda, paged_attention_int8_cuda,
         paged_attention_int8_plain, paged_attention_plain)
@@ -397,6 +431,7 @@ def time_kernels(torch, F):
         plain_ms=timed(torch, lambda: flash_attention_plain(*x1), iters=3,
                        warmup=1),
         plain_note=f"B 1 of {B1}",
+        flops=flops,
         bound=bound_ms(2 * nbytes(x[0]) + nbytes(x[1], x[2]), flops, dname),
         library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
             *(t.transpose(1, 2) for t in x), is_causal=True,
@@ -409,10 +444,18 @@ def time_kernels(torch, F):
         bound=bound_ms(nbytes(k, v, pos) + 4 * pos.shape[0],
                        4 * k.numel(), dname),
         library_ms=None)
+    for name in ("paged_decode", "paged_decode_int8", "block_score"):
+        res[name]["route"] = "cuda_core"
+    for name in ("paged_prefill", "paged_prefill_per_qhead"):
+        res[name]["route"] = prefill_route(qf.dtype, k.dtype, hd)
+    res["flash_attention"]["route"] = flash_route(dt, hd)
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
         note = f" ({r['plain_note']})" if "plain_note" in r else ""
+        if "flops" in r:
+            note += f" ({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s)"
+        note += f", {r['route']} route"
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms{note}, library {lib}, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]})", flush=True)
@@ -767,6 +810,12 @@ def serve_full_width(torch, np, kv_dtype, n_requests):
             any(launches[n] for n in others):
         fail(f"the {kv_dtype} path's kernels did not run as expected: "
              f"{launches}")
+    # bf16 pool: every prefill launch on the tensor cores; int8 pool (its
+    # dequantized f32 view under a bf16 query): every one on the CUDA cores
+    route = "cuda_core" if kv_dtype == "int8" else "tensor_core"
+    if launches[f"paged_prefill/{route}"] != launches["paged_prefill"]:
+        fail(f"{kv_dtype} serving: not every prefill launch took the "
+             f"{route} route: {launches}")
     if not s.pages_evicted or not s.shared_prefix_hits:
         fail(f"no eviction or no prefix sharing at full width: {s}")
     check_invariants(np, eng.cache.layers)
@@ -816,6 +865,11 @@ def oneshot_full_width(torch, np):
         dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
         if not launches["flash_attention"] or not launches[dec]:
             fail(f"one-shot {kv_dtype}: kernels not launched: {launches}")
+        if launches["flash_attention/tensor_core"] != cfg.num_layers or \
+                launches["flash_attention"] != cfg.num_layers:
+            fail(f"one-shot {kv_dtype}: the prefill did not run all "
+                 f"{cfg.num_layers} flash launches on the tensor cores: "
+                 f"{launches}")
         max_live = int(live.max())
         if max_live > budget + page:
             fail(f"one-shot {kv_dtype}: {max_live} live tokens after "
@@ -864,7 +918,7 @@ def main() -> None:
     print(f"[1/6] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "entry func")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
     def phase(title):
@@ -916,7 +970,8 @@ def main() -> None:
                      "max_abs_err": worst[name], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     "timed_route": r["route"]})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -93,6 +93,34 @@ def flash_attention_ref(q, k, v, *, window: int = 0,
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
+def abs_value_weight(q, k, v, *, window: int = 0, scale: float | None = None,
+                     pos=None, block_table=None, q_pos=None):
+    """(P |V|) / l of the plain softmax, f32, in the attention output's
+    shape: flash attention's (contiguous k, v) or, given ``pos``,
+    ``block_table`` and ``q_pos``, paged prefill's (k, v pools). It is the
+    attention output with every value replaced by its magnitude."""
+    q, k, v = q.float(), k.float(), v.float().abs()
+    if block_table is None:
+        return flash_attention_ref(q, k, v, window=window, scale=scale)
+    return paged_prefill_attention_block_table_ref(
+        q, k, v, pos, block_table, q_pos, window=window, scale=scale)
+
+
+def tc_bf16_bound(plain, weight):
+    """Elementwise bound on |kernel - plain| for a tensor-core bf16
+    attention kernel: 1e-5 + 2^-7 |plain| + 2^-8 weight, with ``weight``
+    from :func:`abs_value_weight`.
+
+    The plain version computes P V in f32 and rounds the output once to
+    bf16; the kernel rounds each probability p_j to bf16 first (relative
+    error at most 2^-8, bf16's unit roundoff), which moves the output by at
+    most 2^-8 sum_j p_j |v_j| / l, an amount relative to the values' sizes,
+    not to the output's, so it does not shrink near zero outputs. The two
+    outputs then round to bf16 within one step of each other (2^-7 of the
+    value) and the f32 sums in another order add ~1e-6."""
+    return 1e-5 + 2 ** -7 * plain.float().abs() + 2 ** -8 * weight.float()
+
+
 def block_score_ref(k_pages, v_pages, pos):
     """Alg.1 page score: the mean over valid tokens of
     mean_h ||v|| / max(mean_h ||k||, 1e-6); +inf for an empty page.
