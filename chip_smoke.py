@@ -12,14 +12,19 @@ Phases (any failure exits non-zero; none is skipped):
               int8 pools), the flash one on prompts of 128 and 4096 tokens
               with and without a window, the page-score one on float and
               dequantized int8 pools, at the shapes of llama-3.2-1b, -3b and
-              3.1-8b; the per-Q-head prefill kernel also bit for bit against
-              the G-fold one. f32 cases within 1e-4; the tensor-core routes
-              (bf16 prefill over a bf16 pool, bf16 flash) within the derived
-              bound 1e-5 + 2**-7 |plain| + 2**-8 (P |V|) / l; each case
-              names its route. Then each one's time at the main path's
-              shapes beside its bound, the plain version's time and one
-              PyTorch call's (scaled_dot_product_attention, a yardstick
-              only)
+              3.1-8b; the decode kernel also at qwen2.5-3b's heads, G 1 and
+              2 at page 8, splits 1, 2, 4 and one page per split, every
+              q / pool dtype pair, with a row of no mapped slot and a row at
+              cur_pos -1; the per-Q-head prefill kernel also bit for bit
+              against the G-fold one. f32 cases within 1e-4; the
+              tensor-core routes (bf16 prefill over a bf16 pool, bf16 flash)
+              within the derived bound 1e-5 + 2**-7 |plain| + 2**-8 (P |V|)
+              / l; each case names its route. Then each one's time at the
+              main path's shapes, as ms (events around the call, host work
+              included) and device_ms (the device's work alone), beside its
+              bound, the plain version's time and one PyTorch call's
+              (scaled_dot_product_attention, a yardstick only, also in both
+              clocks)
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions: the engine on a
               float and on an int8 pool, and the one-shot path
@@ -46,7 +51,8 @@ Phases (any failure exits non-zero; none is skipped):
               dequantized f32 pool)
 
 Prints the card's name and power limit, one JSON line describing every
-kernel (with the route each timing took, "timed_route"), and as the last
+kernel (with the route each timing took, "timed_route", and the device-only
+times "device_ms" and "library_device_ms"), and as the last
 line {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device or without the repository's sources beside it.
 """
@@ -159,6 +165,52 @@ def timed(torch, fn, iters=20, warmup=3):
     return total / iters
 
 
+_CYCLES_PER_MS: list = []
+
+
+def device_timed(torch, fn, iters=20, warmup=3):
+    """Mean device ms of ``fn``, without the host's work: as :func:`timed`
+    (L2 flushed, CUDA events), but the card first spins
+    (``torch.cuda._sleep``) for ten times as long as the host takes to
+    enqueue ``fn``, so the start event runs only after the whole call is
+    queued and the events bracket the device's work alone. A call whose
+    enqueue still outlasted the spin is not counted; fails if half are
+    not."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    if not _CYCLES_PER_MS:
+        e0, e1 = ev(), ev()
+        e0.record()
+        torch.cuda._sleep(10 ** 7)
+        e1.record()
+        e1.synchronize()
+        _CYCLES_PER_MS.append(1e7 / e0.elapsed_time(e1))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    spin_ms = max(0.5, 10e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(int(spin_ms * _CYCLES_PER_MS[0]))
+        e0, e1 = ev(), ev()
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        lag_ms = 1e3 * (time.perf_counter() - t0)
+        e1.synchronize()
+        if lag_ms < spin_ms:
+            times.append(e0.elapsed_time(e1))
+    if 2 * len(times) < iters:
+        fail(f"device_timed: the host outlasted a {spin_ms:.2f} ms spin in "
+             f"{iters - len(times)} of {iters} calls")
+    return sum(times) / len(times)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -210,6 +262,64 @@ def _check(worst, name, label, err, share, nerr=0.0, extra=""):
     worst[name] = max(worst.get(name, 0.0), err)
 
 
+DECODE_SHAPES = {  # name: (KV, G, hd, page)
+    **SHAPES,
+    "qwen2.5-3b": (2, 8, 128, 16),
+    "reduced, G 2": (2, 2, 64, 8),        # phase 3's config
+    "G 1": (4, 1, 64, 8),
+}
+
+
+def check_decode(torch, worst):
+    """The decode kernel (float and int8 pools) against its plain version:
+    every shape of DECODE_SHAPES, every q / pool dtype pair the wrapper
+    takes, window 0 and 8 pages, splits 1, 2, 4 and P (one page per split),
+    on churned pools whose row 1 has no mapped slot and row 2 sits at
+    cur_pos -1 (both must give exact zeros). One line per (shape, pair)
+    with the worst case over windows and splits."""
+    from repro_torch.kernels.paged_attention import (
+        combine_splits, paged_attention_cuda, paged_attention_int8_cuda,
+        paged_attention_int8_plain, paged_attention_plain)
+    from repro_torch.kernels.ref import churned_pool
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    pairs = [(f32, f32), (f32, bf16), (bf16, f32), (bf16, bf16), (f32, i8),
+             (bf16, i8)]
+    for n, (arch, (KV, G, hd, page)) in enumerate(DECODE_SHAPES.items()):
+        for qt, pt in pairs:
+            seed = 1000 + 10 * n + pairs.index((qt, pt))
+            pool = churned_pool(B, P, page, KV, hd, pt, seed)
+            *pool, bt, cur = pool
+            bt[1] = -1
+            cur[2] = -1
+            g = torch.Generator().manual_seed(seed)
+            q = torch.randn((B, KV, G, hd), generator=g).to(qt).cuda()
+            name, kernel, plain = ("paged_decode_int8",
+                                   paged_attention_int8_cuda,
+                                   paged_attention_int8_plain) \
+                if pt == i8 else ("paged_decode", paged_attention_cuda,
+                                  paged_attention_plain)
+            dname = str(qt).removeprefix("torch.")
+            err = share = nerr = 0.0
+            for window in (0, 8 * page):
+                for splits in (1, 2, 4, P):
+                    kw = dict(window=window, num_splits=splits,
+                              return_scores=True)
+                    a, m, l, nk = kernel(q, *pool, bt, cur, **kw)
+                    a2, m2, l2, nk2 = plain(q, *pool, bt, cur, **kw)
+                    o = combine_splits(a, m, l).to(qt)
+                    torch.cuda.synchronize()
+                    if o[1:3].any():
+                        fail(f"{name}: the unmapped row or the row at "
+                             f"cur_pos -1 is not zero ({arch}, window "
+                             f"{window}, splits {splits})")
+                    e, sh = _err(o, combine_splits(a2, m2, l2).to(qt), dname)
+                    err, share = max(err, e), max(share, sh)
+                    nerr = max(nerr, _norm_err(nk, nk2))
+            _check(worst, name, f"{arch} (KV {KV}, G {G}, hd {hd}, page "
+                   f"{page}) q {dname} pool {str(pt).removeprefix('torch.')}"
+                   f", 2 windows x splits 1/2/4/{P}", err, share, nerr)
+
+
 def check_kernels(torch):
     from repro_torch.kernels.block_score import (block_score_cuda,
                                                  block_score_plain)
@@ -219,46 +329,21 @@ def check_kernels(torch):
                                                    paged_prefill_cuda,
                                                    paged_prefill_plain,
                                                    prefill_route)
-    from repro_torch.kernels.paged_attention import (
-        combine_splits, dequantize, paged_attention_cuda,
-        paged_attention_int8_cuda, paged_attention_int8_plain,
-        paged_attention_plain)
+    from repro_torch.kernels.paged_attention import dequantize
     from repro_torch.kernels.ref import (abs_value_weight, churned_pool,
                                          prefill_positions)
     worst: dict = {}
+    check_decode(torch, worst)
     seed = 0
     for arch, (KV, G, hd, page) in SHAPES.items():
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
             seed += 1
             k, v, pos, bt, cur = churned_pool(B, P, page, KV, hd, dt, seed)
-            k8, v8, ks, vs, pos8, bt8, cur8 = churned_pool(
+            k8, v8, ks, vs, pos8, _, _ = churned_pool(
                 B, P, page, KV, hd, torch.int8, seed + 100)
             g = torch.Generator().manual_seed(seed)
             for window in (0, 8 * page):
-                q = torch.randn((B, KV, G, hd), generator=g).to(dt).cuda()
-                for splits in (1, 4):
-                    kw = dict(window=window, num_splits=splits,
-                              return_scores=True)
-                    label = f"{arch} {dname} window {window} splits {splits}"
-                    a, m, l, nk = paged_attention_cuda(q, k, v, pos, bt, cur,
-                                                       **kw)
-                    a2, m2, l2, nk2 = paged_attention_plain(q, k, v, pos, bt,
-                                                            cur, **kw)
-                    torch.cuda.synchronize()
-                    _check(worst, "paged_decode", label,
-                           *_err(combine_splits(a, m, l).to(dt),
-                                 combine_splits(a2, m2, l2).to(dt), dname),
-                           _norm_err(nk, nk2))
-                    a, m, l, nk = paged_attention_int8_cuda(
-                        q, k8, v8, ks, vs, pos8, bt8, cur8, **kw)
-                    a2, m2, l2, nk2 = paged_attention_int8_plain(
-                        q, k8, v8, ks, vs, pos8, bt8, cur8, **kw)
-                    torch.cuda.synchronize()
-                    _check(worst, "paged_decode_int8", label,
-                           *_err(combine_splits(a, m, l).to(dt),
-                                 combine_splits(a2, m2, l2).to(dt), dname),
-                           _norm_err(nk, nk2))
                 qp = prefill_positions(cur.cpu(), T).cuda()
                 qf = torch.randn((B, T, KV * G, hd), generator=g).to(dt).cuda()
                 kw = dict(window=window, return_scores=True)
@@ -350,7 +435,6 @@ def time_kernels(torch, F):
     qp = prefill_positions(cur.cpu(), T).cuda()
     dec = dict(num_splits=4, return_scores=True)
     pre = dict(return_scores=True)
-    res = {}
 
     # bytes: the K/V of every distinct page the block tables reach (the
     # epilogue needs all of them), their positions, the tables, q, the
@@ -365,85 +449,91 @@ def time_kernels(torch, F):
     S = P * page
     kpos = pg.reshape(B, 1, S)
     valid_dec = (kpos >= 0) & (kpos <= cur[:, None, None])
-    flops = 4 * hd * H * int(valid_dec.sum())
-    res["paged_decode"] = dict(
-        ms=timed(torch, lambda: paged_attention_cuda(q, k, v, pos, bt, cur,
-                                                     **dec)),
-        plain_ms=timed(torch, lambda: paged_attention_plain(q, k, v, pos, bt,
-                                                            cur, **dec)),
-        bound=bound_ms(kv_bytes + nbytes(q, cur) + nbytes(q) + norms_bytes,
-                       flops, dname))
-    res["paged_decode_int8"] = dict(
-        ms=timed(torch, lambda: paged_attention_int8_cuda(
-            q, k8, v8, ks, vs, pos, bt, cur, **dec)),
-        plain_ms=timed(torch, lambda: paged_attention_int8_plain(
-            q, k8, v8, ks, vs, pos, bt, cur, **dec)),
-        bound=bound_ms(kv8_bytes + nbytes(q, cur) + nbytes(q) + norms_bytes,
-                       flops, dname))
+    flops_dec = 4 * hd * H * int(valid_dec.sum())
     qpe = qp[:, :, None]
     valid_pre = (kpos >= 0) & (qpe >= 0) & (kpos <= qpe)       # (B, T, S)
-    flops = 4 * hd * H * int(valid_pre.sum())
-    res["paged_prefill"] = dict(
-        ms=timed(torch, lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp,
-                                                   **pre)),
-        plain_ms=timed(torch, lambda: paged_prefill_plain(qf, k, v, pos, bt,
-                                                          qp, **pre)),
-        bound=bound_ms(kv_bytes + 2 * nbytes(qf) + nbytes(qp) + norms_bytes,
-                       flops, dname))
-    res["paged_prefill_per_qhead"] = dict(
-        ms=timed(torch, lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp,
-                                                   per_qhead=True)),
-        plain_ms=timed(torch, lambda: paged_prefill_plain(qf, k, v, pos, bt,
-                                                          qp,
-                                                          per_qhead=True)),
-        bound=bound_ms(kv_bytes + 2 * nbytes(qf) + nbytes(qp), flops, dname))
-    # yardstick: one SDPA call on the gathered (B, KV, P * page, hd) view
-    kd = kg.reshape(B, KV, S, hd)
-    vd = vg.reshape(B, KV, S, hd)
-    qd = q.reshape(B, H, 1, hd)
-    md = valid_dec[:, :, None, :]
-    sdpa_dec = timed(torch, lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=md, enable_gqa=True))
-    res["paged_decode"]["library_ms"] = sdpa_dec
-    kd8 = dequantize(k8, ks)[bt.clamp_min(0).long()].permute(0, 3, 1, 2, 4) \
-        .reshape(B, KV, S, hd).to(dt)
-    vd8 = dequantize(v8, vs)[bt.clamp_min(0).long()].permute(0, 3, 1, 2, 4) \
-        .reshape(B, KV, S, hd).to(dt)
-    res["paged_decode_int8"]["library_ms"] = timed(
-        torch, lambda: F.scaled_dot_product_attention(
-            qd, kd8, vd8, attn_mask=md, enable_gqa=True))
-    qpf = qf.transpose(1, 2)
-    mp = valid_pre[:, None]
-    sdpa_pre = timed(torch, lambda: F.scaled_dot_product_attention(
-        qpf, kd, vd, attn_mask=mp, enable_gqa=True))
-    res["paged_prefill"]["library_ms"] = sdpa_pre
-    res["paged_prefill_per_qhead"]["library_ms"] = sdpa_pre
-    del kd8, vd8
-
+    flops_pre = 4 * hd * H * int(valid_pre.sum())
     # the one-shot prefill: B 4 prompts of 4096 tokens; the plain version
     # at B 1 (it holds every head's (S, S) scores)
     x = [torch.randn((B1, S1, n, hd), generator=g).to(dt).cuda()
          for n in (H, KV, KV)]
     x1 = [t[:1] for t in x]
-    flops = 4 * hd * H * B1 * S1 * (S1 + 1) // 2
-    res["flash_attention"] = dict(
-        ms=timed(torch, lambda: flash_attention_cuda(*x), iters=5),
-        plain_ms=timed(torch, lambda: flash_attention_plain(*x1), iters=3,
-                       warmup=1),
-        plain_note=f"B 1 of {B1}",
-        flops=flops,
-        bound=bound_ms(2 * nbytes(x[0]) + nbytes(x[1], x[2]), flops, dname),
-        library_ms=timed(torch, lambda: F.scaled_dot_product_attention(
-            *(t.transpose(1, 2) for t in x), is_causal=True,
-            enable_gqa=True), iters=5))
-    del x, x1
-    # the pool pass over the serving pool (every page, one score each)
-    res["block_score"] = dict(
-        ms=timed(torch, lambda: block_score_cuda(k, v, pos)),
-        plain_ms=timed(torch, lambda: block_score_plain(k, v, pos)),
-        bound=bound_ms(nbytes(k, v, pos) + 4 * pos.shape[0],
-                       4 * k.numel(), dname),
-        library_ms=None)
+    flops_flash = 4 * hd * H * B1 * S1 * (S1 + 1) // 2
+    # yardsticks: one SDPA call on the gathered (B, KV, P * page, hd) view
+    # (dequantized for int8), and causal GQA SDPA for the flash kernel
+    kd = kg.reshape(B, KV, S, hd)
+    vd = vg.reshape(B, KV, S, hd)
+    qd = q.reshape(B, H, 1, hd)
+    kd8, vd8 = (dequantize(x8, s8)[bt.clamp_min(0).long()]
+                .permute(0, 3, 1, 2, 4).reshape(B, KV, S, hd).to(dt)
+                for x8, s8 in ((k8, ks), (v8, vs)))
+    sdpa = F.scaled_dot_product_attention
+    sdpa_pre = lambda: sdpa(qf.transpose(1, 2), kd, vd,  # noqa: E731
+                            attn_mask=valid_pre[:, None], enable_gqa=True)
+    # name: (kernel, plain version, library call or None, bound)
+    calls = {
+        "paged_decode": (
+            lambda: paged_attention_cuda(q, k, v, pos, bt, cur, **dec),
+            lambda: paged_attention_plain(q, k, v, pos, bt, cur, **dec),
+            lambda: sdpa(qd, kd, vd, attn_mask=valid_dec[:, :, None],
+                         enable_gqa=True),
+            bound_ms(kv_bytes + nbytes(q, cur) + nbytes(q) + norms_bytes,
+                     flops_dec, dname)),
+        "paged_decode_int8": (
+            lambda: paged_attention_int8_cuda(q, k8, v8, ks, vs, pos, bt,
+                                              cur, **dec),
+            lambda: paged_attention_int8_plain(q, k8, v8, ks, vs, pos, bt,
+                                               cur, **dec),
+            lambda: sdpa(qd, kd8, vd8, attn_mask=valid_dec[:, :, None],
+                         enable_gqa=True),
+            bound_ms(kv8_bytes + nbytes(q, cur) + nbytes(q) + norms_bytes,
+                     flops_dec, dname)),
+        "paged_prefill": (
+            lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp, **pre),
+            lambda: paged_prefill_plain(qf, k, v, pos, bt, qp, **pre),
+            sdpa_pre,
+            bound_ms(kv_bytes + 2 * nbytes(qf) + nbytes(qp) + norms_bytes,
+                     flops_pre, dname)),
+        "paged_prefill_per_qhead": (
+            lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp,
+                                       per_qhead=True),
+            lambda: paged_prefill_plain(qf, k, v, pos, bt, qp,
+                                        per_qhead=True),
+            sdpa_pre,
+            bound_ms(kv_bytes + 2 * nbytes(qf) + nbytes(qp), flops_pre,
+                     dname)),
+        "flash_attention": (
+            lambda: flash_attention_cuda(*x),
+            lambda: flash_attention_plain(*x1),
+            lambda: sdpa(*(t.transpose(1, 2) for t in x), is_causal=True,
+                         enable_gqa=True),
+            bound_ms(2 * nbytes(x[0]) + nbytes(x[1], x[2]), flops_flash,
+                     dname)),
+        # the pool pass over the serving pool (every page, one score each)
+        "block_score": (
+            lambda: block_score_cuda(k, v, pos),
+            lambda: block_score_plain(k, v, pos),
+            None,
+            bound_ms(nbytes(k, v, pos) + 4 * pos.shape[0], 4 * k.numel(),
+                     dname)),
+    }
+    res, lib_times = {}, {}
+    for name, (kernel, plain, library, bound) in calls.items():
+        few = dict(iters=5) if name == "flash_attention" else {}
+        r = res[name] = dict(
+            ms=timed(torch, kernel, **few),
+            device_ms=device_timed(torch, kernel, **few),
+            plain_ms=timed(torch, plain, **(dict(iters=3, warmup=1)
+                                            if few else {})),
+            bound=bound, library_ms=None, library_device_ms=None)
+        if library is not None:
+            if library not in lib_times:    # K3 and K4 share theirs
+                lib_times[library] = (timed(torch, library, **few),
+                                      device_timed(torch, library, **few))
+            r["library_ms"], r["library_device_ms"] = lib_times[library]
+    res["flash_attention"].update(plain_note=f"B 1 of {B1}",
+                                  flops=flops_flash)
+    del x, x1, kd8, vd8
     for name in ("paged_decode", "paged_decode_int8", "block_score"):
         res[name]["route"] = "cuda_core"
     for name in ("paged_prefill", "paged_prefill_per_qhead"):
@@ -451,13 +541,14 @@ def time_kernels(torch, F):
     res["flash_attention"]["route"] = flash_route(dt, hd)
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
+            f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})"
         note = f" ({r['plain_note']})" if "plain_note" in r else ""
         if "flops" in r:
-            note += f" ({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s)"
+            note += f" ({r['flops'] / r['device_ms'] / 1e9:.1f} TFLOP/s)"
         note += f", {r['route']} route"
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms{note}, library {lib}, bound {r['bound'][0]:.4f} ms "
+        print(f"  {name}: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms{note}, "
+              f"library {lib}, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]})", flush=True)
     return res
 
@@ -968,9 +1059,11 @@ def main() -> None:
         rows.append({"name": name, "route": "cuda", **meta,
                      "launches": launches[name],
                      "max_abs_err": worst[name], "ms": r["ms"],
+                     "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"],
+                     "library_device_ms": r["library_device_ms"],
                      "timed_route": r["route"]})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)

@@ -1,6 +1,10 @@
-// Shared page walk of the two paged attention kernels (decode and G-fold
-// chunked prefill): for one (request b, KV head) block, fold every page of
-// a block-table range into an online softmax over a tile of query rows.
+// Shared pieces of the paged kernels, and the block-wide page walk of the
+// CUDA-core route of the paged prefill (flash_prefill.cu: f32 queries, and
+// a bf16 query over an f32 pool such as an int8 cache's dequantized one):
+// for one (request b, KV head) block, fold every page of a block-table
+// range into an online softmax over a tile of query rows. The decode kernel
+// (paged_attention.cu) has its own warp-level walk and uses only the
+// helpers here (Pool, to_float, pair_valid, allow_smem).
 //
 // The pool is read in its native (N, page, KV, hd) layout through the
 // strides the wrapper passes (the JAX wrapper copied it to (KV, N, page, hd)

@@ -12,11 +12,10 @@ Pallas ``block_score_kernel``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import INT, LONG, PTR
 from repro_torch.kernels.paged_attention import _DTYPES
 from repro_torch.kernels.ref import block_score_ref
 
@@ -44,13 +43,9 @@ def block_score_cuda(k_pool, v_pool, pos):
         raise ValueError("pos must be contiguous int32")
     N, page, KV, hd = k_pool.shape
     out = torch.empty((N,), dtype=torch.float32, device=k_pool.device)
-    lib = build.load("block_score")
-    fn = lib.block_score
-    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp] * 4 + [ci] * 4 + [cl] * 3 + [ci, vp]
-    fn.restype = ci
+    lib = build.load("block_score", _SIGNATURES)
     sn, sp, skv, _ = k_pool.stride()
-    rc = fn(k_pool.data_ptr(), v_pool.data_ptr(), pos.data_ptr(),
+    rc = lib.block_score(k_pool.data_ptr(), v_pool.data_ptr(), pos.data_ptr(),
             out.data_ptr(), N, page, KV, hd, sn, sp, skv,
             _DTYPES[k_pool.dtype],
             torch.cuda.current_stream(k_pool.device).cuda_stream)
@@ -59,4 +54,6 @@ def block_score_cuda(k_pool, v_pool, pos):
     return out
 
 
+_SIGNATURES = {"block_score": [PTR] * 4 + [INT] * 4 + [LONG] * 3 +
+               [INT, PTR]}
 block_score_cuda.launches = 0

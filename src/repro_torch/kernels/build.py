@@ -26,6 +26,11 @@ SOURCES = ("paged_attention", "flash_prefill", "flash_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# argument types of the kernels' C interfaces (pointers and the stream as
+# void*: a plain int would cut them to 32 bits)
+PTR, INT, LONG, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -87,8 +92,10 @@ def build_all(names=SOURCES) -> dict[str, str]:
             for n, (_, _, log) in started.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+def load(name: str, signatures: dict | None = None) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed.
+    ``signatures`` ({function: argtypes}, each returning a C int) are set
+    once, when the library is first loaded."""
     lib = _LIBS.get(name)
     if lib is None:
         proc, out, log = _start(name)
@@ -96,6 +103,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
+        for fn, argtypes in (signatures or {}).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

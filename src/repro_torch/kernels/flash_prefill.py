@@ -34,11 +34,10 @@ step.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import FLOAT, INT, LONG, PTR
 from repro_torch.kernels.paged_attention import _DTYPES, NEG_INF, _check_pool
 from repro_torch.kernels.ref import flash_attention_ref, gather_block_table
 
@@ -154,9 +153,7 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
         kn = torch.empty((B, KV, P, page), dtype=torch.float32,
                          device=q.device)
         vn = torch.empty_like(kn)
-    lib = build.load("flash_prefill")
-    vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float
+    lib = build.load("flash_prefill", _PREFILL_SIGNATURES)
     ptr = lambda t: t.data_ptr() if t is not None else None
     sn, sp, skv, _ = k_pool.stride()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -165,18 +162,12 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
             sn, sp, skv)
     if route == TENSOR_CORE:
         _check_16b(q=q, k_pool=k_pool, v_pool=v_pool)
-        fn = lib.paged_prefill_tc
-        fn.argtypes = [vp] * 9 + [ci] * 7 + [cl] * 3 + [ci, cf, ci, vp]
-        fn.restype = ci
-        rc = fn(*head, int(window), float(scale), int(per_qhead), stream)
+        rc = lib.paged_prefill_tc(*head, int(window), float(scale),
+                                  int(per_qhead), stream)
     else:
-        fn = lib.paged_prefill
-        fn.argtypes = [vp] * 9 + [ci] * 7 + [cl] * 3 + [ci] * 2 + \
-            [cf, ci, ci, ci, vp]
-        fn.restype = ci
-        rc = fn(*head, tile_rows(hd), int(window), float(scale),
-                _DTYPES[q.dtype], _DTYPES[k_pool.dtype], int(per_qhead),
-                stream)
+        rc = lib.paged_prefill(*head, tile_rows(hd), int(window),
+                               float(scale), _DTYPES[q.dtype],
+                               _DTYPES[k_pool.dtype], int(per_qhead), stream)
     build.check(lib, rc, "paged_prefill")
     if per_qhead:
         paged_prefill_cuda.per_qhead_launches += 1
@@ -187,6 +178,11 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
     return out, ((kn, vn) if return_scores else None)
 
 
+_PREFILL_SIGNATURES = {
+    "paged_prefill_tc": [PTR] * 9 + [INT] * 7 + [LONG] * 3 +
+    [INT, FLOAT, INT, PTR],
+    "paged_prefill": [PTR] * 9 + [INT] * 7 + [LONG] * 3 + [INT] * 2 +
+    [FLOAT, INT, INT, INT, PTR]}
 paged_prefill_cuda.launches = 0
 paged_prefill_cuda.per_qhead_launches = 0
 paged_prefill_cuda.tensor_core_launches = 0
@@ -248,14 +244,11 @@ def flash_attention_cuda(q, k, v, *, window: int = 0,
         _check_16b(q=q, k=k, v=v)
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty_like(q)
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 4 + [ci] * 6 + [cf, ci, vp]
-    fn.restype = ci
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, KV, hd, int(window), float(scale), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    lib = build.load("flash_attention", _FLASH_SIGNATURES)
+    rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             out.data_ptr(), B, S, H, KV, hd, int(window),
+                             float(scale), _DTYPES[q.dtype],
+                             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_attention")
     flash_attention_cuda.launches += 1
     setattr(flash_attention_cuda, f"{route}_launches",
@@ -263,6 +256,8 @@ def flash_attention_cuda(q, k, v, *, window: int = 0,
     return out
 
 
+_FLASH_SIGNATURES = {"flash_attention": [PTR] * 4 + [INT] * 6 +
+                     [FLOAT, INT, PTR]}
 flash_attention_cuda.launches = 0
 flash_attention_cuda.tensor_core_launches = 0
 flash_attention_cuda.cuda_core_launches = 0

@@ -16,15 +16,17 @@ tiles are those of the dequantized values.
 
 The kernel source is ``csrc/paged_attention.cu``; it replaces the JAX
 package's Pallas ``paged_attention_kernel`` and
-``paged_attention_kernel_int8``.
+``paged_attention_kernel_int8``. It takes the shapes of
+:func:`decode_shape_check` (hd 64 or 128, G <= 8, page <= 128) over a pool
+whose base and strides are whole chunks (:func:`chunk_aligned`); the
+wrappers raise on anything else.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import FLOAT, INT, LONG, PTR
 from repro_torch.kernels.ref import gather_block_table
 
 NEG_INF = -1e30
@@ -103,10 +105,44 @@ def paged_attention_int8_plain(q, k_pool, v_pool, k_scale, v_scale, pos,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+def decode_shape_check(q_dtype, pool_dtype, G: int, hd: int,
+                       page: int) -> None:
+    """What the decode kernel takes, a function of dtypes and shape only: a
+    float32 or bfloat16 query over a float32, bfloat16 or int8 pool, head
+    dim 64 or 128, 1 <= G <= 8 query heads per KV head, pages of at most 128
+    tokens. Raises TypeError or ValueError on anything else: there is no
+    other decode kernel to fall back to."""
+    if q_dtype not in (torch.float32, torch.bfloat16) or \
+            pool_dtype not in _DTYPES:
+        raise TypeError(f"no decode kernel for a {q_dtype} query over a "
+                        f"{pool_dtype} pool")
+    if hd not in (64, 128):
+        raise ValueError(f"the decode kernel takes head dim 64 or 128, not "
+                         f"{hd}")
+    if not 1 <= G <= 8:
+        raise ValueError(f"the decode kernel takes 1 to 8 query heads per KV "
+                         f"head, not {G}")
+    if not 1 <= page <= 128:
+        raise ValueError(f"the decode kernel takes pages of 1 to 128 tokens, "
+                         f"not {page}")
+
+
+def chunk_aligned(pool) -> None:
+    """The decode kernel copies one chunk per lane (16 bytes of an f32 or
+    bf16 row, 8 of an int8 row): the pool's base must be aligned to it and
+    its strides whole chunks. Raises ValueError otherwise."""
+    chunk = 8 if pool.dtype == torch.int8 else 16
+    if pool.data_ptr() % chunk:
+        raise ValueError(f"the pool is not {chunk}-byte aligned")
+    if any(st * pool.element_size() % chunk for st in pool.stride()[:3]):
+        raise ValueError(f"pool strides {pool.stride()} are not multiples "
+                         f"of {chunk} bytes")
+
+
 def _check_pool(q, k_pool, v_pool, pos, block_table, scales=None):
-    """Validate what the kernels take; raise on anything else. q is f32 or
-    bf16; the pool f32 or bf16 (either, whatever q is), or int8 when
-    ``scales`` (k_scale, v_scale) are given."""
+    """Validate what the paged kernels (decode and prefill) take; raise on
+    anything else. q is f32 or bf16; the pool f32 or bf16 (either, whatever
+    q is), or int8 when ``scales`` (k_scale, v_scale) are given."""
     tensors = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                ("pos", pos), ("block_table", block_table)]
     if scales is not None:
@@ -139,13 +175,27 @@ def _check_pool(q, k_pool, v_pool, pos, block_table, scales=None):
         raise ValueError("page size above 128 is not supported")
 
 
+def _check_decode(q, k_pool, v_pool):
+    """What the decode kernel adds to :func:`_check_pool`: q (B, KV, G, hd)
+    matching the pool, :func:`decode_shape_check` and chunk alignment."""
+    B, KV, G, hd = q.shape
+    decode_shape_check(q.dtype, k_pool.dtype, G, hd, k_pool.shape[1])
+    if k_pool.shape[2:] != (KV, hd):
+        raise ValueError(f"q {tuple(q.shape)} does not match the pool "
+                         f"{tuple(k_pool.shape)}")
+    chunk_aligned(k_pool)
+    chunk_aligned(v_pool)
+
+
 def paged_attention_cuda(q, k_pool, v_pool, pos, block_table, cur_pos, *,
                          window: int = 0, scale: float | None = None,
                          num_splits: int = 1, return_scores: bool = False):
     """Launch the CUDA decode kernel; same contract as
-    :func:`paged_attention_plain`. Raises on CPU tensors or a failed launch.
+    :func:`paged_attention_plain`. Raises on CPU tensors, on what
+    :func:`decode_shape_check` refuses, or on a failed launch.
     ``paged_attention_cuda.launches`` counts the launches."""
     _check_pool(q, k_pool, v_pool, pos, block_table)
+    _check_decode(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, None, pos, block_table, cur_pos,
                   window, scale, num_splits, return_scores)
     paged_attention_cuda.launches += 1
@@ -157,13 +207,19 @@ def paged_attention_int8_cuda(q, k_pool, v_pool, k_scale, v_scale, pos,
                               scale: float | None = None, num_splits: int = 1,
                               return_scores: bool = False):
     """Launch the CUDA decode kernel on an int8 pool; same contract as
-    :func:`paged_attention_int8_plain`. Raises on CPU tensors or a failed
-    launch. ``paged_attention_int8_cuda.launches`` counts the launches."""
+    :func:`paged_attention_int8_plain`. Raises on CPU tensors, on what
+    :func:`decode_shape_check` refuses, or on a failed launch.
+    ``paged_attention_int8_cuda.launches`` counts the launches."""
     _check_pool(q, k_pool, v_pool, pos, block_table, (k_scale, v_scale))
+    _check_decode(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, (k_scale, v_scale), pos, block_table,
                   cur_pos, window, scale, num_splits, return_scores)
     paged_attention_int8_cuda.launches += 1
     return out
+
+
+_SIGNATURES = {"paged_decode": [PTR] * 13 + [INT] * 6 + [LONG] * 3 +
+               [INT] * 3 + [FLOAT, INT, INT, PTR]}
 
 
 def _launch(q, k_pool, v_pool, scales, pos, block_table, cur_pos, window,
@@ -183,22 +239,16 @@ def _launch(q, k_pool, v_pool, scales, pos, block_table, cur_pos, window,
     if return_scores:
         kn = torch.empty((B, KV, P, page), **f32)
         vn = torch.empty((B, KV, P, page), **f32)
-    lib = build.load("paged_attention")
-    fn = lib.paged_decode
-    vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float
-    fn.argtypes = [vp] * 13 + [ci] * 6 + [cl] * 3 + [ci] * 3 + \
-        [cf, ci, ci, vp]
-    fn.restype = ci
+    lib = build.load("paged_attention", _SIGNATURES)
     ptr = lambda t: t.data_ptr() if t is not None else None
     ks, vs = scales if scales is not None else (None, None)
     sn, sp, skv, _ = k_pool.stride()
-    rc = fn(ptr(q), ptr(k_pool), ptr(v_pool), ptr(ks), ptr(vs), ptr(pos),
-            ptr(block_table), ptr(cur_pos), ptr(acc), ptr(m), ptr(l),
-            ptr(kn), ptr(vn), B, KV, G, hd, P, page, sn, sp, skv, S, pps,
-            int(window), float(scale), _DTYPES[q.dtype],
-            _DTYPES[k_pool.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    rc = lib.paged_decode(
+        ptr(q), ptr(k_pool), ptr(v_pool), ptr(ks), ptr(vs), ptr(pos),
+        ptr(block_table), ptr(cur_pos), ptr(acc), ptr(m), ptr(l), ptr(kn),
+        ptr(vn), B, KV, G, hd, P, page, sn, sp, skv, S, pps, int(window),
+        float(scale), _DTYPES[q.dtype], _DTYPES[k_pool.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "paged_decode")
     return acc, m, l, ((kn, vn) if return_scores else None)
 

@@ -8,8 +8,10 @@ installed:
 
 (``--noconftest``: tests/conftest.py imports JAX.) Churned pools at the
 main path's shapes (page 16, 49 slots, batch 8; llama-3.2-1b and -3b
-heads), window 0 and 128, splits 1 and 4, padding rows, float and int8
-pools; contiguous prompts for the flash kernel (a length that is not a
+heads), window 0 and 128, padding rows, float and int8 pools; the decode
+kernel also at llama-3.1-8b's and qwen2.5-3b's heads, G 1 and 2 at page 8,
+splits 1, 2, 4 and one page per split, every q / pool dtype pair, a row
+with no mapped slot and a row at cur_pos -1; contiguous prompts for the flash kernel (a length that is not a
 multiple of its tile, window 0 and 256). f32 within 1e-4; bf16 on the
 CUDA-core route (a bf16 query over an f32 pool) within 1e-5 + 2**-7 of the
 value (both compute in f32, so a bf16 output may differ by one rounding
@@ -57,46 +59,57 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol", TOL)
-@pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
-def test_cuda_decode_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
-    k, v, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd, dtype, seed=hd,
-                                          device=cuda)
-    q = torch.randn((8, KV, G, hd), device=cuda).to(dtype)
+# decode shapes (KV, G, hd, page): llama-3.2-1b, -3b, 3.1-8b, qwen2.5-3b, the
+# reduced configs (G 2, page 8) and one KV head per query head
+DECODE_SHAPES = [(8, 4, 64, 16), (8, 3, 128, 16), (8, 4, 128, 16),
+                 (2, 8, 128, 16), (2, 2, 64, 8), (4, 1, 64, 8)]
+DECODE_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2 ** -7)}
+
+
+def _decode_cases(kernel, plain, q, pool, bt, cur, P):
+    """Kernel against plain on a churned pool with row 1 all unmapped and
+    row 2 at cur_pos -1 (both must give zeros), window 0 and 128, splits 1,
+    2, 4 and P (one page per split); tolerance by q's dtype."""
+    bt, cur = bt.clone(), cur.clone()
+    bt[1] = -1
+    cur[2] = -1
+    atol, rtol = DECODE_TOL[q.dtype]
     for window in (0, 128):
-        for splits in (1, 4):
+        for splits in (1, 2, 4, P):
             kw = dict(window=window, num_splits=splits, return_scores=True)
-            a, m, l, nk = paged_attention_cuda(q, k, v, pos, bt, cur, **kw)
-            a2, m2, l2, nk2 = paged_attention_plain(q, k, v, pos, bt, cur,
-                                                    **kw)
-            torch.testing.assert_close(combine_splits(a, m, l).to(dtype),
-                                       combine_splits(a2, m2, l2).to(dtype),
-                                       atol=atol, rtol=rtol)
+            a, m, l, nk = kernel(q, *pool, bt, cur, **kw)
+            a2, m2, l2, nk2 = plain(q, *pool, bt, cur, **kw)
+            o = combine_splits(a, m, l).to(q.dtype)
+            assert not o[1:3].any(), (window, splits)
+            torch.testing.assert_close(o, combine_splits(a2, m2, l2).to(
+                q.dtype), atol=atol, rtol=rtol)
             for x, y in zip(nk, nk2):
                 torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol", TOL)
-@pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
-def test_cuda_decode_int8_matches_plain(cuda, KV, G, hd, dtype, atol, rtol):
-    k, v, ks, vs, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd,
-                                                  torch.int8, seed=hd + 1,
+@pytest.mark.parametrize("dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("KV,G,hd,page", DECODE_SHAPES)
+def test_cuda_decode_matches_plain(cuda, KV, G, hd, page, dtype, pool_dtype):
+    k, v, pos, bt, cur = ref.churned_pool(8, 49, page, KV, hd, pool_dtype,
+                                          seed=hd + G, device=cuda)
+    q = torch.randn((8, KV, G, hd), device=cuda).to(dtype)
+    _decode_cases(paged_attention_cuda, paged_attention_plain, q,
+                  (k, v, pos), bt, cur, 49)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,page", DECODE_SHAPES)
+def test_cuda_decode_int8_matches_plain(cuda, KV, G, hd, page, dtype):
+    k, v, ks, vs, pos, bt, cur = ref.churned_pool(8, 49, page, KV, hd,
+                                                  torch.int8, seed=hd + G + 1,
                                                   device=cuda)
     q = torch.randn((8, KV, G, hd), device=cuda).to(dtype)
-    for window in (0, 128):
-        for splits in (1, 4):
-            kw = dict(window=window, num_splits=splits, return_scores=True)
-            a, m, l, nk = paged_attention_int8_cuda(q, k, v, ks, vs, pos,
-                                                    bt, cur, **kw)
-            a2, m2, l2, nk2 = paged_attention_int8_plain(q, k, v, ks, vs,
-                                                         pos, bt, cur, **kw)
-            torch.testing.assert_close(combine_splits(a, m, l).to(dtype),
-                                       combine_splits(a2, m2, l2).to(dtype),
-                                       atol=atol, rtol=rtol)
-            for x, y in zip(nk, nk2):
-                torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
+    _decode_cases(paged_attention_int8_cuda, paged_attention_int8_plain, q,
+                  (k, v, ks, vs, pos), bt, cur, 49)
 
 
 @pytest.mark.cuda

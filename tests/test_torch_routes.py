@@ -1,4 +1,5 @@
-"""The route rules of the prefill and flash attention wrappers, on the CPU.
+"""The route rules of the prefill and flash attention wrappers and the
+decode kernel's shape rule, on the CPU.
 
 A route is a function of dtypes and head dim alone, written down in the
 wrappers (``prefill_route``, ``flash_route``): bf16 throughout at hd 64 or
@@ -7,11 +8,17 @@ pool (the dequantized int8 pool), on the CUDA cores; anything else raises.
 No route falls back to the other. The tensor-core route's 16-byte copies
 need aligned bases and pool strides in multiples of 8 elements, which the
 wrappers check and refuse otherwise.
+
+The decode kernel (``decode_shape_check``) takes an f32 or bf16 query over
+an f32, bf16 or int8 pool at head dim 64 or 128, 1 <= G <= 8 and pages of at
+most 128 tokens, and a pool whose base and strides are whole 16-byte (f32,
+bf16) or 8-byte (int8) chunks; the rest raises.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_prefill as fp
+from repro_torch.kernels import paged_attention as pa
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -66,3 +73,41 @@ def test_16_byte_copy_checks():
         fp._check_16b(k_pool=padded)
     with pytest.raises(ValueError, match="aligned"):
         fp._check_16b(q=torch.zeros(1000, dtype=BF16)[1:])
+
+
+@pytest.mark.parametrize("q_dtype", [F32, BF16])
+@pytest.mark.parametrize("pool_dtype", [F32, BF16, torch.int8])
+@pytest.mark.parametrize("G,hd,page", [
+    (1, 64, 8), (2, 64, 8), (3, 128, 16), (4, 64, 16), (4, 128, 16),
+    (8, 128, 16), (5, 64, 128), (4, 64, 1)])
+def test_decode_shape_check_accepts(q_dtype, pool_dtype, G, hd, page):
+    pa.decode_shape_check(q_dtype, pool_dtype, G, hd, page)
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype,G,hd,page,exc", [
+    (BF16, BF16, 4, 96, 16, ValueError),
+    (BF16, torch.int8, 4, 32, 16, ValueError),
+    (F32, F32, 4, 256, 16, ValueError),
+    (BF16, BF16, 9, 64, 16, ValueError),
+    (BF16, BF16, 0, 64, 16, ValueError),
+    (BF16, BF16, 4, 64, 256, ValueError),
+    (BF16, BF16, 4, 64, 0, ValueError),
+    (torch.float16, BF16, 4, 64, 16, TypeError),
+    (BF16, torch.float16, 4, 64, 16, TypeError),
+    (torch.int8, torch.int8, 4, 64, 16, TypeError),
+])
+def test_decode_shape_check_refuses_the_rest(q_dtype, pool_dtype, G, hd,
+                                             page, exc):
+    with pytest.raises(exc):
+        pa.decode_shape_check(q_dtype, pool_dtype, G, hd, page)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, torch.int8])
+def test_decode_chunk_alignment(dtype):
+    pa.chunk_aligned(torch.zeros((4, 16, 2, 64), dtype=dtype))
+    padded = torch.zeros((4, 16, 2, 66), dtype=dtype)[..., :64]
+    with pytest.raises(ValueError, match="multiples"):
+        pa.chunk_aligned(padded)
+    flat = torch.zeros(4 * 16 * 2 * 64 + 1, dtype=dtype)
+    with pytest.raises(ValueError, match="aligned"):
+        pa.chunk_aligned(flat[1:].reshape(4, 16, 2, 64))
