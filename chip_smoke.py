@@ -12,27 +12,30 @@ Phases (any failure exits non-zero; none is skipped):
               int8 pools), the flash one on prompts of 128 and 4096 tokens
               with and without a window, the page-score one on float and
               dequantized int8 pools, at the shapes of llama-3.2-1b, -3b and
-              3.1-8b; the decode kernel also at qwen2.5-3b's heads, G 1 and
-              2 at page 8, splits 1, 2, 4 and one page per split, every
-              q / pool dtype pair, with a row of no mapped slot and a row at
-              cur_pos -1; the per-Q-head prefill kernel also bit for bit
-              against the G-fold one. f32 cases within 1e-4; the
-              tensor-core routes (bf16 prefill over a bf16 pool, bf16 flash)
-              within the derived bound 1e-5 + 2**-7 |plain| + 2**-8 (P |V|)
-              / l; each case names its route. Then each one's time at the
-              main path's shapes, as ms (events around the call, host work
-              included) and device_ms (the device's work alone), beside its
+              3.1-8b, and at page 32 and KV 2; the decode kernel also at
+              qwen2.5-3b's heads, G 1 and 2 at page 8, splits 1, 2, 4 and one
+              page per split, every q / pool dtype pair, with a row of no
+              mapped slot and a row at cur_pos -1; the per-Q-head prefill
+              kernel also bit for bit against the G-fold one. f32 cases
+              within 1e-4; the tensor-core routes (bf16 prefill over a bf16
+              pool, bf16 flash) within the derived bound 1e-5 + 2**-7 |plain|
+              + 2**-8 (P |V|) / l; each case names its route. Then each one's
+              time at the main path's shapes, as ms (events around the call,
+              host work included) and device_ms (the device's work alone,
+              after a flush that writes the L2, and after one that reads
+              it), beside the launch floor (an empty kernel's device_ms), its
               bound, the plain version's time and one PyTorch call's
               (scaled_dot_product_attention, a yardstick only, also in both
               clocks)
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
-              the kernels and through their plain versions: the engine on a
-              float and on an int8 pool, and the one-shot path
-              (forward_prefill + 8 decode_steps) on a float and an int8 pool,
-              and on a float pool with a ragged prompt of 3000 tokens;
-              greedy tokens, devstats and the integer pool state equal; on
-              int8 pools, where a quantizer input rounds differently on the
-              two runs, the first such value on both sides
+              the kernels and through their plain versions, under
+              paged_eviction and each of the paper's baselines: the engine on
+              a float and on an int8 pool, and the one-shot path
+              (forward_prefill + 8 decode_steps) on a float and an int8 pool;
+              and paged_eviction on a float pool with a ragged prompt of 3000
+              tokens; greedy tokens, devstats and the integer pool state
+              equal; on int8 pools, where a quantizer input rounds
+              differently on the two runs, the first such value on both sides
   4. serve    llama-3.2-1b at full width (bf16, random weights from a seed):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
               prefix), 32 greedy tokens each, under paged_eviction (page 16,
@@ -46,15 +49,25 @@ Phases (any failure exits non-zero; none is skipped):
               kernel (all 16 launches on the tensor-core route), compressed
               to budget 512 by Alg. 2, then 32 greedy tokens under Alg. 3,
               once on a bf16 and once on an int8 pool
-  6. int8     phase 4's workload (8 requests) served on an int8 pool (every
+  6. int8     phase 4's workload (4 requests) served on an int8 pool (every
               prefill launch on the CUDA-core route: a bf16 query over the
               dequantized f32 pool)
+  7. baselines the paper's comparison: streaming_llm, inverse_key_l2 and
+              keydiff each serve 4 of phase 4's requests (16 greedy tokens)
+              and run phase 5's prompts one-shot (bf16, 16 decode steps).
+              Checks after every step the budget (budget + page, plus the
+              shared prefix for rows that share one: copy-on-write sheds it
+              one page per call), StreamingLLM's sinks (unless the layer
+              forced a rollover), that tokens were evicted, F1-F4 and the
+              kernels' routes; prints tok/s, step times, live tokens per
+              mapped page, forced evictions and prefix adoptions.
 
 Prints the card's name and power limit, one JSON line describing every
-kernel (with the route each timing took, "timed_route", and the device-only
-times "device_ms" and "library_device_ms"), and as the last
-line {"ok": true, "device": {...}}. Exits non-zero
-without a CUDA device or without the repository's sources beside it.
+kernel (with the route each timing took, "timed_route", the device-only
+times "device_ms", "device_clean_ms" and "library_device_ms", and the launch
+floor "floor_device_ms"), and as the last line {"ok": true, "device":
+{...}}. Exits non-zero without a CUDA device or without the repository's
+sources beside it.
 """
 from __future__ import annotations
 
@@ -168,15 +181,20 @@ def timed(torch, fn, iters=20, warmup=3):
 _CYCLES_PER_MS: list = []
 
 
-def device_timed(torch, fn, iters=20, warmup=3):
+def device_timed(torch, fn, iters=20, warmup=3, clean=False):
     """Mean device ms of ``fn``, without the host's work: as :func:`timed`
     (L2 flushed, CUDA events), but the card first spins
     (``torch.cuda._sleep``) for ten times as long as the host takes to
     enqueue ``fn``, so the start event runs only after the whole call is
     queued and the events bracket the device's work alone. A call whose
     enqueue still outlasted the spin is not counted; fails if half are
-    not."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    not. The flush writes 64 MiB, so the L2 may hold dirty lines that
+    ``fn``'s reads first write back; ``clean`` flushes by reading instead
+    (the L2 then holds clean lines), which takes any such write-back out."""
+    buf = torch.zeros(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    sink = torch.empty((), dtype=torch.int64, device="cuda")
+    flush = (lambda: torch.sum(buf, 0, dtype=torch.int64, out=sink)) if clean \
+        else buf.zero_
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     if not _CYCLES_PER_MS:
         e0, e1 = ev(), ev()
@@ -194,7 +212,7 @@ def device_timed(torch, fn, iters=20, warmup=3):
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        flush()
         torch.cuda._sleep(int(spin_ms * _CYCLES_PER_MS[0]))
         e0, e1 = ev(), ev()
         t0 = time.perf_counter()
@@ -321,8 +339,6 @@ def check_decode(torch, worst):
 
 
 def check_kernels(torch):
-    from repro_torch.kernels.block_score import (block_score_cuda,
-                                                 block_score_plain)
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                    flash_attention_plain,
                                                    flash_route,
@@ -388,21 +404,36 @@ def check_kernels(torch):
                        *_err(o, o2, dname, wt))
                 del x, o, o2, wt
             # page scores: the float pool and the dequantized int8 one
-            for label, kp, vp, pp in (
-                    (dname, k, v, pos),
-                    ("int8", dequantize(k8, ks), dequantize(v8, vs), pos8)):
-                got, want = block_score_cuda(kp, vp, pp), \
-                    block_score_plain(kp, vp, pp)
-                torch.cuda.synchronize()
-                if not torch.equal(torch.isinf(got), torch.isinf(want)):
-                    fail("block_score: empty pages differ")
-                fin = torch.isfinite(want)
-                err = float((got[fin] - want[fin]).abs().max())
-                rel = float(((got[fin] - want[fin]).abs() /
-                             want[fin].abs().clamp_min(1e-6)).max())
-                _check(worst, "block_score", f"{arch} {label} pool",
-                       err, 0.0, rel)
+            check_block_score(torch, worst, f"{arch} {dname} pool", k, v, pos)
+            check_block_score(torch, worst, f"{arch} int8 pool",
+                              dequantize(k8, ks), dequantize(v8, vs), pos8)
+    # the page-score kernel's other block shapes: page 32, and KV 2 (two
+    # pages per block), each with an empty page
+    for page, KV, hd in ((32, 8, 64), (16, 2, 64)):
+        for dt in (torch.float32, torch.bfloat16):
+            k, v, pos, bt, _ = churned_pool(B, P, page, KV, hd, dt,
+                                            page + KV)
+            pos[bt[0, 0]] = -1
+            check_block_score(torch, worst, f"page {page}, KV {KV}, hd {hd} "
+                              f"{str(dt).removeprefix('torch.')} pool",
+                              k, v, pos)
     return worst
+
+
+def check_block_score(torch, worst, label, k, v, pos):
+    """The page-score kernel against its plain version on one pool: the same
+    empty pages, scores within NORM_RTOL."""
+    from repro_torch.kernels.block_score import (block_score_cuda,
+                                                 block_score_plain)
+    got, want = block_score_cuda(k, v, pos), block_score_plain(k, v, pos)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        fail("block_score: empty pages differ")
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    rel = float(((got[fin] - want[fin]).abs() /
+                 want[fin].abs().clamp_min(1e-6)).max())
+    _check(worst, "block_score", label, err, 0.0, rel)
 
 
 def time_kernels(torch, F):
@@ -411,7 +442,8 @@ def time_kernels(torch, F):
     the one-shot prefill (B 4, 4096 tokens), the pool pass on the serving
     pool, each with its bound and yardsticks."""
     from repro_torch.kernels.block_score import (block_score_cuda,
-                                                 block_score_plain)
+                                                 block_score_plain,
+                                                 launch_floor_cuda)
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                    flash_attention_plain,
                                                    flash_route,
@@ -509,7 +541,8 @@ def time_kernels(torch, F):
                          enable_gqa=True),
             bound_ms(2 * nbytes(x[0]) + nbytes(x[1], x[2]), flops_flash,
                      dname)),
-        # the pool pass over the serving pool (every page, one score each)
+        # the pool pass over the serving pool (every page, one score each;
+        # bytes: K, V and positions read once, one f32 out per page)
         "block_score": (
             lambda: block_score_cuda(k, v, pos),
             lambda: block_score_plain(k, v, pos),
@@ -517,15 +550,25 @@ def time_kernels(torch, F):
             bound_ms(nbytes(k, v, pos) + 4 * pos.shape[0], 4 * k.numel(),
                      dname)),
     }
+    # the launch floor: an empty kernel of block_score's library (one
+    # block, one write), timed as the kernels are
+    floor_out = torch.empty(1, dtype=torch.float32, device="cuda")
+    floor = device_timed(torch, lambda: launch_floor_cuda(floor_out))
+    floor_clean = device_timed(torch, lambda: launch_floor_cuda(floor_out),
+                               clean=True)
+    print(f"  launch floor (empty kernel, one write): device {floor:.4f} ms "
+          f"(after a read flush {floor_clean:.4f})", flush=True)
     res, lib_times = {}, {}
     for name, (kernel, plain, library, bound) in calls.items():
         few = dict(iters=5) if name == "flash_attention" else {}
         r = res[name] = dict(
             ms=timed(torch, kernel, **few),
             device_ms=device_timed(torch, kernel, **few),
+            device_clean_ms=device_timed(torch, kernel, clean=True, **few),
             plain_ms=timed(torch, plain, **(dict(iters=3, warmup=1)
                                             if few else {})),
-            bound=bound, library_ms=None, library_device_ms=None)
+            bound=bound, library_ms=None, library_device_ms=None,
+            floor_device_ms=floor)
         if library is not None:
             if library not in lib_times:    # K3 and K4 share theirs
                 lib_times[library] = (timed(torch, library, **few),
@@ -547,9 +590,10 @@ def time_kernels(torch, F):
             note += f" ({r['flops'] / r['device_ms'] / 1e9:.1f} TFLOP/s)"
         note += f", {r['route']} route"
         print(f"  {name}: kernel {r['ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms{note}, "
-              f"library {lib}, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]})", flush=True)
+              f"{r['device_ms']:.4f}, after a read flush "
+              f"{r['device_clean_ms']:.4f}; launch floor {floor:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms{note}, library {lib}, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
     return res
 
 
@@ -595,10 +639,11 @@ def check_invariants(np, layers):
             fail(f"F4: layer {i} a free page holds live tokens")
 
 
-def run_engine(torch, np, devstats, eng, prompts, new_tokens):
+def run_engine(torch, np, devstats, eng, prompts, new_tokens, on_step=None):
     """Serve ``prompts`` to the end, checking the devstats conservation
-    identities at every step. Returns ({request id: tokens}, per-step
-    devstats, wall seconds without the checks)."""
+    identities (and ``on_step(eng)``, when given) at every step. Returns
+    ({request id: tokens}, per-step devstats, wall seconds without the
+    checks)."""
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
     per_step = []
@@ -611,6 +656,8 @@ def run_engine(torch, np, devstats, eng, prompts, new_tokens):
         c0 = time.perf_counter()
         check_conservation(np, devstats, before, pool_totals(torch, eng),
                            eng.last_stats)
+        if on_step is not None:
+            on_step(eng)
         per_step.append(eng.last_stats.copy())
         t_check += time.perf_counter() - c0
         if not more:
@@ -710,7 +757,13 @@ def _reduced(get_arch):
                                num_heads=4, num_kv_heads=2)
 
 
-def engine_parity(torch, np, kv_dtype):
+def evicted_stat(policy) -> str:
+    """The devstats / EngineStats name of what a policy evicts: pages under
+    paged_eviction, tokens under the baselines."""
+    return "pages_evicted" if policy == "paged_eviction" else "tokens_evicted"
+
+
+def engine_parity(torch, np, kv_dtype, policy="paged_eviction"):
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
@@ -727,7 +780,8 @@ def engine_parity(torch, np, kv_dtype):
     out, inputs = [], []
     for plain in (False, True):
         eng = Engine(cfg, params, cache_cfg=CacheConfig(
-            page_size=8, cache_budget=48, dtype=kv_dtype), max_batch=4,
+            page_size=8, cache_budget=48, policy=policy, dtype=kv_dtype),
+            max_batch=4,
             max_prompt_len=96, max_new_tokens=16, chunk_size=32,
             decode_splits=2, device="cuda", plain_kernels=plain)
         seen, undo = record_quantize()
@@ -738,7 +792,7 @@ def engine_parity(torch, np, kv_dtype):
         inputs.append(seen)
         out.append((toks, steps, *pool_state(np, eng.cache.layers), eng.stats))
     (tk, sk, ik, qk, stk), (tp, sp, ip, qp, stp) = out
-    what = f"engine parity ({kv_dtype})"
+    what = f"engine parity ({policy}, {kv_dtype})"
     if tk != tp:
         fail(f"{what}: greedy tokens differ between kernels and plain")
     if len(sk) != len(sp) or any(not np.array_equal(a, b)
@@ -750,23 +804,27 @@ def engine_parity(torch, np, kv_dtype):
     if qk:
         print(f"  engine int8 quantizer inputs: {first_flip(torch, *inputs)}",
               flush=True)
-    if not stk.pages_evicted or not stk.shared_prefix_hits:
+    # the baselines' token holes may leave no intact prefix to adopt
+    if not getattr(stk, evicted_stat(policy)) or \
+            (policy == "paged_eviction" and not stk.shared_prefix_hits):
         fail(f"{what} exercised too little: {stk}")
-    print(f"  engine {kv_dtype:8s}: {len(tk)} requests, {len(sk)} steps: "
-          f"tokens, per-step devstats and pool state equal; int8 values "
-          f"one step apart {flips[0]} of {flips[1]}; evicted "
-          f"{stk.pages_evicted} pages, {stk.shared_prefix_hits} prefix "
+    print(f"  engine {policy} {kv_dtype:8s}: {len(tk)} requests, {len(sk)} "
+          f"steps: tokens, per-step devstats and pool state equal; int8 "
+          f"values one step apart {flips[0]} of {flips[1]}; evicted "
+          f"{stk.pages_evicted} pages, {stk.tokens_evicted} tokens, forced "
+          f"{stk.forced_evictions}, {stk.shared_prefix_hits} prefix "
           f"adoptions", flush=True)
 
 
 def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
-                decode_splits=1):
+                decode_splits=1, on_step=None):
     """forward_prefill, then ``steps`` greedy decode_steps (the kernels'
     eviction ranking, fused_scores, on both). The caches get devstats
     vectors after the prefill (a wholesale reset, it emits none), so every
-    decode step's events are read. Returns (tokens (B, steps), layer
-    caches, live tokens per row after prefill, per-step devstats (steps,
-    NSTATS), prefill seconds, decode seconds)."""
+    decode step's events are read; ``on_step(layers)``, when given, after
+    each step (its time counts). Returns (tokens (B, steps), layer caches,
+    live tokens per row after prefill, per-step devstats (steps, NSTATS),
+    prefill seconds, decode seconds)."""
     from repro_torch.core import devstats
     from repro_torch.core.policies import get_policy
     from repro_torch.models.transformer import (collect_step_stats,
@@ -792,6 +850,8 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
         stats.append(collect_step_stats(cache))
         tok = logits.argmax(-1).to(torch.int32)
         out.append(tok)
+        if on_step is not None:
+            on_step(cache.layers)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     if not bool(torch.isfinite(logits).all()):
@@ -800,7 +860,7 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
             torch.stack(stats).cpu().numpy(), t1 - t0, t2 - t1)
 
 
-def oneshot_parity(torch, np, kv_dtype, S=128):
+def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
@@ -812,7 +872,8 @@ def oneshot_parity(torch, np, kv_dtype, S=128):
                               .astype(np.int32)).cuda()
     valid = torch.arange(S, device="cuda")[None, :] < \
         torch.tensor([[S], [S - 5], [S - 19]], device="cuda")
-    ccfg = CacheConfig(page_size=8, cache_budget=32, dtype=kv_dtype)
+    ccfg = CacheConfig(page_size=8, cache_budget=32, policy=policy,
+                       dtype=kv_dtype)
     reset_launches()
     runs, inputs = [], []
     for plain in (False, True):
@@ -825,7 +886,7 @@ def oneshot_parity(torch, np, kv_dtype, S=128):
         inputs.append(seen)
     launches = read_launches()
     (tk, lk, _, sk, _, _), (tp, lp, _, sp, _, _) = runs
-    what = f"one-shot parity ({kv_dtype}, S {S})"
+    what = f"one-shot parity ({policy}, {kv_dtype}, S {S})"
     dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
     if not launches["flash_attention"] or not launches[dec]:
         fail(f"{what}: kernels not launched: {launches}")
@@ -838,19 +899,28 @@ def oneshot_parity(torch, np, kv_dtype, S=128):
     if any(not np.array_equal(a, b) for a, b in zip(ik, ip)):
         fail(f"{what}: integer cache state differs")
     flips = compare_int8(np, qk, qp, what) if qk else (0, 0)
-    evicted = int(sk[:, devstats.PAGES_EVICTED].sum())
+    name = evicted_stat(policy)
+    evicted = int(sk[:, devstats.STAT_NAMES.index(name)].sum())
+    unit = name.removesuffix("_evicted")
     if not evicted:
-        fail(f"{what}: no page was evicted in decode")
+        fail(f"{what}: no {unit} evicted in decode")
     if qk:
         print(f"  one-shot int8 quantizer inputs: "
               f"{first_flip(torch, *inputs)}", flush=True)
-    print(f"  one-shot {kv_dtype:8s} S {S}: {tk.shape[0]} prompts, 8 steps: "
-          f"tokens, per-step devstats and integer cache state equal; int8 "
-          f"values one step apart {flips[0]} of {flips[1]}; evicted "
-          f"{evicted} pages; launches {launches}", flush=True)
+    print(f"  one-shot {policy} {kv_dtype:8s} S {S}: {tk.shape[0]} prompts, "
+          f"8 steps: tokens, per-step devstats and integer cache state "
+          f"equal; int8 values one step apart {flips[0]} of {flips[1]}; "
+          f"evicted {evicted} {unit}; launches {launches}", flush=True)
 
 
-def serve_full_width(torch, np, kv_dtype, n_requests):
+def serve_full_width(torch, np, kv_dtype, n_requests,
+                     policy="paged_eviction", new_tokens=32, on_step=None):
+    """Serve ``n_requests`` prompts of 1024-2048 tokens (every other one
+    opening with a shared 256-token prefix) on llama-3.2-1b at full width,
+    ``new_tokens`` greedy tokens each. Checks that every request finished,
+    the path's kernels and routes, that the policy evicted (and, under
+    paged_eviction, shared prefixes) and F1-F4 at the end. Returns
+    (launches, engine, wall seconds)."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
@@ -859,13 +929,15 @@ def serve_full_width(torch, np, kv_dtype, n_requests):
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     eng = Engine(cfg, params, cache_cfg=CacheConfig(
-        page_size=16, cache_budget=512, policy="paged_eviction",
+        page_size=16, cache_budget=512, policy=policy,
         dtype=kv_dtype), max_batch=8, max_prompt_len=2048,
-        max_new_tokens=32, chunk_size=256, decode_splits=4, device="cuda")
+        max_new_tokens=new_tokens, chunk_size=256, decode_splits=4,
+        device="cuda")
     torch.cuda.synchronize()
     print(f"  model + caches ready in {time.perf_counter() - t0:.1f} s; "
           f"pool payload {eng.pool_bytes()['payload_total'] / 2 ** 20:.1f} "
-          f"MiB over {cfg.num_layers} layers ({kv_dtype})", flush=True)
+          f"MiB over {cfg.num_layers} layers ({kv_dtype}, {policy}, "
+          f"{eng.cache.layers[0].num_pages} slots per row)", flush=True)
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 256)
     prompts = []
@@ -875,7 +947,8 @@ def serve_full_width(torch, np, kv_dtype, n_requests):
         prompts.append(np.concatenate(
             [head, rng.integers(0, cfg.vocab_size, n - 256)]).astype(np.int32))
     reset_launches()
-    tokens, _, wall = run_engine(torch, np, devstats, eng, prompts, 32)
+    tokens, _, wall = run_engine(torch, np, devstats, eng, prompts,
+                                 new_tokens, on_step)
     launches = read_launches()
     s = eng.stats
     print(f"  {len(tokens)} requests, {s.tokens_generated} tokens, "
@@ -885,13 +958,13 @@ def serve_full_width(torch, np, kv_dtype, n_requests):
           f"{1e3 * s.prefill_s / max(s.steps - s.decode_steps, 1):.2f} ms "
           f"mixed, {1e3 * s.decode_s / max(s.decode_steps, 1):.2f} ms "
           f"decode-only; launches {launches}", flush=True)
-    print(f"  pages evicted {s.pages_evicted}, forced {s.forced_evictions}, "
-          f"prefix adoptions {s.shared_prefix_hits} "
-          f"({s.shared_prefix_tokens} prompt tokens skipped); "
-          f"pool {eng.pool_stats()}", flush=True)
-    if len(tokens) != n_requests or any(len(t) != 32
+    print(f"  pages evicted {s.pages_evicted}, tokens evicted "
+          f"{s.tokens_evicted}, forced {s.forced_evictions}, prefix "
+          f"adoptions {s.shared_prefix_hits} ({s.shared_prefix_tokens} "
+          f"prompt tokens skipped); pool {eng.pool_stats()}", flush=True)
+    if len(tokens) != n_requests or any(len(t) != new_tokens
                                         for t in tokens.values()):
-        fail(f"not every request finished with 32 tokens: "
+        fail(f"not every request finished with {new_tokens} tokens: "
              f"{ {k: len(t) for k, t in tokens.items()} }")
     if any(not 0 <= x < cfg.vocab_size for t in tokens.values() for x in t):
         fail("a sampled token is outside the vocabulary")
@@ -907,10 +980,22 @@ def serve_full_width(torch, np, kv_dtype, n_requests):
     if launches[f"paged_prefill/{route}"] != launches["paged_prefill"]:
         fail(f"{kv_dtype} serving: not every prefill launch took the "
              f"{route} route: {launches}")
-    if not s.pages_evicted or not s.shared_prefix_hits:
-        fail(f"no eviction or no prefix sharing at full width: {s}")
+    if not getattr(s, evicted_stat(policy)) or \
+            (policy == "paged_eviction" and not s.shared_prefix_hits):
+        fail(f"{policy}: no eviction or no prefix sharing at full width: "
+             f"{s}")
     check_invariants(np, eng.cache.layers)
-    return launches
+    return launches, eng, wall
+
+
+def oneshot_prompts(torch, np, vocab):
+    """Phase 5's prompts: 4 right-padded prompts of 4096, 4000, 3096 and
+    2047 tokens. Returns (tokens (B1, S1) int32, valid (B1, S1) bool)."""
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, vocab, (B1, S1))
+                              .astype(np.int32)).cuda()
+    lens = torch.tensor([S1, S1 - 96, S1 - 1000, S1 - 2049], device="cuda")
+    return tokens, torch.arange(S1, device="cuda")[None, :] < lens[:, None]
 
 
 def oneshot_full_width(torch, np):
@@ -920,11 +1005,7 @@ def oneshot_full_width(torch, np):
     from repro_torch.models.transformer import init_model
     cfg = get_arch("llama-3.2-1b")
     params = init_model(cfg, seed=0, device="cuda")
-    rng = np.random.default_rng(2)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B1, S1))
-                              .astype(np.int32)).cuda()
-    lens = torch.tensor([S1, S1 - 96, S1 - 1000, S1 - 2049], device="cuda")
-    valid = torch.arange(S1, device="cuda")[None, :] < lens[:, None]
+    tokens, valid = oneshot_prompts(torch, np, cfg.vocab_size)
     budget, page, steps = 512, 16, 32
     out, launches_all = {}, {}
     for kv_dtype in ("bfloat16", "int8"):
@@ -986,6 +1067,139 @@ def oneshot_full_width(torch, np):
     return launches_all
 
 
+BASELINES = ("streaming_llm", "inverse_key_l2", "keydiff")
+
+
+def fragmentation(torch, layers):
+    """(mapped pages, live tokens) over every layer and row: live tokens per
+    mapped page is the paper's fragmentation (its Limitation 1)."""
+    t = torch.stack([torch.stack([(c.block_table >= 0).sum(),
+                                  c.total_valid().sum()]) for c in layers])
+    mapped, live = (int(x) for x in t.sum(0).cpu())
+    return mapped, live
+
+
+def baseline_checks(torch, devstats, policy, limit, n_sinks, seen,
+                    prefix=0):
+    """A per-step check of a layer list, to what the JAX package's policies
+    guarantee. Live tokens per row <= ``limit`` (budget + page); a row that
+    has held a page another row maps may hold up to ``prefix`` (the shared
+    prefix's tokens) more: token eviction copies a shared page before it
+    writes, one page per row per call, so the rows that share a prefix shed
+    it over several calls. Under streaming_llm, positions 0 .. n_sinks - 1
+    resident in every layer of every row whose newest position is past
+    them, unless that layer has forced a rollover (its victim, the page
+    with the fewest tokens, can be the sinks' page). ``seen`` collects the largest excess
+    over ``limit``, forced evictions per layer and the (layer, row) pairs
+    without their sinks."""
+    want = torch.arange(n_sinks, device="cuda", dtype=torch.int32)
+
+    def check(layers):
+        live = torch.stack([c.total_valid() for c in layers])    # (L, B)
+        shares = torch.stack([(c.mapped_mask() &
+                               (c.ref_count[c._phys()] > 1)).any(-1)
+                              for c in layers])
+        seen["shared"] = shares | seen.get("shared", shares)
+        over = int((live - limit - prefix * seen["shared"]).max())
+        if over > 0:
+            fail(f"{policy}: a row holds {over} live tokens beyond budget + "
+                 f"page (+ {prefix} if it has shared a prefix)")
+        seen["excess"] = max(seen.get("excess", 0), int((live - limit).max()))
+        forced = seen.setdefault("forced", [0] * len(layers))
+        for i, c in enumerate(layers):
+            forced[i] += int(c.stats[devstats.FORCED_EVICTIONS])
+        if policy != "streaming_llm":
+            return
+        lost = []
+        for i, c in enumerate(layers):
+            pv = c.pos_view().reshape(c.batch, -1)
+            has = (pv[:, :, None] == want).any(1).all(1)
+            due = pv.amax(1) >= n_sinks - 1          # past the sinks
+            rows = (due & ~has).nonzero().flatten().tolist()
+            if rows and not forced[i]:
+                fail(f"streaming_llm: rows {rows} lost a sink in layer {i}, "
+                     f"which forced no rollover")
+            lost += [(i, b) for b in rows]
+        seen["sinks_lost"] = max(seen.get("sinks_lost", 0), len(lost))
+    return check
+
+
+def baselines_full_width(torch, np):
+    """The paper's baselines on llama-3.2-1b at full width: for each, 4
+    requests served (bf16 pool, page 16, budget 512, max batch 8, chunk 256,
+    decode splits 4; half share a 256-token prefix; 16 greedy tokens), then
+    phase 5's prompts one-shot (compressed to 512 tokens, 16 greedy
+    decode_steps), each checked by :func:`baseline_checks` at every step."""
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.core import devstats
+    from repro_torch.models.transformer import init_model
+    cfg = get_arch("llama-3.2-1b")
+    budget, page, steps = 512, 16, 16
+    params = init_model(cfg, seed=0, device="cuda")
+    tokens, valid = oneshot_prompts(torch, np, cfg.vocab_size)
+    for policy in BASELINES:
+        t0 = time.perf_counter()
+        ccfg = CacheConfig(page_size=page, cache_budget=budget, policy=policy,
+                           dtype="bfloat16")
+        seen, seen1 = {}, {}
+        check = baseline_checks(torch, devstats, policy, budget + page,
+                                ccfg.num_sink_tokens, seen, prefix=256)
+        check1 = baseline_checks(torch, devstats, policy, budget + page,
+                                 ccfg.num_sink_tokens, seen1)
+        print(f"  {policy}: serving", flush=True)
+        _, eng, wall = serve_full_width(
+            torch, np, "bfloat16", 4, policy=policy, new_tokens=steps,
+            on_step=lambda e: check(e.cache.layers))
+        s = eng.stats
+        frag = fragmentation(torch, eng.cache.layers)
+        del eng
+        torch.cuda.empty_cache()
+        reset_launches()
+        _, layers, live, st, t_pre, t_dec = oneshot_run(
+            torch, params, cfg, ccfg, tokens, valid, steps, plain=False,
+            decode_splits=4, on_step=check1)
+        torch.cuda.synchronize()
+        one = read_launches()
+        if bool(seen1["shared"].any()) or seen1["excess"] > 0 or \
+                seen1.get("sinks_lost", 0):
+            fail(f"{policy} one-shot: {seen1}: nothing is shared there, so "
+                 f"no row may exceed budget + page or lose a sink")
+        if int(live.max()) > budget + page:
+            fail(f"{policy} one-shot: {int(live.max())} live tokens after "
+                 f"prefill")
+        if one["flash_attention/tensor_core"] != cfg.num_layers or \
+                one["flash_attention"] != cfg.num_layers or \
+                not one["paged_decode"]:
+            fail(f"{policy} one-shot: the prefill did not run all "
+                 f"{cfg.num_layers} flash launches on the tensor cores, or "
+                 f"decode did not run its kernel: {one}")
+        evicted = int(st[:, devstats.TOKENS_EVICTED].sum())
+        if not evicted:
+            fail(f"{policy} one-shot: no token evicted in decode")
+        check_invariants(np, layers)
+        frag1 = fragmentation(torch, layers)
+        del layers
+        torch.cuda.empty_cache()
+        mixed = s.steps - s.decode_steps
+        print(f"  {policy}: serving {s.tokens_generated / wall:.1f} tok/s, "
+              f"mean step {1e3 * s.prefill_s / max(mixed, 1):.2f} ms mixed, "
+              f"{1e3 * s.decode_s / max(s.decode_steps, 1):.2f} ms "
+              f"decode-only; {frag[0]} mapped pages hold {frag[1]} live "
+              f"tokens ({frag[1] / max(frag[0], 1):.2f} of {page} per page); "
+              f"forced {s.forced_evictions}, prefix adoptions "
+              f"{s.shared_prefix_hits}, tokens evicted {s.tokens_evicted}; "
+              f"most live tokens beyond budget + page in a row "
+              f"{seen['excess']} ({int(seen['shared'].any(0).sum())} rows "
+              f"shared pages); (layer, row) pairs without their sinks "
+              f"{seen.get('sinks_lost', 0)}", flush=True)
+        print(f"  {policy}: one-shot prefill {1e3 * t_pre:.1f} ms, mean "
+              f"decode step {1e3 * t_dec / steps:.2f} ms; {frag1[0]} mapped "
+              f"pages hold {frag1[1]} live tokens "
+              f"({frag1[1] / max(frag1[0], 1):.2f} per page); {evicted} "
+              f"tokens evicted in decode; launches {one}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1006,7 +1220,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/6] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/7] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -1016,31 +1230,36 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/6] kernels against their plain versions")
+    phase("[2/7] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
     timing = time_kernels(torch, F)
 
-    phase("[3/6] kernels vs plain versions: engine and one-shot, float and "
-          "int8 pools")
-    for kv_dtype in ("float32", "int8"):
-        engine_parity(torch, np, kv_dtype)
-    for kv_dtype in ("float32", "int8"):
-        oneshot_parity(torch, np, kv_dtype)
+    phase("[3/7] kernels vs plain versions: engine and one-shot, float and "
+          "int8 pools, every policy that evicts")
+    for policy in ("paged_eviction",) + BASELINES:
+        for kv_dtype in ("float32", "int8"):
+            engine_parity(torch, np, kv_dtype, policy)
+        for kv_dtype in ("float32", "int8"):
+            oneshot_parity(torch, np, kv_dtype, policy=policy)
     # a ragged prompt above 2048 tokens: the flash kernel on the card
     oneshot_parity(torch, np, "float32", S=3000)
 
-    phase("[4/6] llama-3.2-1b at full width: serving, bf16 pool")
-    serve = serve_full_width(torch, np, "bfloat16", 16)
+    phase("[4/7] llama-3.2-1b at full width: serving, bf16 pool")
+    serve = serve_full_width(torch, np, "bfloat16", 16)[0]
     torch.cuda.empty_cache()
 
-    phase("[5/6] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/7] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[6/6] llama-3.2-1b at full width: serving, int8 pool")
-    serve8 = serve_full_width(torch, np, "int8", 8)
+    phase("[6/7] llama-3.2-1b at full width: serving, int8 pool")
+    serve8 = serve_full_width(torch, np, "int8", 4)[0]
+    torch.cuda.empty_cache()
+
+    phase("[7/7] llama-3.2-1b at full width: the paper's baselines")
+    baselines_full_width(torch, np)
 
     # launches on the main paths: decode and prefill from serving (phases 4
     # and 6), flash attention from the one-shot prefill (phase 5); the
@@ -1064,6 +1283,8 @@ def main() -> None:
                      "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"],
                      "library_device_ms": r["library_device_ms"],
+                     "device_clean_ms": r["device_clean_ms"],
+                     "floor_device_ms": r["floor_device_ms"],
                      "timed_route": r["route"]})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)

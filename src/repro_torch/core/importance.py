@@ -22,6 +22,24 @@ def vk_ratio_score(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _norms(v) / _norms(k).clamp_min(_EPS)
 
 
+def inverse_key_l2_score(k: torch.Tensor) -> torch.Tensor:
+    """InverseKeyL2 baseline (Devoto et al. 2024): a high key norm marks a
+    token to evict, so importance = -mean_h ||K||. (..., KV, hd) -> (...,)."""
+    return -_norms(k)
+
+
+def keydiff_score(k: torch.Tensor, key_mean: torch.Tensor) -> torch.Tensor:
+    """KeyDiff baseline (Park et al. 2025): a key close to the mean key
+    direction is the least diverse, so importance = -mean_h cos(k, k_mean),
+    the norm product floored at 1e-6. k: (..., KV, hd); key_mean
+    broadcastable to it."""
+    kf, mf = k.float(), key_mean.float()
+    num = (kf * mf).sum(-1)
+    den = (torch.linalg.vector_norm(kf, dim=-1) *
+           torch.linalg.vector_norm(mf, dim=-1)).clamp_min(_EPS)
+    return -(num / den).mean(-1)
+
+
 def recency_score(positions: torch.Tensor) -> torch.Tensor:
     """StreamingLLM ordering: newer = more important. positions: (...)."""
     return positions.float()
@@ -38,4 +56,19 @@ def page_scores_from_norms(kn, vn, pos_pages, mapped) -> torch.Tensor:
     valid = (pos_pages >= 0) & mapped[:, :, None]
     cnt = valid.sum(-1, dtype=torch.int32)
     ssum = torch.where(valid, tok, 0.0).sum(-1)
+    return torch.where(cnt > 0, ssum / cnt.clamp_min(1), torch.inf)
+
+
+def block_scores_from_token_scores(token_scores, valid, page_size: int
+                                   ) -> torch.Tensor:
+    """Paper Alg.1 block mode: the mean token score of each block of
+    ``page_size`` tokens. token_scores, valid: (..., S) with S a multiple of
+    the page size -> (..., S // page_size); empty blocks score +inf."""
+    *lead, S = token_scores.shape
+    if S % page_size:
+        raise ValueError(f"{S} tokens are not whole blocks of {page_size}")
+    ts = token_scores.reshape(*lead, S // page_size, page_size)
+    vm = valid.reshape(*lead, S // page_size, page_size)
+    cnt = vm.sum(-1, dtype=torch.int32)
+    ssum = torch.where(vm, ts, 0.0).sum(-1)
     return torch.where(cnt > 0, ssum / cnt.clamp_min(1), torch.inf)

@@ -215,14 +215,14 @@ def init_layer_cache(batch: int, num_pages: int, page_size: int,
     torch.int8) makes a quantized pool with per-(token, head) scales.
     ``device``: default CUDA (raises without a card).
 
-    The pool must hold at least ``batch * num_pages`` pages: then every
-    rollover finds a free page (each needing row maps fewer than P pages),
-    which is what lets :func:`append_chunk` plan its boundaries on the host.
-    The engine always sizes the pool so."""
+    A pool smaller than ``batch * num_pages`` (at least ``batch``) is
+    allowed, as in JAX: a rollover may then find no free page, and the
+    callers of :func:`append_chunk` check every token index for one
+    (:func:`rollover_times` is exact only for full-size pools)."""
     N = pool_pages if pool_pages is not None else batch * num_pages
-    if N < batch * num_pages:
-        raise ValueError(f"pool of {N} pages is smaller than batch * "
-                         f"num_pages = {batch * num_pages}")
+    if N < batch:
+        raise ValueError(f"pool of {N} pages cannot give each of {batch} "
+                         f"rows its working page")
     device = resolve_device(device)
     quantized = dtype in ("int8", torch.int8)
     dtype = torch.int8 if quantized else dtype
@@ -629,8 +629,15 @@ def rollover_times(cur_off, head_mapped, n_tok, page_size: int) -> list[int]:
     before the append. Row b rolls over first at t = 0 when its head is
     full, or after ``page - cur_off`` tokens when its head page is mapped
     (an unmapped head with room never lands a token, so never fills), then
-    every ``page`` tokens while t < n_tok[b]. Every rollover succeeds in a
-    pool of at least B * P pages (init_layer_cache), so the list is exact."""
+    every ``page`` tokens while t < n_tok[b].
+
+    Exact when the pool holds at least B * P pages: every rollover then
+    moves the head. A row with no unmapped slot (token-level holes keep
+    every slot mapped) or no free page force-evicts one of its own pages
+    first, so it maps at most P - 1 pages, and the pool keeps a free page
+    for each row that needs one. In a smaller pool a rollover can fail and
+    leave the head full; callers then check every token index
+    (:func:`append_plan`)."""
     times: set[int] = set()
     for off, mapped, n in zip(np.asarray(cur_off).tolist(),
                               np.asarray(head_mapped).tolist(),
@@ -647,6 +654,17 @@ def rollover_times(cur_off, head_mapped, n_tok, page_size: int) -> list[int]:
     return sorted(times)
 
 
+def append_plan(cache: PagedLayerCache, cur_off, head_mapped, n_tok,
+                T: int) -> list[int]:
+    """The token indices at which :func:`append_chunk` checks for a
+    rollover: :func:`rollover_times` in a pool of at least B * P pages,
+    else every index below T (a check where no row's head is full is the
+    identity)."""
+    if cache.pool_pages < cache.batch * cache.num_pages:
+        return list(range(T))
+    return rollover_times(cur_off, head_mapped, n_tok, cache.page_size)
+
+
 def append_chunk(cache: PagedLayerCache, k_chunk, v_chunk, pos_chunk,
                  score_chunk, n_tok, times: list[int]) -> PagedLayerCache:
     """Append up to T tokens per request at the write head, rolling onto
@@ -659,7 +677,7 @@ def append_chunk(cache: PagedLayerCache, k_chunk, v_chunk, pos_chunk,
     whose head is full, then write token t): the runs between consecutive
     rollover times hold no boundary, so each is one scatter, and the
     rollovers happen in the same order. ``times`` is the host plan of
-    :func:`rollover_times`, made by the caller from the heads as they stand
+    :func:`append_plan`, made by the caller from the heads as they stand
     before this append (the step reads them once for every layer)."""
     B, T = pos_chunk.shape
     page = cache.page_size

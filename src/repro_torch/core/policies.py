@@ -1,5 +1,6 @@
-"""Eviction policies: the paper's PagedEviction and the no-eviction
-FullCache, as in the JAX package's ``repro.core.policies``.
+"""Eviction policies, as in the JAX package's ``repro.core.policies``: the
+paper's PagedEviction, the no-eviction FullCache, and the paper's baselines
+StreamingLLM (sinks + recency), InverseKeyL2 and KeyDiff (token-level).
 
 Each policy is a stateless strategy with three hooks:
 
@@ -16,12 +17,14 @@ Each policy is a stateless strategy with three hooks:
 
 Both eviction hooks take an optional ``page_scores`` (B, P): the attention
 kernels' fused norm epilogue. When given, PagedEviction ranks pages by it
-instead of the stored-score reduction ``cache.page_scores()``.
+instead of the stored-score reduction ``cache.page_scores()``; the
+token-level policies rank tokens and ignore it.
 
 Where JAX skips a hook body under ``lax.cond(any(mask))``, the port runs it
 masked (no host sync); the empty-page reclaim, the one part that is not an
 identity under an all-False mask, takes ``mask.any()`` as a device gate.
-StreamingLLM, InverseKeyL2 and KeyDiff are not ported yet.
+Ranks and victims break ties as JAX does: stable sorts (the older token, the
+lower slot) and the first index of an argmin.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.core.paged_cache import (
     alloc_pages,
     evict_page,
     evict_pages_mask,
+    evict_token,
     evict_token_mask,
     find_free_slot,
     reclaim_empty_pages,
@@ -76,6 +80,9 @@ def _out_of_window(cache: PagedLayerCache, window: int, active):
 
 class EvictionPolicy:
     name: str = "base"
+    # the paper's classification: False for the policies whose token-level
+    # holes fragment pages (InverseKeyL2, KeyDiff)
+    structured: bool = True
 
     # --- slab sizing --------------------------------------------------------
     def _round_slab(self, cfg: CacheConfig, pages: int) -> int:
@@ -119,9 +126,30 @@ class EvictionPolicy:
         return self._chunk_evict_body(cache, cfg, active, window,
                                       page_scores, gate=active.any())
 
+    def _evict_scores(self, cache: PagedLayerCache, cfg: CacheConfig):
+        """(B, P, page) importance that token eviction ranks by; the stored
+        write scores unless a policy overrides it."""
+        return cache.score_view()
+
     def _chunk_evict_body(self, cache, cfg, active, window, page_scores,
                           gate):
-        raise NotImplementedError
+        """Token-level default: drop out-of-window tokens, keep the top
+        ``cache_budget`` live tokens of each active row by
+        :meth:`_evict_scores` (ranked by stable sorts, so ties keep the
+        older token), evict the rest by mask, then return emptied pages to
+        the free list. Ranks tokens, so the fused page scores do not apply."""
+        B, P, page = cache.batch, cache.num_pages, cache.page_size
+        if window:
+            evict_token_mask(cache, _out_of_window(cache, window, active))
+        valid = cache.valid_mask()
+        scores = torch.where(valid, self._evict_scores(cache, cfg),
+                             -torch.inf)
+        order = torch.argsort(-scores.reshape(B, -1), dim=-1, stable=True)
+        ranks = torch.argsort(order, dim=-1, stable=True)       # 0 == best
+        evict = valid.reshape(B, -1) & (ranks >= cfg.cache_budget) & \
+            active[:, None]
+        evict_token_mask(cache, evict.reshape(B, P, page))
+        return reclaim_empty_pages(cache, gate=gate)
 
     # --- Alg.3: decode bookkeeping -------------------------------------------
     def post_write(self, cache: PagedLayerCache, cfg: CacheConfig,
@@ -232,8 +260,114 @@ class PagedEviction(EvictionPolicy):
                                victim_page=victim, victim_score=vscore)
 
 
+class StreamingLLM(EvictionPolicy):
+    """Attention sinks + sliding window: the first ``num_sink_tokens``
+    positions stay, the oldest other token goes, one per decode step."""
+    name = "streaming_llm"
+
+    def slab_pages(self, cfg, seq_len):
+        # the sinks pin their page for good: one more slot of headroom
+        total = -(-seq_len // cfg.page_size)
+        return self._round_slab(cfg, min(total, cfg.budget_pages + 2))
+
+    def write_score(self, k_tok, v_tok, pos_tok):
+        return importance.recency_score(pos_tok)
+
+    def prefill_scores(self, k, v, positions):
+        return importance.recency_score(positions)
+
+    def prefill_keep(self, k, v, positions, valid, cfg):
+        # sinks score +inf so they always survive; the rest by recency
+        S = positions.shape[1]
+        scores = torch.where(positions < cfg.num_sink_tokens, torch.inf,
+                             importance.recency_score(positions))
+        scores = torch.where(valid, scores, -torch.inf)
+        return top_k_sorted(scores, min(cfg.cache_budget, S)), scores
+
+    def _evict_scores(self, cache, cfg):
+        return torch.where(cache.pos_view() < cfg.num_sink_tokens,
+                           torch.inf, cache.score_view())
+
+    def post_write(self, cache, cfg, active=None, page_scores=None):
+        if active is None:
+            active = torch.ones((cache.batch,), dtype=torch.bool,
+                                device=cache.device)
+        over = active & (cache.total_valid() > cfg.cache_budget)
+        pos = cache.pos_view()
+        B, P, page = pos.shape
+        # the oldest non-sink token; int32 max (not inf) marks the rest
+        cand = torch.where((pos >= 0) & (pos >= cfg.num_sink_tokens), pos,
+                           torch.iinfo(torch.int32).max)
+        victim = torch.argmin(cand.reshape(B, P * page), dim=-1) \
+            .to(torch.int32)
+        evict_token(cache, victim, enable=over)
+        need = active & (cache.cur_off >= cache.page_size)
+        _, forced = rollover_to_free_page(cache, need, gate=need.any())
+        return EvictionOutcome(cache, _false(cache), over, forced)
+
+
+class _UnstructuredTokenPolicy(EvictionPolicy):
+    """Token-level eviction across pages: the lowest-importance live token
+    goes, one per decode step; a page is freed only once all its tokens
+    are gone (the paper's fragmentation, its Limitation 1)."""
+    structured = False
+
+    def slab_pages(self, cfg, seq_len):
+        # holes keep pages mapped: headroom beyond budget / page
+        total = -(-seq_len // cfg.page_size)
+        return self._round_slab(cfg, min(total, 2 * cfg.budget_pages + 2))
+
+    def post_write(self, cache, cfg, active=None, page_scores=None):
+        if active is None:
+            active = torch.ones((cache.batch,), dtype=torch.bool,
+                                device=cache.device)
+        over = active & (cache.total_valid() > cfg.cache_budget)
+        valid = cache.valid_mask()
+        B, P, page = valid.shape
+        scores = torch.where(valid, self._evict_scores(cache, cfg),
+                             torch.inf)
+        victim = torch.argmin(scores.reshape(B, P * page), dim=-1) \
+            .to(torch.int32)
+        evict_token(cache, victim, enable=over)
+        need = active & (cache.cur_off >= cache.page_size)
+        _, forced = rollover_to_free_page(cache, need, gate=need.any())
+        return EvictionOutcome(cache, _false(cache), over, forced)
+
+
+class InverseKeyL2(_UnstructuredTokenPolicy):
+    name = "inverse_key_l2"
+
+    def write_score(self, k_tok, v_tok, pos_tok):
+        return importance.inverse_key_l2_score(k_tok)
+
+    def prefill_scores(self, k, v, positions):
+        return importance.inverse_key_l2_score(k)
+
+
+class KeyDiff(_UnstructuredTokenPolicy):
+    name = "keydiff"
+
+    def write_score(self, k_tok, v_tok, pos_tok):
+        # the importance is global (it needs the mean key): recomputed from
+        # the live cache at eviction time; the stored score is never read
+        return torch.zeros(k_tok.shape[:-2], dtype=torch.float32,
+                           device=k_tok.device)
+
+    def prefill_scores(self, k, v, positions):
+        # the mean over every prompt slot, padding included, as in JAX
+        return importance.keydiff_score(k, k.float().mean(1, keepdim=True))
+
+    def _evict_scores(self, cache, cfg):
+        # per-KV-head mean key over the valid tokens of the gathered view
+        kf = cache.k_view().float()
+        w = cache.valid_mask()[..., None, None].float()
+        mean = (kf * w).sum((1, 2)) / w.sum((1, 2)).clamp_min(1.0)
+        return importance.keydiff_score(kf, mean[:, None, None])
+
+
 POLICIES: dict[str, EvictionPolicy] = {
-    p.name: p for p in (FullCache(), PagedEviction())
+    p.name: p for p in (FullCache(), PagedEviction(), StreamingLLM(),
+                        InverseKeyL2(), KeyDiff())
 }
 
 

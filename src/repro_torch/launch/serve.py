@@ -5,8 +5,10 @@ policy, on the GPU by default.
         paged_eviction --budget 512 --page 16 --requests 16 --max-batch 8 \
         --prompt-len 2048 --new-tokens 32 --chunk 256 --decode-splits 4
 
-``--reduced`` serves the family's tiny CPU-sized variant; ``--device cpu``
-runs the kernels' plain torch versions on the CPU. ``--profile START:COUNT``
+``--policy`` takes any registered policy (paged_eviction, full, and the
+paper's baselines streaming_llm, inverse_key_l2 and keydiff) and refuses
+other names. ``--reduced`` serves the family's tiny CPU-sized variant;
+``--device cpu`` runs the kernels' plain torch versions on the CPU. ``--profile START:COUNT``
 (repeatable) traces steps START .. START+COUNT-1 with ``torch.profiler`` and
 prints each window's device time by kernel and the device's busy share."""
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import CacheConfig, get_arch
+from repro_torch.core.policies import POLICIES
 from repro_torch.models.transformer import init_model
 from repro_torch.serving import Engine, SamplingParams
 from repro_torch.device import resolve_device
@@ -76,7 +79,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--policy", default="paged_eviction")
+    ap.add_argument("--policy", default="paged_eviction",
+                    choices=sorted(POLICIES))
     ap.add_argument("--budget", type=int, default=64)
     ap.add_argument("--page", type=int, default=8)
     ap.add_argument("--requests", type=int, default=8)
@@ -149,7 +153,8 @@ def main() -> None:
           f"in {dt:.2f}s ({s.tokens_generated / dt:.1f} tok/s)")
     print(f"decode-only throughput: {s.decode_tok_per_s:.1f} tok/s; "
           f"steps={s.steps}")
-    print(f"evicted pages={s.pages_evicted} forced={s.forced_evictions}")
+    print(f"evicted pages={s.pages_evicted} tokens={s.tokens_evicted} "
+          f"forced={s.forced_evictions}")
     if s.shared_prefix_hits:
         print(f"prefix sharing: {s.shared_prefix_hits} adoptions, "
               f"{s.shared_prefix_tokens} prompt tokens skipped; "

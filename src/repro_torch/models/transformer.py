@@ -33,9 +33,9 @@ from repro_torch.core.decode import decode_append
 from repro_torch.core.paged_cache import (
     adopt_prefix,
     append_chunk,
+    append_plan,
     init_layer_cache,
     release_rows,
-    rollover_times,
     row_intact_prefix_pages,
 )
 from repro_torch.core.policies import EvictionPolicy
@@ -248,7 +248,7 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
                                             heads):
         # release / adopt park a reset row's head full: it rolls at t == 0
         off = np.where(reset_h > 0, page, off)
-        times = rollover_times(off, mapped, n_h, page)
+        times = append_plan(kvc, off, mapped, n_h, T)
         x = _step_layer(lp, cfg, spec, x, kvc, positions=positions,
                         n_tok=n_tok, policy=policy, ccfg=ccfg,
                         decode_mask=decode_mask, prefill_mask=prefill_mask,

@@ -6,7 +6,9 @@ slot plus prompt chunks of up to ``chunk_size``), the step appends them into
 the shared page pools, attends through block tables (the CUDA decode and
 G-fold prefill kernels on the card), runs Alg.3 eviction on decode rows and
 Alg.2 compression on prefill rows, and samples. Decode-only iterations run
-the same step at T == 1.
+the same step at T == 1. The policy is ``cache_cfg.policy``, any registered
+one: the paper's PagedEviction, FullCache, or its baselines StreamingLLM,
+InverseKeyL2 and KeyDiff (the kernels and their routes are the same).
 
 Each step the per-layer devstats vectors are summed on the device and read
 once, together with the sampled tokens, into :class:`EngineStats`. The JAX

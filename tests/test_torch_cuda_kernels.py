@@ -169,12 +169,15 @@ def test_cuda_flash_matches_plain(cuda, H, KV, hd, dtype, atol, rtol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("KV,hd", [(8, 64), (8, 128)])
-def test_cuda_block_score_matches_plain(cuda, KV, hd, dtype):
-    k, v, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd, dtype,
-                                          seed=hd + 2, device=cuda)
+@pytest.mark.parametrize("page,KV,hd", [(16, 8, 64), (16, 8, 128),
+                                        (32, 8, 64), (16, 2, 64)])
+def test_cuda_block_score_matches_plain(cuda, page, KV, hd, dtype):
+    k, v, pos, bt, cur = ref.churned_pool(8, 49, page, KV, hd, dtype,
+                                          seed=hd + KV + page, device=cuda)
     pos[bt[0, 0]] = -1                                  # an empty page
+    before = block_score_cuda.launches
     got, want = block_score_cuda(k, v, pos), block_score_plain(k, v, pos)
+    assert block_score_cuda.launches == before + 1
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     assert torch.isinf(got[bt[0, 0]])
     fin = torch.isfinite(want)

@@ -23,6 +23,7 @@ from repro_torch.configs import CacheConfig, ModelConfig
 from repro_torch.convert import (cache_to_numpy,
                                  jax_cache_layers, layer_cache_to_numpy,
                                  params_from_jax)
+from repro_torch.core import devstats
 from repro_torch.core.policies import get_policy
 from repro_torch.models import transformer as ttf
 
@@ -129,6 +130,71 @@ def test_forward_step_matches_jax(arch):
             **{k: torch.from_numpy(v) for k, v in st.items()})
         _compare(jlogits, jcache, tlogits, tcache, st["n_tok"],
                  jcfg.pattern_period, f"{arch} step {i}")
+
+
+@pytest.mark.parametrize("policy,pool", [
+    ("inverse_key_l2", "full"),      # token holes force rollovers mid-chunk
+    ("full", "small"),               # a pool of B * P - 2 pages runs dry
+])
+def test_forward_step_pool_edges_match_jax(policy, pool, monkeypatch):
+    """The chunked append at the pool's edges, against JAX's per-token
+    scan. Under inverse_key_l2 rows keep every slot mapped with holes and
+    force-evict a page in the middle of a chunk: the port's host plan of
+    page boundaries (rollover_times) must stay exact. With the full policy
+    in a pool of B * P - 2 pages the pool runs dry and rows force-evict to
+    roll over; the port then checks every token index. After every step:
+    integer fields and devstats bit-equal. Each row's tokens are distinct
+    ids: a repeated id gives keys of equal norm up to RoPE's rounding,
+    which differs between XLA and torch, so inverse_key_l2 could break such
+    a tie either way."""
+    from repro.core import paged_cache as jpc
+    rng = np.random.default_rng(3)
+    jcfg, tcfg = _configs("llama-3.2-1b")
+    jparams, tree = _params(jcfg, rng)
+    tparams = params_from_jax(tree, tcfg, device="cpu")
+    ck = dict(page_size=8, cache_budget=16, policy=policy, dtype="float32")
+    jccfg, tccfg = JCacheConfig(**ck), CacheConfig(**ck)
+    jpol, tpol = jget_policy(policy), get_policy(policy)
+    if pool == "small":
+        def small(init):
+            return lambda b, n, *a, **kw: init(b, n, *a,
+                                               pool_pages=b * n - 2, **kw)
+        monkeypatch.setattr(jpc, "init_layer_cache",
+                            small(jpc.init_layer_cache))
+        monkeypatch.setattr(ttf, "init_layer_cache",
+                            small(ttf.init_layer_cache))
+    jcache = jtf.init_decode_caches(jcfg, B, 64, jpol, jccfg,
+                                    chunk_tokens=CHUNK, track_stats=True)
+    tcache = ttf.init_decode_caches(tcfg, B, 64, tpol, tccfg,
+                                    chunk_tokens=CHUNK, track_stats=True,
+                                    device="cpu")
+    c0 = tcache.layers[0]
+    assert (c0.pool_pages < B * c0.num_pages) == (pool == "small")
+    V = jcfg.vocab_size
+    ids = [iter(rng.permutation(V)) for _ in range(B)]
+    plan = [dict(n_tok=[16, 16, 16], reset=[0, 1, 2])] + \
+        [dict(n_tok=[16, 16, 16])] * 4 + [dict(n_tok=[1, 1, 1],
+                                             decode=[0, 1, 2])] * 2
+    forced = []
+    for i, kw in enumerate(plan):
+        T = max(kw["n_tok"])
+        st = _step(V, rng, T, **kw)
+        st["tokens"] = np.array([[next(ids[b]) for _ in range(T)]
+                                 for b in range(B)], np.int32)
+        jlogits, jcache = _jstep(jparams, jcfg, policy=jpol, ccfg=jccfg,
+                                 cache=jcache,
+                                 **{k: jnp.asarray(v) for k, v in st.items()})
+        tlogits, tcache = ttf.forward_step(
+            tparams, tcfg, policy=tpol, ccfg=tccfg, cache=tcache,
+            **{k: torch.from_numpy(v) for k, v in st.items()})
+        _compare(jlogits, jcache, tlogits, tcache, st["n_tok"],
+                 jcfg.pattern_period, f"{policy} {pool} pool, step {i}")
+        if T > 1:
+            forced.append(int(ttf.collect_step_stats(tcache)
+                              [devstats.FORCED_EVICTIONS]))
+    # a chunk of 16 rolls each row over at t = 0 and t = 8: more forced
+    # rollovers in a step than rows times layers means some were mid-chunk
+    assert max(forced) > B * len(tcache.layers), forced
 
 
 def test_init_model_is_seeded_and_shaped():

@@ -10,7 +10,9 @@ K/V/scores within 1e-4. At S = 128 the prompt goes through the flash
 kernel on both sides (the JAX Pallas kernel in interpret mode; decode
 through the Pallas decode kernel, eviction ranked by the fused epilogue on
 both); at S = 48 through the plain causal attention on both (decode through
-the jnp reference on the JAX side, the stored scores on both).
+the jnp reference on the JAX side, the stored scores on both). Every
+policy takes a case: the paper's baselines compress the prompt token by
+token (StreamingLLM keeping its sinks) and evict a token per decode step.
 """
 import dataclasses
 
@@ -75,12 +77,16 @@ def _compare(jlogits, jcache, tlogits, tcache, period, ctx):
 
 
 # each arch, policy and route twice, in four of the eight combinations (the
-# interpret-mode kernels cost about 15 s a case on the CPU)
+# interpret-mode kernels cost about 15 s a case on the CPU); the baselines
+# once each
 @pytest.mark.parametrize("arch,policy,S", [
     ("llama-3.2-1b", "paged_eviction", 128),
     ("qwen2.5-3b", "full", 128),
     ("llama-3.2-1b", "full", 48),
     ("qwen2.5-3b", "paged_eviction", 48),
+    ("llama-3.2-1b", "streaming_llm", 48),
+    ("qwen2.5-3b", "inverse_key_l2", 48),
+    ("llama-3.2-1b", "keydiff", 128),
 ])
 def test_oneshot_matches_jax(arch, policy, S):
     rng = np.random.default_rng(S)
@@ -102,8 +108,12 @@ def test_oneshot_matches_jax(arch, policy, S):
         valid=torch.from_numpy(valid), total_seq_hint=hint)
     _compare(jlogits, jcache, tlogits, tcache, jcfg.pattern_period,
              f"{arch} {policy} S {S} prefill")
-    if policy == "paged_eviction":
+    if policy != "full":
         assert int(tcache.layers[0].total_valid().max()) <= 32
+    if policy == "streaming_llm":
+        sinks = np.arange(tccfg.num_sink_tokens)
+        assert all(np.isin(sinks, c.pos_view()[b].numpy()).all()
+                   for c in tcache.layers for b in range(B))
     evicted = False
     for step in range(STEPS):
         tok = np.asarray(jnp.argmax(jlogits, -1)).astype(np.int32)
@@ -112,24 +122,29 @@ def test_oneshot_matches_jax(arch, policy, S):
         jlogits, jcache = _jdecode(jparams, jcfg, jnp.asarray(tok), jcache,
                                    policy=jpol, ccfg=jccfg,
                                    use_pallas=kernels, fused_scores=kernels)
-        before = tcache.layers[0].total_valid()
+        before = tcache.layers[0].pos_view()
         tlogits, tcache = ttf.decode_step(tparams, tcfg,
                                           torch.from_numpy(tok), tcache,
                                           tpol, tccfg, fused_scores=kernels)
-        # a page eviction drops the live count (the rollover may remap the
-        # freed page at once, so the block table can look unchanged)
-        evicted |= bool((tcache.layers[0].total_valid() < before).any())
+        # a position that was live and is gone: a page or a token was
+        # evicted (the rollover may remap a freed page at once, so the block
+        # table can look unchanged)
+        after = tcache.layers[0].pos_view()
+        evicted |= any(bool(np.isin(before[b][before[b] >= 0],
+                                    after[b][after[b] >= 0],
+                                    invert=True).any()) for b in range(B))
         _compare(jlogits, jcache, tlogits, tcache, jcfg.pattern_period,
                  f"{arch} {policy} S {S} step {step}")
     np.testing.assert_array_equal(tlogits.argmax(-1).numpy(),
                                   np.asarray(jnp.argmax(jlogits, -1)))
-    assert evicted == (policy == "paged_eviction")
+    assert evicted == (policy != "full")
 
 
 def test_compress_and_page_cap_and_ties():
     """The slab-capacity cap (a keep set larger than the slab: the full
-    policy on a short hint) and tied scores (all-equal K/V norms, padding's
-    -inf): the selection, and so the cache, bit-equal to JAX's."""
+    policy on a short hint) and tied scores (all-equal K/V norms, equal
+    keys for the baselines, padding's -inf; StreamingLLM's +inf sinks): the
+    selection, and so the cache, bit-equal to JAX's."""
     rng = np.random.default_rng(5)
     S, KV, hd = 40, 2, 8
     k = np.ones((B, S, KV, hd), np.float32)               # every score ties
@@ -137,7 +152,9 @@ def test_compress_and_page_cap_and_ties():
     v[:, :, :, :] = np.abs(v[:, :1, :1, :1])              # per-row constant
     pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
     valid = np.arange(S)[None, :] < np.array([[S], [S - 7], [21]])
-    for policy, hint in (("paged_eviction", None), ("full", 16)):
+    for policy, hint in (("paged_eviction", None), ("full", 16),
+                         ("streaming_llm", None), ("inverse_key_l2", None),
+                         ("keydiff", None)):
         ck = dict(page_size=8, cache_budget=16, policy=policy,
                   dtype="float32")
         jc = jcompress(*map(jnp.asarray, (k, v, pos, valid)),

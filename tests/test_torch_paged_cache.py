@@ -149,6 +149,17 @@ def test_rollover_plan_marks_every_boundary():
 
 
 def test_small_pool_is_refused():
-    with pytest.raises(ValueError, match="smaller"):
-        tpc.init_layer_cache(2, 4, 4, 1, 8, torch.float32, pool_pages=7,
+    # a pool below batch * num_pages is taken, as in JAX, and plans a
+    # rollover check at every token index; one without a working page for
+    # every row is refused
+    c = tpc.init_layer_cache(2, 4, 4, 1, 8, torch.float32, pool_pages=7,
+                             device="cpu")
+    assert c.pool_pages == 7
+    assert tpc.append_plan(c, np.array([4, 1]), np.array([True, True]),
+                           np.array([5, 5]), 5) == [0, 1, 2, 3, 4]
+    full = tpc.init_layer_cache(2, 4, 4, 1, 8, torch.float32, device="cpu")
+    assert tpc.append_plan(full, np.array([4, 1]), np.array([True, True]),
+                           np.array([5, 5]), 5) == [0, 3, 4]
+    with pytest.raises(ValueError, match="working page"):
+        tpc.init_layer_cache(2, 4, 4, 1, 8, torch.float32, pool_pages=1,
                              device="cpu")

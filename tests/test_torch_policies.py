@@ -1,12 +1,14 @@
 """The port's eviction policies against the JAX package's.
 
 Pool states are built by the JAX package (chunked appends with tie-heavy
-scores: quarters, so page means tie often and sum exactly) and handed over
-to the port; each policy hook then runs on both. The EvictionOutcome,
-victims included, and the whole cache afterwards must be equal, with
-fused page scores or the stored-score reduction, window 0 or not,
-protect_recent on or off, and all-inactive masks (the JAX ``lax.cond``
-skips, the port's gates).
+scores: quarters, so page means and token ranks tie often and sum exactly)
+and handed over to the port; each policy hook then runs on both, for all
+five policies. The EvictionOutcome, victims included, and the whole cache
+afterwards must be equal, with fused page scores or the stored-score
+reduction, window 0 or not, protect_recent on or off, and all-inactive
+masks (the JAX ``lax.cond`` skips, the port's gates). The token-level
+policies ignore the fused scores and protect_recent: their cases must come
+out the same either way.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +22,10 @@ from repro.core.policies import get_policy as jget_policy
 from repro_torch.configs import CacheConfig
 from repro_torch.convert import layer_cache_from_jax, layer_cache_to_numpy
 from repro_torch.core import importance
-from repro_torch.core.policies import get_policy
+from repro_torch.core.policies import POLICIES, get_policy
 
 B, P, page, KV, hd, T = 4, 8, 4, 2, 8, 6
+ALL = ["paged_eviction", "full", "streaming_llm", "inverse_key_l2", "keydiff"]
 
 
 _STATES = {}
@@ -72,7 +75,7 @@ def _same_cache(jc, tc):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["stored", "fused"])
 @pytest.mark.parametrize("protect", [False, True])
-@pytest.mark.parametrize("policy", ["paged_eviction", "full"])
+@pytest.mark.parametrize("policy", ALL)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_post_write_matches_jax(seed, policy, protect, fused):
     jc, rng = _state(seed)
@@ -100,7 +103,7 @@ def test_post_write_matches_jax(seed, policy, protect, fused):
 @pytest.mark.parametrize("window", [0, 10])
 @pytest.mark.parametrize("fused", [False, True], ids=["stored", "fused"])
 @pytest.mark.parametrize("protect", [False, True])
-@pytest.mark.parametrize("policy", ["paged_eviction", "full"])
+@pytest.mark.parametrize("policy", ALL)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_chunk_prefill_evict_matches_jax(seed, policy, protect, fused,
                                          window):
@@ -126,10 +129,46 @@ def test_chunk_prefill_evict_matches_jax(seed, policy, protect, fused,
     _same_cache(jc, tc)
 
 
-def test_write_score_matches_jax():
+@pytest.mark.parametrize("score", ["vk_ratio", "inverse_key_l2", "keydiff",
+                                   "block_scores"])
+def test_write_score_matches_jax(score):
+    """The importance scores, f32: the paper's ratio within 1e-6 relative,
+    the baselines' within 1e-6 absolute (KeyDiff with a zero key, so the
+    1e-6 floor on the norm product is taken)."""
     rng = np.random.default_rng(0)
-    k = rng.standard_normal((3, 5, KV, hd), np.float32)
-    v = rng.standard_normal((3, 5, KV, hd), np.float32)
-    got = importance.vk_ratio_score(torch.from_numpy(k), torch.from_numpy(v))
-    want = jimp.vk_ratio_score(jnp.asarray(k), jnp.asarray(v))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    k = rng.standard_normal((3, 8, KV, hd), np.float32)
+    v = rng.standard_normal((3, 8, KV, hd), np.float32)
+    k[0, 3] = 0.0
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    tol = dict(atol=1e-6)
+    if score == "vk_ratio":
+        got = importance.vk_ratio_score(tk, tv)
+        want = jimp.vk_ratio_score(jk, jv)
+        tol = dict(rtol=1e-6)
+    elif score == "inverse_key_l2":
+        got = importance.inverse_key_l2_score(tk)
+        want = jimp.inverse_key_l2_score(jk)
+    elif score == "keydiff":
+        got = importance.keydiff_score(tk, tk.mean(1, keepdim=True))
+        want = jimp.keydiff_score(jk, jk.mean(1, keepdims=True))
+    else:
+        ts = rng.integers(0, 8, (3, 16)).astype(np.float32) / 4
+        valid = rng.random((3, 16)) < 0.6
+        valid[1, :4] = False                       # an empty block: +inf
+        got = importance.block_scores_from_token_scores(
+            torch.from_numpy(ts), torch.from_numpy(valid), 4)
+        want = jimp.block_scores_from_token_scores(jnp.asarray(ts),
+                                                   jnp.asarray(valid), 4)
+        assert np.isinf(np.asarray(want)[1, 0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def test_get_policy_knows_the_five():
+    assert sorted(POLICIES) == sorted(ALL)
+    for name in ALL:
+        assert get_policy(name).name == name
+    assert [get_policy(n).structured for n in ALL] == \
+        [jget_policy(n).structured for n in ALL]
+    with pytest.raises(KeyError, match="unknown policy"):
+        get_policy("h2o")

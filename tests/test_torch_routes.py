@@ -13,10 +13,15 @@ The decode kernel (``decode_shape_check``) takes an f32 or bf16 query over
 an f32, bf16 or int8 pool at head dim 64 or 128, 1 <= G <= 8 and pages of at
 most 128 tokens, and a pool whose base and strides are whole 16-byte (f32,
 bf16) or 8-byte (int8) chunks; the rest raises.
+
+The page-score kernel (``block_score_shape_check``) takes an f32 or bf16
+pool whose head dim is 1, 2, 4, ..., 32 whole 16-byte chunks and
+page * (KV + 1) <= 4096; the rest raises.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import block_score as bs
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import paged_attention as pa
 
@@ -111,3 +116,26 @@ def test_decode_chunk_alignment(dtype):
     flat = torch.zeros(4 * 16 * 2 * 64 + 1, dtype=dtype)
     with pytest.raises(ValueError, match="aligned"):
         pa.chunk_aligned(flat[1:].reshape(4, 16, 2, 64))
+
+
+@pytest.mark.parametrize("dtype,page,KV,hd", [
+    (F32, 16, 8, 64), (F32, 16, 8, 128), (BF16, 16, 8, 64),
+    (BF16, 16, 8, 128), (BF16, 32, 8, 64), (F32, 16, 2, 64),
+    (BF16, 8, 1, 8), (BF16, 16, 8, 256), (F32, 1, 1, 4)])
+def test_block_score_shape_check_accepts(dtype, page, KV, hd):
+    bs.block_score_shape_check(dtype, page, KV, hd)
+
+
+@pytest.mark.parametrize("dtype,page,KV,hd,exc", [
+    (torch.int8, 16, 8, 64, TypeError),     # int8 pools are dequantized first
+    (torch.float16, 16, 8, 64, TypeError),
+    (BF16, 16, 8, 68, ValueError),          # not whole 16-byte chunks
+    (BF16, 16, 8, 96, ValueError),          # 12 lanes per head: no segment
+    (F32, 16, 8, 256, ValueError),          # 64 lanes per head
+    (BF16, 16, 8, 512, ValueError),
+    (BF16, 0, 8, 64, ValueError),
+    (BF16, 1024, 8, 64, ValueError),        # head norms exceed shared memory
+])
+def test_block_score_shape_check_refuses_the_rest(dtype, page, KV, hd, exc):
+    with pytest.raises(exc):
+        bs.block_score_shape_check(dtype, page, KV, hd)
