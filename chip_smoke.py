@@ -16,8 +16,11 @@ Phases (any failure exits non-zero; none is skipped):
               qwen2.5-3b's heads, G 1 and 2 at page 8, splits 1, 2, 4 and one
               page per split, every q / pool dtype pair, with a row of no
               mapped slot and a row at cur_pos -1; the per-Q-head prefill
-              kernel also bit for bit against the G-fold one. f32 cases
-              within 1e-4; the tensor-core routes (bf16 prefill over a bf16
+              kernel also bit for bit against the G-fold one. Every kernel
+              also at the head dims beside 64 and 128: TINY's 32 (4 heads, 4
+              KV heads), stablelm-3b's 80 (32 and 32) and 96 at G 4 (the
+              decode kernel over a pool of the query's dtype or int8). f32
+              cases within 1e-4; the tensor-core routes (bf16 prefill over a bf16
               pool, bf16 flash) within the derived bound 1e-5 + 2**-7 |plain|
               + 2**-8 (P |V|) / l; each case names its route. Then each one's
               time at the main path's shapes, as ms (events around the call,
@@ -26,7 +29,8 @@ Phases (any failure exits non-zero; none is skipped):
               it), beside the launch floor (an empty kernel's device_ms), its
               bound, the plain version's time and one PyTorch call's
               (scaled_dot_product_attention, a yardstick only, also in both
-              clocks)
+              clocks); and each one's device_ms and bound at those three
+              head dims, at their models' dtypes (TINY f32, the others bf16)
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions, under
               paged_eviction and each of the paper's baselines: the engine on
@@ -35,7 +39,13 @@ Phases (any failure exits non-zero; none is skipped):
               and paged_eviction on a float pool with a ragged prompt of 3000
               tokens; greedy tokens, devstats and the integer pool state
               equal; on int8 pools, where a quantizer input rounds
-              differently on the two runs, the first such value on both sides
+              differently on the two runs, the first such value on both
+              sides. The engines run with a trace, the lineage ledger and a
+              timeline: the two routes' step records (timing fields aside)
+              and lineage events equal, the ledger reconciled after every
+              step; and the float paged_eviction requests served once more
+              with regret probes every 2 decode steps give the same tokens
+              and the same kernel launches
   4. serve    llama-3.2-1b at full width (bf16, random weights from a seed):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
               prefix), 32 greedy tokens each, under paged_eviction (page 16,
@@ -43,7 +53,14 @@ Phases (any failure exits non-zero; none is skipped):
               every request's token count, that both kernels ran (every
               prefill launch on the tensor-core route), that pages were
               evicted and prefixes shared, the pool invariants F1-F4 and the
-              devstats conservation identities at every step.
+              devstats conservation identities at every step. Runs with
+              metrics, a trace, a timeline and the lineage ledger: the
+              ledger reconciles after every step, the trace validates with
+              one step record per step whose devstats sum to EngineStats',
+              the lineage counts stay within devstats, the timeline has one
+              track per request, TTFT and ITL histograms count every first
+              and later token; prints the hooks' median host ms per step
+              and its share of the step.
   5. one-shot llama-3.2-1b at full width, the paper's own experiment: 4
               prompts of up to 4096 tokens prefilled through the flash
               kernel (all 16 launches on the tensor-core route), compressed
@@ -54,18 +71,28 @@ Phases (any failure exits non-zero; none is skipped):
               dequantized f32 pool)
   7. baselines the paper's comparison: streaming_llm, inverse_key_l2 and
               keydiff each serve 4 of phase 4's requests (16 greedy tokens)
-              and run phase 5's prompts one-shot (bf16, 16 decode steps).
+              and run phase 5's prompts one-shot (bf16, 16 decode steps),
+              at 8 of the model's 16 layers (full width; depth cut for the
+              run time).
               Checks after every step the budget (budget + page, plus the
               shared prefix for rows that share one: copy-on-write sheds it
               one page per call), StreamingLLM's sinks (unless the layer
               forced a rollover), that tokens were evicted, F1-F4 and the
               kernels' routes; prints tok/s, step times, live tokens per
               mapped page, forced evictions and prefix adoptions.
+  8. regret   eviction-regret shadow probes at full width: 2 of phase 4's
+              requests, 16 greedy tokens, probes every 4 decode steps, under
+              paged_eviction at budget 512; every probe's divergence finite,
+              its evicted attention mass in [0, 1] and above 0 in one probe
+              at least; prints the shadow cache's bytes and the taps read
+              per step.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
-times "device_ms", "device_clean_ms" and "library_device_ms", and the launch
-floor "floor_device_ms"), and as the last line {"ok": true, "device":
+times "device_ms", "device_clean_ms" and "library_device_ms", the launch
+floor "floor_device_ms", the head dims it was checked at, "head_dims", and
+its device_ms and bound at hd 32, 80 and 96, "other_head_dims"), and as the
+last line {"ok": true, "device":
 {...}}. Exits non-zero without a CUDA device or without the repository's
 sources beside it.
 """
@@ -73,8 +100,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -271,13 +300,18 @@ def _norm_err(got, want):
                for g, w in zip(got, want))
 
 
-def _check(worst, name, label, err, share, nerr=0.0, extra=""):
+# kernel name -> the head dims phase 2 held it at
+HEAD_DIMS_CHECKED: dict = {}
+
+
+def _check(worst, name, label, err, share, nerr=0.0, extra="", hd=None):
     print(f"  {name:23s} {label}: max abs err {err:.3g}, {share:.3g} of the "
           f"tolerance; norm rel err {nerr:.3g} (tol {NORM_RTOL}){extra}",
           flush=True)
     if not share <= 1 or not nerr <= NORM_RTOL:
         fail(f"{name} disagrees with its plain version on {label}")
     worst[name] = max(worst.get(name, 0.0), err)
+    HEAD_DIMS_CHECKED.setdefault(name, set()).add(hd)
 
 
 DECODE_SHAPES = {  # name: (KV, G, hd, page)
@@ -285,6 +319,14 @@ DECODE_SHAPES = {  # name: (KV, G, hd, page)
     "qwen2.5-3b": (2, 8, 128, 16),
     "reduced, G 2": (2, 2, 64, 8),        # phase 3's config
     "G 1": (4, 1, 64, 8),
+}
+# the head dims beside 64 and 128, each at the heads of a model that has it
+# (KV, G, hd, page) and that model's dtype: TINY (benchmarks/accuracy.py),
+# stablelm-3b, and hd 96 (the reduced configs' override) at G 4
+NEW_HD_SHAPES = {
+    "TINY (hd 32)": ((4, 1, 32, 16), "float32"),
+    "stablelm-3b (hd 80)": ((32, 1, 80, 16), "bfloat16"),
+    "G 4 at hd 96": ((8, 4, 96, 16), "bfloat16"),
 }
 
 
@@ -302,8 +344,12 @@ def check_decode(torch, worst):
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     pairs = [(f32, f32), (f32, bf16), (bf16, f32), (bf16, bf16), (f32, i8),
              (bf16, i8)]
-    for n, (arch, (KV, G, hd, page)) in enumerate(DECODE_SHAPES.items()):
+    shapes = {**DECODE_SHAPES,
+              **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()}}
+    for n, (arch, (KV, G, hd, page)) in enumerate(shapes.items()):
         for qt, pt in pairs:
+            if hd not in (64, 128) and pt not in (qt, i8):
+                continue        # a pool of the query's dtype or int8 there
             seed = 1000 + 10 * n + pairs.index((qt, pt))
             pool = churned_pool(B, P, page, KV, hd, pt, seed)
             *pool, bt, cur = pool
@@ -335,7 +381,7 @@ def check_decode(torch, worst):
                     nerr = max(nerr, _norm_err(nk, nk2))
             _check(worst, name, f"{arch} (KV {KV}, G {G}, hd {hd}, page "
                    f"{page}) q {dname} pool {str(pt).removeprefix('torch.')}"
-                   f", 2 windows x splits 1/2/4/{P}", err, share, nerr)
+                   f", 2 windows x splits 1/2/4/{P}", err, share, nerr, hd=hd)
 
 
 def check_kernels(torch):
@@ -351,7 +397,9 @@ def check_kernels(torch):
     worst: dict = {}
     check_decode(torch, worst)
     seed = 0
-    for arch, (KV, G, hd, page) in SHAPES.items():
+    shapes = {**SHAPES,
+              **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()}}
+    for arch, (KV, G, hd, page) in shapes.items():
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
             seed += 1
@@ -377,12 +425,13 @@ def check_kernels(torch):
                 if pad:
                     fail(f"paged_prefill: padding rows give {pad}, not 0")
                 _check(worst, "paged_prefill", label,
-                       *_err(o, o2, dname, wt), _norm_err(nk, nk2))
+                       *_err(o, o2, dname, wt), _norm_err(nk, nk2), hd=hd)
                 fold = float((o3.float() - o.float()).abs().max())
                 _check(worst, "paged_prefill_per_qhead", label,
                        *_err(o3, o2, dname, wt),
                        extra=f"; bit-equal to the G-fold kernel: "
-                             f"{bool(torch.equal(o3, o))} (max diff {fold})")
+                             f"{bool(torch.equal(o3, o))} (max diff {fold})",
+                       hd=hd)
                 if not torch.equal(o3, o):
                     fail("the per-Q-head prefill kernel is not bit-equal to "
                          "the G-fold one")
@@ -401,12 +450,13 @@ def check_kernels(torch):
                     if route == "tensor_core" else None
                 _check(worst, "flash_attention",
                        f"{arch} {dname} S {S} window {window} ({route})",
-                       *_err(o, o2, dname, wt))
+                       *_err(o, o2, dname, wt), hd=hd)
                 del x, o, o2, wt
             # page scores: the float pool and the dequantized int8 one
             check_block_score(torch, worst, f"{arch} {dname} pool", k, v, pos)
             check_block_score(torch, worst, f"{arch} int8 pool",
                               dequantize(k8, ks), dequantize(v8, vs), pos8)
+            del k, v, pos, k8, v8, ks, vs, pos8
     # the page-score kernel's other block shapes: page 32, and KV 2 (two
     # pages per block), each with an empty page
     for page, KV, hd in ((32, 8, 64), (16, 2, 64)):
@@ -433,14 +483,16 @@ def check_block_score(torch, worst, label, k, v, pos):
     err = float((got[fin] - want[fin]).abs().max())
     rel = float(((got[fin] - want[fin]).abs() /
                  want[fin].abs().clamp_min(1e-6)).max())
-    _check(worst, "block_score", label, err, 0.0, rel)
+    _check(worst, "block_score", label, err, 0.0, rel, hd=k.shape[-1])
 
 
-def time_kernels(torch, F):
-    """Times at the main paths' shapes (llama-3.2-1b, bf16): the serving
-    path's decode (splits 4) and mixed steps (chunk 256) on churned pools,
-    the one-shot prefill (B 4, 4096 tokens), the pool pass on the serving
-    pool, each with its bound and yardsticks."""
+def time_kernels(torch, F, shape=None, dname="bfloat16", full=True):
+    """Times at the main paths' shapes (llama-3.2-1b's heads ``shape``,
+    (KV, G, hd, page), in bf16 unless given): the serving path's decode
+    (splits 4) and mixed steps (chunk 256) on churned pools, the one-shot
+    prefill (B 4, 4096 tokens), the pool pass on the serving pool, each with
+    its bound and yardsticks; ``full=False``: device_ms and the bound
+    only."""
     from repro_torch.kernels.block_score import (block_score_cuda,
                                                  block_score_plain,
                                                  launch_floor_cuda)
@@ -455,9 +507,9 @@ def time_kernels(torch, F):
         paged_attention_int8_plain, paged_attention_plain)
     from repro_torch.kernels.ref import (churned_pool, gather_block_table,
                                          prefill_positions)
-    KV, G, hd, page = SHAPES["llama-3.2-1b"]
+    KV, G, hd, page = shape or SHAPES["llama-3.2-1b"]
     H = KV * G
-    dt, dname = torch.bfloat16, "bfloat16"
+    dt = getattr(torch, dname)
     k, v, pos, bt, cur = churned_pool(B, P, page, KV, hd, dt, 100)
     k8, v8, ks, vs, _, _, _ = churned_pool(B, P, page, KV, hd, torch.int8,
                                            100)
@@ -550,6 +602,17 @@ def time_kernels(torch, F):
             bound_ms(nbytes(k, v, pos) + 4 * pos.shape[0], 4 * k.numel(),
                      dname)),
     }
+    if not full:
+        res = {name: dict(device_ms=device_timed(
+                   torch, kernel, **(dict(iters=5) if name ==
+                                     "flash_attention" else {})),
+                   bound=bound)
+               for name, (kernel, _, _, bound) in calls.items()}
+        print(f"  hd {hd} (KV {KV}, G {G}, {dname}): " + "; ".join(
+            f"{name} device {r['device_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ({r['bound'][1]})"
+            for name, r in res.items()), flush=True)
+        return res
     # the launch floor: an empty kernel of block_score's library (one
     # block, one write), timed as the kernels are
     floor_out = torch.empty(1, dtype=torch.float32, device="cuda")
@@ -643,17 +706,26 @@ def run_engine(torch, np, devstats, eng, prompts, new_tokens, on_step=None):
     """Serve ``prompts`` to the end, checking the devstats conservation
     identities (and ``on_step(eng)``, when given) at every step. Returns
     ({request id: tokens}, per-step devstats, wall seconds without the
-    checks)."""
+    checks, per-step wall seconds of ``eng.step()``); with the lineage
+    ledger on, it is reconciled after every step."""
+    from repro_torch.core.paged_cache import lineage_snapshot_host
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
-    per_step = []
+    per_step, step_walls = [], []
     t0, t_check = time.perf_counter(), 0.0
     while True:
         c0 = time.perf_counter()
         before = pool_totals(torch, eng)
         t_check += time.perf_counter() - c0
+        s0 = time.perf_counter()
         more = eng.step()
+        step_walls.append(time.perf_counter() - s0)
         c0 = time.perf_counter()
+        led = eng.obs.ledger
+        if led is not None:
+            errs = led.reconcile(lineage_snapshot_host(eng.cache.layers[0]))
+            if errs:
+                fail(f"lineage ledger after step {eng.stats.steps}: {errs}")
         check_conservation(np, devstats, before, pool_totals(torch, eng),
                            eng.last_stats)
         if on_step is not None:
@@ -665,7 +737,7 @@ def run_engine(torch, np, devstats, eng, prompts, new_tokens, on_step=None):
     wall = time.perf_counter() - t0 - t_check
     tokens = {r.request_id: list(r.output_tokens)
               for r in eng.scheduler.finished}
-    return tokens, per_step, wall
+    return tokens, per_step, wall, step_walls
 
 
 def pool_state(np, layers):
@@ -763,10 +835,40 @@ def evicted_stat(policy) -> str:
     return "pages_evicted" if policy == "paged_eviction" else "tokens_evicted"
 
 
+def read_trace(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+TIMING_FIELDS = ("t_ms", "plan_ms", "step_ms")
+
+
+def untimed(recs, rec):
+    """The ``rec`` records of a trace without their host timing fields."""
+    return [{k: v for k, v in r.items() if k not in TIMING_FIELDS}
+            for r in recs if r.get("rec") == rec]
+
+
+def timeline_spans(eng):
+    """Per track (pid, tid) of the engine's timeline: (phase, name) in
+    order."""
+    out: dict = {}
+    for e in eng.obs.timeline.to_chrome_trace()["traceEvents"]:
+        out.setdefault((e["pid"], e.get("tid")), []).append(
+            (e["ph"], e["name"]))
+    return out
+
+
 def engine_parity(torch, np, kv_dtype, policy="paged_eviction"):
+    """The reduced config served through the kernels and through their plain
+    versions (with a trace, the lineage ledger and a timeline), and, for
+    paged_eviction on a float pool, through the kernels once more with
+    regret probes every 2 decode steps."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
+    from repro_torch.obs import ObsConfig
+    from repro_torch.obs.trace import validate_file
     from repro_torch.serving import Engine
     cfg = _reduced(get_arch)
     params = init_model(cfg, seed=0, device="cuda")
@@ -777,22 +879,62 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction"):
                                rng.integers(0, cfg.vocab_size,
                                             int(rng.integers(8, 64)))])
                .astype(np.int32) for i in range(8)]
-    out, inputs = [], []
-    for plain in (False, True):
-        eng = Engine(cfg, params, cache_cfg=CacheConfig(
-            page_size=8, cache_budget=48, policy=policy, dtype=kv_dtype),
-            max_batch=4,
-            max_prompt_len=96, max_new_tokens=16, chunk_size=32,
-            decode_splits=2, device="cuda", plain_kernels=plain)
-        seen, undo = record_quantize()
-        try:
-            toks, steps, _ = run_engine(torch, np, devstats, eng, prompts, 16)
-        finally:
-            undo()
-        inputs.append(seen)
-        out.append((toks, steps, *pool_state(np, eng.cache.layers), eng.stats))
+    probe = policy == "paged_eviction" and kv_dtype == "float32"
+    out, inputs, obs_out = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for plain, every in ((False, 0), (True, 0)) + \
+                (((False, 2),) if probe else ()):
+            trace = os.path.join(tmp, f"{plain}-{every}.jsonl")
+            eng = Engine(cfg, params, cache_cfg=CacheConfig(
+                page_size=8, cache_budget=48, policy=policy, dtype=kv_dtype),
+                max_batch=4,
+                max_prompt_len=96, max_new_tokens=16, chunk_size=32,
+                decode_splits=2, device="cuda", plain_kernels=plain,
+                obs=ObsConfig(trace_path=trace, lineage=True, timeline=True,
+                              regret_every=every))
+            seen, undo = record_quantize()
+            reset_launches()
+            try:
+                toks, steps, _, _ = run_engine(torch, np, devstats, eng,
+                                               prompts, 16)
+            finally:
+                undo()
+            eng.close()
+            if validate_file(trace):
+                fail(f"engine parity: the trace is not valid: "
+                     f"{validate_file(trace)}")
+            obs_out.append((read_trace(trace), read_launches(),
+                            timeline_spans(eng), eng))
+            if every:
+                probe_toks = toks
+                break
+            inputs.append(seen)
+            out.append((toks, steps, *pool_state(np, eng.cache.layers),
+                        eng.stats))
     (tk, sk, ik, qk, stk), (tp, sp, ip, qp, stp) = out
     what = f"engine parity ({policy}, {kv_dtype})"
+    (rk, lk, tlk, _), (rp, _, tlp, _) = obs_out[:2]
+    for rec in ("step", "event"):
+        if untimed(rk, rec) != untimed(rp, rec):
+            fail(f"{what}: the two routes' trace {rec} records differ")
+    if tlk != tlp:
+        fail(f"{what}: the two routes' timelines differ")
+    n_events = len(untimed(rk, "event"))
+    if probe:
+        rr, lr, _, er = obs_out[2]
+        samples = [x for r in er.scheduler.finished
+                   for x in r.regret_samples]
+        if probe_toks != tk:
+            fail(f"{what}: greedy tokens differ with regret probes on")
+        if lr != lk:
+            fail(f"{what}: kernel launches differ with regret probes on: "
+                 f"{lr} against {lk}")
+        if not samples or not all(np.isfinite(x["divergence"]).all()
+                                  for x in samples):
+            fail(f"{what}: regret probes missing or not finite")
+        print(f"  engine {policy} {kv_dtype}: with probes every 2 decode "
+              f"steps: {len(samples)} probes, tokens and launches equal "
+              f"({lr})", flush=True)
     if tk != tp:
         fail(f"{what}: greedy tokens differ between kernels and plain")
     if len(sk) != len(sp) or any(not np.array_equal(a, b)
@@ -809,7 +951,8 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction"):
             (policy == "paged_eviction" and not stk.shared_prefix_hits):
         fail(f"{what} exercised too little: {stk}")
     print(f"  engine {policy} {kv_dtype:8s}: {len(tk)} requests, {len(sk)} "
-          f"steps: tokens, per-step devstats and pool state equal; int8 "
+          f"steps: tokens, per-step devstats, pool state, trace step "
+          f"records, {n_events} lineage events and timelines equal; int8 "
           f"values one step apart {flips[0]} of {flips[1]}; evicted "
           f"{stk.pages_evicted} pages, {stk.tokens_evicted} tokens, forced "
           f"{stk.forced_evictions}, {stk.shared_prefix_hits} prefix "
@@ -914,25 +1057,30 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
 
 
 def serve_full_width(torch, np, kv_dtype, n_requests,
-                     policy="paged_eviction", new_tokens=32, on_step=None):
+                     policy="paged_eviction", new_tokens=32, on_step=None,
+                     obs=None, max_batch=8, num_layers=None):
     """Serve ``n_requests`` prompts of 1024-2048 tokens (every other one
     opening with a shared 256-token prefix) on llama-3.2-1b at full width,
-    ``new_tokens`` greedy tokens each. Checks that every request finished,
-    the path's kernels and routes, that the policy evicted (and, under
-    paged_eviction, shared prefixes) and F1-F4 at the end. Returns
-    (launches, engine, wall seconds)."""
+    ``new_tokens`` greedy tokens each, with ``obs`` (an ObsConfig; default
+    metrics only), at ``num_layers`` of its 16 layers when given. Checks that every request finished, the path's kernels
+    and routes, that the policy evicted (and, under paged_eviction with
+    more than 2 requests, shared prefixes) and F1-F4 at the end. Returns
+    (launches, engine, wall seconds, per-step wall seconds of
+    ``eng.step()``)."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
     from repro_torch.serving import Engine
     cfg = get_arch("llama-3.2-1b")
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     eng = Engine(cfg, params, cache_cfg=CacheConfig(
         page_size=16, cache_budget=512, policy=policy,
-        dtype=kv_dtype), max_batch=8, max_prompt_len=2048,
+        dtype=kv_dtype), max_batch=max_batch, max_prompt_len=2048,
         max_new_tokens=new_tokens, chunk_size=256, decode_splits=4,
-        device="cuda")
+        device="cuda", obs=obs)
     torch.cuda.synchronize()
     print(f"  model + caches ready in {time.perf_counter() - t0:.1f} s; "
           f"pool payload {eng.pool_bytes()['payload_total'] / 2 ** 20:.1f} "
@@ -947,8 +1095,8 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
         prompts.append(np.concatenate(
             [head, rng.integers(0, cfg.vocab_size, n - 256)]).astype(np.int32))
     reset_launches()
-    tokens, _, wall = run_engine(torch, np, devstats, eng, prompts,
-                                 new_tokens, on_step)
+    tokens, _, wall, step_walls = run_engine(torch, np, devstats, eng,
+                                             prompts, new_tokens, on_step)
     launches = read_launches()
     s = eng.stats
     print(f"  {len(tokens)} requests, {s.tokens_generated} tokens, "
@@ -980,12 +1128,13 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
     if launches[f"paged_prefill/{route}"] != launches["paged_prefill"]:
         fail(f"{kv_dtype} serving: not every prefill launch took the "
              f"{route} route: {launches}")
+    sharing = policy == "paged_eviction" and n_requests > 2
     if not getattr(s, evicted_stat(policy)) or \
-            (policy == "paged_eviction" and not s.shared_prefix_hits):
+            (sharing and not s.shared_prefix_hits):
         fail(f"{policy}: no eviction or no prefix sharing at full width: "
              f"{s}")
     check_invariants(np, eng.cache.layers)
-    return launches, eng, wall
+    return launches, eng, wall, step_walls
 
 
 def oneshot_prompts(torch, np, vocab):
@@ -1124,16 +1273,21 @@ def baseline_checks(torch, devstats, policy, limit, n_sinks, seen,
     return check
 
 
+BASELINE_LAYERS = 8     # of llama-3.2-1b's 16: depth cut for run time
+
+
 def baselines_full_width(torch, np):
-    """The paper's baselines on llama-3.2-1b at full width: for each, 4
-    requests served (bf16 pool, page 16, budget 512, max batch 8, chunk 256,
-    decode splits 4; half share a 256-token prefix; 16 greedy tokens), then
-    phase 5's prompts one-shot (compressed to 512 tokens, 16 greedy
-    decode_steps), each checked by :func:`baseline_checks` at every step."""
+    """The paper's baselines on llama-3.2-1b at full width, cut to
+    BASELINE_LAYERS layers: for each, 4 requests served (bf16 pool, page
+    16, budget 512, max batch 8, chunk 256, decode splits 4; half share a
+    256-token prefix; 16 greedy tokens), then phase 5's prompts one-shot
+    (compressed to 512 tokens, 16 greedy decode_steps), each checked by
+    :func:`baseline_checks` at every step."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
-    cfg = get_arch("llama-3.2-1b")
+    cfg = dataclasses.replace(get_arch("llama-3.2-1b"),
+                              num_layers=BASELINE_LAYERS)
     budget, page, steps = 512, 16, 16
     params = init_model(cfg, seed=0, device="cuda")
     tokens, valid = oneshot_prompts(torch, np, cfg.vocab_size)
@@ -1147,9 +1301,10 @@ def baselines_full_width(torch, np):
         check1 = baseline_checks(torch, devstats, policy, budget + page,
                                  ccfg.num_sink_tokens, seen1)
         print(f"  {policy}: serving", flush=True)
-        _, eng, wall = serve_full_width(
+        _, eng, wall, _ = serve_full_width(
             torch, np, "bfloat16", 4, policy=policy, new_tokens=steps,
-            on_step=lambda e: check(e.cache.layers))
+            on_step=lambda e: check(e.cache.layers),
+            num_layers=BASELINE_LAYERS)
         s = eng.stats
         frag = fragmentation(torch, eng.cache.layers)
         del eng
@@ -1200,6 +1355,109 @@ def baselines_full_width(torch, np):
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def serve_observed(torch, np, n_requests=16):
+    """Phase 4: :func:`serve_full_width` (bf16 pool) with metrics, a trace,
+    a timeline and the lineage ledger (reconciled after every step by
+    :func:`run_engine`), then the observability checks. Returns the
+    launches."""
+    from repro_torch.core import devstats
+    from repro_torch.obs import ObsConfig
+    from repro_torch.obs.timeline import validate_chrome_trace
+    from repro_torch.obs.trace import validate_file
+    hooks = []
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.jsonl")
+        launches, eng, _, walls = serve_full_width(
+            torch, np, "bfloat16", n_requests,
+            obs=ObsConfig(trace_path=trace, timeline=True, lineage=True),
+            on_step=lambda e: hooks.append(e.last_hook_s))
+        eng.close()
+        errs = validate_file(trace)
+        if errs:
+            fail(f"phase 4 trace: {errs}")
+        recs = read_trace(trace)
+        tl = os.path.join(tmp, "timeline.json")
+        n_tl = eng.export_timeline(tl)
+        with open(tl) as f:
+            doc = json.load(f)
+    s = eng.stats
+    steps = [r for r in recs if r["rec"] == "step" and r["kind"] != "idle"]
+    if len(steps) != s.steps:
+        fail(f"phase 4 trace: {len(steps)} step records for {s.steps} steps")
+    sums = {n: sum(r[n] for r in steps) for n in devstats.STAT_NAMES}
+    for n in ("pages_evicted", "tokens_evicted", "forced_evictions"):
+        if sums[n] != getattr(s, n):
+            fail(f"phase 4 trace: {n} sums to {sums[n]}, EngineStats says "
+                 f"{getattr(s, n)}")
+    counts = eng.obs.ledger.counts()
+    for etype, stat in (("evict", "pages_evicted"), ("adopt", "pages_adopted"),
+                        ("fork", "pages_forked")):
+        if counts.get(etype, 0) > sums[stat]:
+            fail(f"phase 4 lineage: {counts.get(etype, 0)} {etype} events "
+                 f"above devstats' {sums[stat]} {stat}")
+    if validate_chrome_trace(doc):
+        fail(f"phase 4 timeline: {validate_chrome_trace(doc)}")
+    tracks = {e["tid"] for e in doc["traceEvents"]
+              if e["pid"] == 2 and e["ph"] == "X"}
+    if len(tracks) != n_requests:
+        fail(f"phase 4 timeline: {len(tracks)} request tracks for "
+             f"{n_requests} requests")
+    snap = eng.metrics_snapshot()
+    later = s.tokens_generated - n_requests
+    if snap["engine.ttft_s"]["count"] != n_requests or \
+            snap["engine.itl_s"]["count"] != later:
+        fail(f"phase 4 metrics: ttft {snap['engine.ttft_s']['count']} "
+             f"(want {n_requests}), itl {snap['engine.itl_s']['count']} "
+             f"(want {later})")
+    hook_ms = 1e3 * float(np.median(hooks))
+    share = float(np.median(np.array(hooks) / np.array(walls)))
+    print(f"  obs: trace {len(recs)} records ({len(steps)} steps, "
+          f"{sum(r['rec'] == 'event' for r in recs)} lineage events "
+          f"{counts}), ledger reconciled after every step, timeline "
+          f"{n_tl} events over {len(tracks)} request tracks; ttft count "
+          f"{n_requests}, itl count {later}; obs hooks' host time per step: "
+          f"median {hook_ms:.3f} ms, {100 * share:.2f}% of the step "
+          f"(max {1e3 * max(hooks):.3f} ms); ttft p50 "
+          f"{snap['engine.ttft_s']['p50']:.3f} s, itl p50 "
+          f"{snap['engine.itl_s']['p50']:.4f} s, step p50 "
+          f"{snap['engine.step_wall_s']['p50']:.4f} s", flush=True)
+    return launches
+
+
+def regret_full_width(torch, np):
+    """Phase 8: eviction-regret shadow probes at full width: 2 of phase 4's
+    requests (max batch 2), 16 greedy tokens, probes every 4 decode
+    steps, paged_eviction at budget 512."""
+    from repro_torch.obs import ObsConfig
+    taps = []
+    _, eng, wall, _ = serve_full_width(
+        torch, np, "bfloat16", 2, new_tokens=16, max_batch=2,
+        obs=ObsConfig(regret_every=4),
+        on_step=lambda e: taps.append((e.stats.decode_steps,
+                                       e.last_tap_bytes)))
+    samples = [x for r in eng.scheduler.finished for x in r.regret_samples]
+    if not samples:
+        fail("phase 8: no regret probe ran")
+    div = np.array([d for x in samples for d in x["divergence"]])
+    mass = np.array([m for x in samples for m in x["evicted_mass"]])
+    if not np.isfinite(div).all():
+        fail("phase 8: a probe's divergence is not finite")
+    if not ((mass >= 0) & (mass <= 1)).all() or not (mass > 0).any():
+        fail(f"phase 8: evicted attention mass {mass.min()}..{mass.max()}: "
+             f"not in [0, 1] or never above 0")
+    dec = [b for (n, b), (n0, _) in zip(taps[1:], taps) if n > n0]
+    mixed = [b for (n, b), (n0, _) in zip(taps[1:], taps) if n == n0]
+    summ = {r.request_id: r.regret_summary()
+            for r in eng.scheduler.finished}
+    print(f"  {len(samples)} probes over {eng.stats.steps} steps in "
+          f"{wall:.1f} s: divergence {div.min():.4g}..{div.max():.4g} "
+          f"(mean {div.mean():.4g}), evicted mass {mass.min():.4g}.."
+          f"{mass.max():.4g} (mean {mass.mean():.4g}); shadow cache "
+          f"{eng.shadow_nbytes()} bytes; taps read per step: mixed "
+          f"{max(mixed, default=0)} bytes, decode-only "
+          f"{max(dec, default=0)} bytes; per request {summ}", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1220,7 +1478,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/7] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/8] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -1230,14 +1488,17 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/7] kernels against their plain versions")
+    phase("[2/8] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
     timing = time_kernels(torch, F)
+    other_hd = {shape[2]: time_kernels(torch, F, shape, dname, full=False)
+                for shape, dname in NEW_HD_SHAPES.values()}
 
-    phase("[3/7] kernels vs plain versions: engine and one-shot, float and "
-          "int8 pools, every policy that evicts")
+    phase("[3/8] kernels vs plain versions: engine (with trace, lineage and "
+          "timeline; probes on and off) and one-shot, float and int8 pools, "
+          "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
         for kv_dtype in ("float32", "int8"):
             engine_parity(torch, np, kv_dtype, policy)
@@ -1246,20 +1507,25 @@ def main() -> None:
     # a ragged prompt above 2048 tokens: the flash kernel on the card
     oneshot_parity(torch, np, "float32", S=3000)
 
-    phase("[4/7] llama-3.2-1b at full width: serving, bf16 pool")
-    serve = serve_full_width(torch, np, "bfloat16", 16)[0]
+    phase("[4/8] llama-3.2-1b at full width: serving, bf16 pool, with "
+          "metrics, trace, timeline and lineage ledger")
+    serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/7] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/8] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[6/7] llama-3.2-1b at full width: serving, int8 pool")
+    phase("[6/8] llama-3.2-1b at full width: serving, int8 pool")
     serve8 = serve_full_width(torch, np, "int8", 4)[0]
     torch.cuda.empty_cache()
 
-    phase("[7/7] llama-3.2-1b at full width: the paper's baselines")
+    phase("[7/8] llama-3.2-1b at full width: the paper's baselines")
     baselines_full_width(torch, np)
+    torch.cuda.empty_cache()
+
+    phase("[8/8] llama-3.2-1b at full width: eviction-regret probes")
+    regret_full_width(torch, np)
 
     # launches on the main paths: decode and prefill from serving (phases 4
     # and 6), flash attention from the one-shot prefill (phase 5); the
@@ -1285,7 +1551,13 @@ def main() -> None:
                      "library_device_ms": r["library_device_ms"],
                      "device_clean_ms": r["device_clean_ms"],
                      "floor_device_ms": r["floor_device_ms"],
-                     "timed_route": r["route"]})
+                     "timed_route": r["route"],
+                     "head_dims": sorted(HEAD_DIMS_CHECKED[name]),
+                     "other_head_dims": {
+                         hd: {"device_ms": t[name]["device_ms"],
+                              "bound_ms": t[name]["bound"][0],
+                              "bound_by": t[name]["bound"][1]}
+                         for hd, t in other_hd.items()}})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -756,3 +756,51 @@ def to_contiguous(cache: PagedLayerCache):
             cache.v_view().reshape(B, P * page, KV, hd),
             cache.pos_view().reshape(B, P * page),
             cache.valid_mask().reshape(B, P * page))
+
+
+# ---------------------------------------------------------------------------
+# forensics view (obs/lineage.py)
+# ---------------------------------------------------------------------------
+
+LINEAGE_FIELDS = ("block_table", "ref_count", "cur_page", "tokens_per_page",
+                  "page_scores", "pos_base")
+
+
+def lineage_snapshot(cache: PagedLayerCache) -> dict:
+    """Forensics view of one layer's pool, as the JAX package's
+    ``lineage_snapshot``: device tensors, block_table (B, P) int32,
+    ref_count (N,) int32, cur_page (B,) int32 (the working slot),
+    tokens_per_page (B, P) int32, page_scores (B, P) f32 (+inf == empty)
+    and pos_base (B, P) int32 (first position on the page, -1 == empty).
+    The lineage ledger diffs consecutive snapshots (plus the step plan)
+    into alloc / adopt / fork / evict / release events; an eviction is
+    priced by the PREVIOUS snapshot's ``page_scores``."""
+    tpp = cache.tokens_per_page()
+    first = torch.where(cache.valid_mask(), cache.pos_view(),
+                        torch.iinfo(torch.int32).max).amin(-1)
+    return {
+        "block_table": cache.block_table,
+        "ref_count": cache.ref_count,
+        "cur_page": cache.cur_page,
+        "tokens_per_page": tpp,
+        "page_scores": cache.page_scores(),
+        "pos_base": torch.where(tpp > 0, first, -1).to(torch.int32),
+    }
+
+
+def lineage_snapshot_host(cache: PagedLayerCache) -> dict:
+    """:func:`lineage_snapshot` read to the host in ONE transfer: the six
+    tensors flattened into one int32 buffer (the f32 scores by their bits),
+    then split into numpy arrays."""
+    snap = lineage_snapshot(cache)
+    flat = torch.cat([snap[f].to(torch.float32).view(torch.int32).reshape(-1)
+                      if f == "page_scores" else
+                      snap[f].to(torch.int32).reshape(-1)
+                      for f in LINEAGE_FIELDS]).cpu().numpy()
+    out, at = {}, 0
+    for f in LINEAGE_FIELDS:
+        n = snap[f].numel()
+        part = flat[at:at + n].reshape(tuple(snap[f].shape))
+        out[f] = part.view(np.float32) if f == "page_scores" else part
+        at += n
+    return out

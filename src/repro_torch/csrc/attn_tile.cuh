@@ -23,9 +23,13 @@
 // in registers; the probabilities are rounded to bf16 in registers and fed
 // to P V as the A operand, without a trip through shared memory.
 //
-// Shared-memory tiles hold rows of D bf16 with the 16-byte chunks of row r
-// XOR-swizzled by r % 8, so the eight row addresses of an ldmatrix phase
-// fall in eight different bank groups.
+// Shared-memory tiles hold rows of D bf16 (D a multiple of 16: 32, 64, 80,
+// 96 or 128) with the 16-byte chunks of row r XOR-swizzled by r % W, W the
+// largest power of two up to 8 that divides the row's D / 8 chunks: the XOR
+// then stays inside an aligned group of W chunks, so it never leaves the
+// row. At D 64 and 128 (W 8) the eight row addresses of an ldmatrix phase
+// fall in eight different bank groups; at D 32 (W 4), 80 (W 2) and 96 (W 4)
+// some phases share a bank group, which costs time, not correctness.
 //
 // Masking: the row max starts at -1e30 and a masked score never enters it;
 // its probability is set to 0 explicitly (never exp(-1e30 - m), which is 1
@@ -55,7 +59,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Element offset of (row r, column c) in a swizzled tile of D-wide rows.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * D + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
+  static_assert(D % 16 == 0, "rows of whole 16-column mma steps");
+  constexpr int C = D / 8;
+  constexpr int W = C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 2;
+  return r * D + (((c >> 3) ^ (r & (W - 1))) << 3) + (c & 7);
 }
 
 // 16-byte asynchronous copy; zero-fills the destination when !valid (src

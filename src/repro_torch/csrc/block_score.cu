@@ -20,16 +20,18 @@
 // Design:
 //  - Work is a flat run of 16-byte chunks. A block takes PPB consecutive
 //    pages (PPB chosen by the host so that a block has about 1024 chunks of
-//    each of K and V); chunk c of the block is chunk q = c % L of head
-//    h = (c / L) % KV of block-local token t = c / (L * KV), with
-//    L = hd / (16 / sizeof(T)) lanes per head (8 at hd 64 in bf16: four
-//    heads per warp instruction).
+//    each of K and V); chunk c of the block is chunk q = c % LP of head
+//    h = (c / LP) % KV of block-local token t = c / (LP * KV), with
+//    L = hd / (16 / sizeof(T)) chunks per head and LP lanes per head, L
+//    rounded up to a power of two (8 at hd 64 in bf16: four heads per warp
+//    instruction). Where L < LP (hd 80 and 96: 10 or 12 chunks in bf16, 20
+//    or 24 in f32) the extra lanes load nothing and add zeros.
 //  - Loads: each thread starts all its K and V chunks of a batch of
 //    kBatch (up to 2 * kBatch 16-byte loads, 256 bytes) before any
 //    arithmetic; at the serving shape that is every chunk of the page, 32 KB
 //    in flight per block and all blocks resident at once.
 //  - Reductions: a thread squares and sums its chunk; xor shuffles within
-//    the L lanes of a head (segments align: L divides 32 and the batch
+//    the LP lanes of a head (segments align: LP divides 32 and the batch
 //    stride) give the head's squared norm; its first lane stores the norm
 //    in shared memory. Then one thread per token sums the head norms in head
 //    order and stages its ratio and validity in shared memory, and one thread
@@ -67,7 +69,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     block_score_kernel(const T* __restrict__ k, const T* __restrict__ v,
                        const int* __restrict__ pos, float* __restrict__ out,
-                       int N, int page, int KV, int L, int log2L, int ppb,
+                       int N, int page, int KV, int L, int log2LP, int ppb,
                        long long s_n, long long s_page, long long s_kv) {
   extern __shared__ float smem[];
   const int n0 = blockIdx.x * ppb;
@@ -78,7 +80,8 @@ __global__ void __launch_bounds__(kThreads)
   float* tok = vn + ppb * page * KV;               // (ppb * page)
   int* valid = reinterpret_cast<int*>(tok + ppb * page);
   constexpr int E = 16 / sizeof(T);                // elements per chunk
-  const int total = tokens * KV * L;               // chunks of K (and V)
+  const int LP = 1 << log2LP;                      // lanes per head
+  const int total = tokens * KV * LP;              // lanes' chunks of K, V
   const int lane = threadIdx.x & 31;
 
   // positions first, so that their loads overlap the pool's
@@ -90,8 +93,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
       const int c = base + i * kThreads + threadIdx.x;
-      if (c < total) {
-        const int q = c & (L - 1), hk = c >> log2L;   // hk = t * KV + h
+      const int q = c & (LP - 1);
+      if (c < total && q < L) {
+        const int hk = c >> log2LP;                   // hk = t * KV + h
         const int t = hk / KV, h = hk - t * KV;
         const int p = t / page, j = t - p * page;
         const long long off = (long long)(n0 + p) * s_n + j * s_page +
@@ -108,13 +112,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kBatch; ++i) {
       const int c = base + i * kThreads + threadIdx.x;
       float sk = sq_sum<T>(kc[i]), sv = sq_sum<T>(vc[i]);
-      for (int o = L >> 1; o > 0; o >>= 1) {
+      for (int o = LP >> 1; o > 0; o >>= 1) {
         sk += __shfl_xor_sync(0xffffffffu, sk, o);
         sv += __shfl_xor_sync(0xffffffffu, sv, o);
       }
-      if (c < total && (lane & (L - 1)) == 0) {
-        kn[c >> log2L] = sqrtf(sk);
-        vn[c >> log2L] = sqrtf(sv);
+      if (c < total && (lane & (LP - 1)) == 0) {
+        kn[c >> log2LP] = sqrtf(sk);
+        vn[c >> log2LP] = sqrtf(sv);
       }
     }
   }
@@ -156,17 +160,17 @@ int launch(const void* k, const void* v, const int* pos, float* out, int N,
   if (N == 0) return 0;
   constexpr int E = 16 / sizeof(T);
   const int L = hd / E;
-  int log2L = 0;
-  while ((1 << log2L) < L) ++log2L;
+  int log2LP = 0;
+  while ((1 << log2LP) < L) ++log2LP;
   // pages per block: about kThreads * kBatch chunks of K per block
-  const int chunks = page * KV * L;
+  const int chunks = page * KV << log2LP;
   int ppb = 1;
   while (ppb < 8 && 2 * ppb * chunks <= kThreads * kBatch) ppb *= 2;
   const int blocks = (N + ppb - 1) / ppb;
   const size_t smem = (size_t)ppb * page * (2 * KV + 2) * sizeof(float);
   block_score_kernel<T><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), pos, out, N, page,
-      KV, L, log2L, ppb, s_n, s_page, s_kv);
+      KV, L, log2LP, ppb, s_n, s_page, s_kv);
   return (int)cudaGetLastError();
 }
 
@@ -176,8 +180,9 @@ extern "C" {
 
 // k / v pool (N, page, KV, hd) with element strides s_n, s_page, s_kv and hd
 // contiguous, of one type (dtype 0 = float32, 1 = bfloat16), 16-byte aligned
-// with strides in whole 16-byte chunks, hd / (16 / sizeof) a power of two up
-// to 32, page * (KV + 1) <= 4096 (the wrapper's block_score_shape_check); pos
+// with strides in whole 16-byte chunks, 1 to 32 chunks per head (the
+// wrapper's block_score_shape_check takes a power of two of them, or hd 32,
+// 80 or 96), page * (KV + 1) <= 4096; pos
 // (N, page) int32 contiguous; out (N,) f32. Returns the CUDA error code of
 // the launch (0 == success).
 int block_score(const void* k, const void* v, const int* pos, float* out,

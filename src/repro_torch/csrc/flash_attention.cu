@@ -11,9 +11,10 @@
 //
 // Two routes, chosen by the wrapper from the dtype (never a fallback):
 //
-// bf16, hd 64 or 128: tensor cores (attn_tile.cuh: mma.sync m16n8k16 with
-// ldmatrix, cp.async K/V ring of two stages). Block (head, b, query tile)
-// holds 128 query rows on 8 warps of 16 rows; the query tiles are launched
+// bf16, hd 32, 64, 80, 96 or 128: tensor cores (attn_tile.cuh: mma.sync
+// m16n8k16 with ldmatrix, cp.async K/V ring of two stages). Block (head,
+// b, query tile) holds 128 query rows on 8 warps of 16 rows; the query
+// tiles are launched
 // longest first (the last tiles of the causal triangle see the most keys).
 // It walks the 64-key tiles the triangle and the window reach, loading tile
 // i + 1 while it computes tile i; tiles wholly above the diagonal or below
@@ -293,7 +294,8 @@ extern "C" {
 
 // q (B, S, H, hd), k / v (B, S, KV, hd), out (B, S, H, hd), all contiguous
 // and of one type; H % KV == 0. dtype 0 = float32 (CUDA cores, hd <= 128),
-// 1 = bfloat16 (tensor cores, hd 64 or 128, 16-byte aligned rows). Returns
+// 1 = bfloat16 (tensor cores, hd 32, 64, 80, 96 or 128, 16-byte aligned
+// rows). Returns
 // the CUDA error code of the launch (0 == success).
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int B, int S, int H, int KV, int hd, int window,
@@ -301,10 +303,18 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   if (H % KV) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (hd == 64)
-      return launch_tc<64>(q, k, v, out, B, S, H, KV, window, scale, st);
-    if (hd == 128)
-      return launch_tc<128>(q, k, v, out, B, S, H, KV, window, scale, st);
+    switch (hd) {
+      case 32:
+        return launch_tc<32>(q, k, v, out, B, S, H, KV, window, scale, st);
+      case 64:
+        return launch_tc<64>(q, k, v, out, B, S, H, KV, window, scale, st);
+      case 80:
+        return launch_tc<80>(q, k, v, out, B, S, H, KV, window, scale, st);
+      case 96:
+        return launch_tc<96>(q, k, v, out, B, S, H, KV, window, scale, st);
+      case 128:
+        return launch_tc<128>(q, k, v, out, B, S, H, KV, window, scale, st);
+    }
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 0 || hd > 128) return (int)cudaErrorInvalidValue;

@@ -24,9 +24,9 @@
 //
 // Two routes, chosen by the wrapper from the dtypes (never a fallback):
 //
-// bf16 query over a bf16 pool, hd 64 or 128: tensor cores (attn_tile.cuh:
-// mma.sync m16n8k16, ldmatrix, cp.async). A block holds 64 rows on 4 warps,
-// in the fold's g * T + t order or, on request, token-major (t * G + g: a
+// bf16 query over a bf16 pool, hd 32, 64, 80, 96 or 128: tensor cores
+// (attn_tile.cuh: mma.sync m16n8k16, ldmatrix, cp.async). A block holds 64
+// rows on 4 warps, in the fold's g * T + t order or, on request, token-major (t * G + g: a
 // decode row's G heads share one tile, and its block walks the pages once
 // instead of G blocks walking them in parallel). The block's keys
 // are the block table's slots laid end to end, cut into key tiles of 64
@@ -457,7 +457,8 @@ int paged_prefill(const void* q, const void* k, const void* v, const int* pos,
   return (int)cudaErrorInvalidValue;
 }
 
-// Tensor-core route: a bf16 query over a bf16 pool, hd 64 or 128, every
+// Tensor-core route: a bf16 query over a bf16 pool, hd 32, 64, 80, 96 or
+// 128, every
 // pool row 16-byte aligned (s_n, s_page, s_kv multiples of 8). Arguments
 // as paged_prefill; folded row r is query head kv * G + r / T, token r % T.
 int paged_prefill_tc(const void* q, const void* k, const void* v,
@@ -467,14 +468,19 @@ int paged_prefill_tc(const void* q, const void* k, const void* v,
                      long long s_page, long long s_kv, int window,
                      float scale, int per_qhead, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    return launch_tc<64>(q, k, v, pos, bt, q_pos, out, kn, vn, B, T, KV, G,
-                         P, page, s_n, s_page, s_kv, window, scale,
-                         per_qhead, st);
-  if (hd == 128)
-    return launch_tc<128>(q, k, v, pos, bt, q_pos, out, kn, vn, B, T, KV, G,
-                          P, page, s_n, s_page, s_kv, window, scale,
-                          per_qhead, st);
+#define PREFILL_TC(D)                                                       \
+  case D:                                                                   \
+    return launch_tc<D>(q, k, v, pos, bt, q_pos, out, kn, vn, B, T, KV, G, \
+                        P, page, s_n, s_page, s_kv, window, scale,         \
+                        per_qhead, st);
+  switch (hd) {
+    PREFILL_TC(32)
+    PREFILL_TC(64)
+    PREFILL_TC(80)
+    PREFILL_TC(96)
+    PREFILL_TC(128)
+  }
+#undef PREFILL_TC
   return (int)cudaErrorInvalidValue;
 }
 

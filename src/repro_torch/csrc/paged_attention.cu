@@ -29,9 +29,13 @@
 //  - Lanes run along the head dim, one chunk each: 16 bytes of an f32 or
 //    bf16 row (4 or 8 values), 8 bytes of an int8 row (8 values; 16 would
 //    double the per-lane q and acc registers, 2 * GMAX * 16 floats). L =
-//    hd / chunk lanes cover one token, so a warp step covers 32 / L tokens
-//    of one page. q . k is reduced over the L lanes with shuffles; P V
-//    accumulates per lane over its own columns.
+//    hd / chunk lanes hold one token; a token takes LP lanes, L rounded up
+//    to a power of two, so a warp step covers 32 / LP tokens of one page
+//    and the shuffles stay within aligned groups. At hd 80 and 96 the
+//    LP - L extra lanes idle: their copies zero-fill (q = 0, K = V = 0), so
+//    they add nothing to a dot product, a norm or acc, and never write.
+//    q . k is reduced over the LP lanes with shuffles; P V accumulates per
+//    lane over its own columns.
 //  - Each lane keeps its next kStages steps in flight with cp.async
 //    (K and V chunks, the token's position, int8 scales) into its own
 //    slots of a per-warp shared-memory ring; only the lane that copied a
@@ -47,9 +51,11 @@
 //    window) are dropped from the walk before it starts, unless the score
 //    epilogue needs their norms (the serving path always does).
 //
-// Every instantiation: q f32 or bf16; pool f32, bf16 or int8; hd 64 or 128;
-// G <= 8 (rows padded to GMAX 4 or 8, the padding rows computed on q = 0
-// and never written); page <= 128. The wrapper refuses anything else.
+// Instantiations: q f32 or bf16 over an f32, bf16 or int8 pool at hd 64 or
+// 128; at hd 32, 80 and 96 a pool of q's own type or int8 (the pairs a
+// model's own pool or an int8 one gives). G <= 8 (rows padded to GMAX 4 or
+// 8, the padding rows computed on q = 0 and never written); page <= 128.
+// The wrapper (decode_shape_check) refuses anything else.
 #include <cstdint>
 #include <type_traits>
 
@@ -85,8 +91,10 @@ template <typename TK, int HD>
 struct Chunk {
   static constexpr int E = sizeof(TK) == 1 ? 8 : 16 / (int)sizeof(TK);
   static constexpr int BYTES = E * (int)sizeof(TK);  // 16 (f32, bf16), 8
-  static constexpr int L = HD / E;                   // lanes per token
-  static constexpr int TPS = 32 / L;                 // tokens per warp step
+  static constexpr int L = HD / E;                   // lanes with data
+  static constexpr int LP = L <= 4 ? 4 : L <= 8 ? 8 : L <= 16 ? 16 : 32;
+  static constexpr int TPS = 32 / LP;                // tokens per warp step
+  static_assert(HD % E == 0 && L >= 4 && L <= 32, "unsupported head dim");
 };
 
 // Asynchronous copy of BYTES (4, 8 or 16) into shared memory; zero-fills
@@ -152,14 +160,17 @@ template <typename TQ, typename TK, int HD, int GMAX>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_kernel(const Args a) {
   using C = Chunk<TK, HD>;
-  constexpr int E = C::E, L = C::L, TPS = C::TPS, BYTES = C::BYTES;
+  constexpr int E = C::E, L = C::L, LP = C::LP, TPS = C::TPS;
+  constexpr int BYTES = C::BYTES;
   constexpr int SLOTS = kWarps * kStages * 32;
   constexpr bool kInt8 = std::is_same_v<TK, int8_t>;
   extern __shared__ __align__(16) unsigned char smem[];
   const paged::Pool& pool = a.pool;
   const int sp = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int grp = lane / L, c = lane % L;
+  const int grp = lane / LP, c = lane % LP;
+  const bool has = c < L;  // the lane holds columns of the head dim
+  const int col = has ? c * E : 0;
   const int page = pool.page, pps = a.pps;
   const bool norms = a.kn != nullptr;
   const int cur = a.cur_pos[b];
@@ -184,13 +195,14 @@ __global__ void __launch_bounds__(kWarps * 32)
     s_list[i] = norms ? i : 0;
   }
   float qr[GMAX][E];
-  const TQ* qb = static_cast<const TQ*>(a.q) + bk * a.G * HD + c * E;
+  const TQ* qb = static_cast<const TQ*>(a.q) + bk * a.G * HD + col;
 #pragma unroll
   for (int g = 0; g < GMAX; ++g)
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      qr[g][e] = g < a.G ? paged::to_float(qb[g * HD + e]) * (a.scale * kLog2e)
-                         : 0.f;
+      qr[g][e] = g < a.G && has
+                     ? paged::to_float(qb[g * HD + e]) * (a.scale * kLog2e)
+                     : 0.f;
   __syncthreads();
   int n_list = n;
   if (!norms) {
@@ -236,9 +248,9 @@ __global__ void __launch_bounds__(kWarps * 32)
       const long long row = pg * page + (in ? j : 0);
       const long long off = pg * pool.s_n +
                             (long long)(in ? j : 0) * pool.s_page +
-                            (long long)kv * pool.s_kv + c * E;
-      cp_async<BYTES>(k_ring + stage * 32 * BYTES, kp + off, in);
-      cp_async<BYTES>(v_ring + stage * 32 * BYTES, vp + off, in);
+                            (long long)kv * pool.s_kv + col;
+      cp_async<BYTES>(k_ring + stage * 32 * BYTES, kp + off, in && has);
+      cp_async<BYTES>(v_ring + stage * 32 * BYTES, vp + off, in && has);
       cp_async<4>(pos_ring + stage * 32, pool.pos + row, in);
       if constexpr (kInt8) {
         const long long si = row * pool.kv_heads + kv;
@@ -294,8 +306,8 @@ __global__ void __launch_bounds__(kWarps * 32)
         sk = fmaf(kx[e], kx[e], sk);
         sv = fmaf(vx[e], vx[e], sv);
       }
-      sk = group_sum<L>(sk);
-      sv = group_sum<L>(sv);
+      sk = group_sum<LP>(sk);
+      sv = group_sum<LP>(sv);
       if (c == 0 && in) {
         kn_b[(long long)p * page + j] = sqrtf(sk);
         vn_b[(long long)p * page + j] = sqrtf(sv);
@@ -307,7 +319,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       float d = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) d = fmaf(qr[g][e], kx[e], d);
-      s[g] = group_sum<L>(d);
+      s[g] = group_sum<LP>(d);
     }
     if (in && paged::pair_valid(mapped, kpos, cur, a.window)) {
 #pragma unroll
@@ -333,9 +345,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   tc::cp_async_wait<0>();
 
-  // merge the token groups of the warp (lanes c, c + L, ...)
+  // merge the token groups of the warp (lanes c, c + LP, ...)
 #pragma unroll
-  for (int o = L; o < 32; o <<= 1) {
+  for (int o = LP; o < 32; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       const float m2 = __shfl_xor_sync(0xffffffffu, m[g], o);
@@ -403,17 +415,34 @@ int launch_shape(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename TQ, typename TK, int HD>
+int launch_hd(const Args& a, int B, cudaStream_t stream) {
+  return a.G <= 4 ? launch_shape<TQ, TK, HD, 4>(a, B, stream)
+                  : launch_shape<TQ, TK, HD, 8>(a, B, stream);
+}
+
 template <typename TQ, typename TK>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  const int hd = a.pool.hd;
-  if (a.G < 1 || a.G > 8 || a.pool.page < 1 || a.pool.page > 128 ||
-      (hd != 64 && hd != 128))
+  if (a.G < 1 || a.G > 8 || a.pool.page < 1 || a.pool.page > 128)
     return (int)cudaErrorInvalidValue;
-  if (hd == 64)
-    return a.G <= 4 ? launch_shape<TQ, TK, 64, 4>(a, B, stream)
-                    : launch_shape<TQ, TK, 64, 8>(a, B, stream);
-  return a.G <= 4 ? launch_shape<TQ, TK, 128, 4>(a, B, stream)
-                  : launch_shape<TQ, TK, 128, 8>(a, B, stream);
+  switch (a.pool.hd) {
+    case 64:
+      return launch_hd<TQ, TK, 64>(a, B, stream);
+    case 128:
+      return launch_hd<TQ, TK, 128>(a, B, stream);
+  }
+  // hd 32, 80, 96: a pool of q's own type, or int8
+  if constexpr (std::is_same_v<TQ, TK> || std::is_same_v<TK, int8_t>) {
+    switch (a.pool.hd) {
+      case 32:
+        return launch_hd<TQ, TK, 32>(a, B, stream);
+      case 80:
+        return launch_hd<TQ, TK, 80>(a, B, stream);
+      case 96:
+        return launch_hd<TQ, TK, 96>(a, B, stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename TQ>
@@ -431,8 +460,8 @@ extern "C" {
 // strides s_n, s_page, s_kv (multiples of the chunk: 4 f32, 8 bf16 or int8
 // values; bases aligned to it) and hd contiguous; k_scale / v_scale (N,
 // page, KV) f32 contiguous for an int8 pool, else null; pos (N, page)
-// int32; bt (B, P) int32; cur_pos (B,) int32. hd 64 or 128, 1 <= G <= 8,
-// page <= 128. Outputs f32: acc (B, KV, S, G, hd), m and l (B, KV, S, G),
+// int32; bt (B, P) int32; cur_pos (B,) int32. hd 64 or 128 (or 32, 80, 96
+// over a pool of q's type or int8), 1 <= G <= 8, page <= 128. Outputs f32: acc (B, KV, S, G, hd), m and l (B, KV, S, G),
 // and when kn / vn are not null (B, KV, P, page) norms. q_dtype: 0 =
 // float32, 1 = bfloat16; pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8.
 // Returns the CUDA error code of the launch (0 == success).

@@ -26,23 +26,30 @@ def block_score_plain(k_pool, v_pool, pos):
     return block_score_ref(k_pool, v_pool, pos)
 
 
+# head dims taken whatever their chunk count (padded to a power of two of
+# lanes): TINY's 32, stablelm-3b's 80 and the reduced configs' 96
+PADDED_HEAD_DIMS = (32, 80, 96)
+
+
 def block_score_shape_check(dtype, page: int, KV: int, hd: int) -> None:
     """What the kernel takes, a function of dtype and shape only: a float32
     or bfloat16 pool (int8 is dequantized first), a head dim of whole
-    16-byte chunks whose chunk count (lanes per head) is a power of two up
-    to 32 (f32: hd 4 to 128; bf16: hd 8 to 256), and page * (KV + 1) <=
-    4096 (each token's head norms staged in shared memory). Raises
-    TypeError or ValueError on anything else: there is no other page-score
-    kernel to fall back to."""
+    16-byte chunks whose chunk count is a power of two up to 32 (f32: hd 4
+    to 128; bf16: hd 8 to 256) or hd 32, 80 or 96 (their chunks padded to a
+    power of two of lanes), and page * (KV + 1) <= 4096 (each token's head
+    norms staged in shared memory). Raises TypeError or ValueError on
+    anything else: there is no other page-score kernel to fall back to."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"no page-score kernel for a {dtype} pool "
                         f"(dequantize int8 first)")
     per_chunk = 16 // torch.empty((), dtype=dtype).element_size()
     lanes = hd // per_chunk
-    if hd % per_chunk or not 1 <= lanes <= 32 or lanes & (lanes - 1):
+    pow2 = 1 <= lanes <= 32 and not lanes & (lanes - 1)
+    if hd % per_chunk or not (pow2 or hd in PADDED_HEAD_DIMS):
         raise ValueError(f"the page-score kernel takes a head dim of 1, 2, "
                          f"4, ..., 32 chunks of {per_chunk} {dtype} values, "
-                         f"not {hd}")
+                         f"or {', '.join(map(str, PADDED_HEAD_DIMS))}, not "
+                         f"{hd}")
     if page < 1 or KV < 1 or page * (KV + 1) > 4096:
         raise ValueError(f"the page-score kernel takes page * (KV + 1) <= "
                          f"4096, not {page} * {KV + 1}")

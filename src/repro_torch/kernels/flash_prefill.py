@@ -25,8 +25,8 @@ source is ``csrc/flash_attention.cu``; it replaces the JAX package's Pallas
 ``flash_attention_kernel``.
 
 **Routes.** Each CUDA wrapper picks its route from dtypes and head dim
-alone (:func:`prefill_route`, :func:`flash_route`): bf16 throughout at hd 64
-or 128 runs on the tensor cores, an f32 query (or a bf16 query over an f32
+alone (:func:`prefill_route`, :func:`flash_route`): bf16 throughout at hd
+32, 64, 80, 96 or 128 runs on the tensor cores, an f32 query (or a bf16 query over an f32
 pool) on the CUDA cores, anything else raises. The tensor-core route rounds
 each probability to bf16 before P V, so it is held to the plain version
 within :func:`repro_torch.kernels.ref.tc_bf16_bound`, not one bf16 rounding
@@ -79,12 +79,15 @@ def paged_prefill_plain(q, k_pool, v_pool, pos, block_table, q_pos, *,
 
 
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+# head dims the tensor-core tiles are built for (whole 16-column mma steps)
+TC_HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
 def prefill_route(q_dtype, pool_dtype, hd: int) -> str:
     """The prefill kernel's route, a function of dtypes and head dim only:
 
-    - a bf16 query over a bf16 pool at hd 64 or 128: ``"tensor_core"``
+    - a bf16 query over a bf16 pool at hd 32, 64, 80, 96 or 128:
+      ``"tensor_core"``
       (mma.sync on 64-row tiles, key tiles gathered by cp.async);
     - an f32 query over either pool, or a bf16 query over an f32 pool (the
       pool an int8 cache dequantizes to): ``"cuda_core"`` (f32 products;
@@ -93,10 +96,11 @@ def prefill_route(q_dtype, pool_dtype, hd: int) -> str:
     - anything else raises (a bf16 pair at another hd included): no route
       falls back to the other."""
     if q_dtype == torch.bfloat16 and pool_dtype == torch.bfloat16:
-        if hd in (64, 128):
+        if hd in TC_HEAD_DIMS:
             return TENSOR_CORE
-        raise ValueError(f"a bf16 query over a bf16 pool needs head dim 64 "
-                         f"or 128 (tensor-core route), not {hd}")
+        raise ValueError(f"a bf16 query over a bf16 pool needs head dim "
+                         f"{', '.join(map(str, TC_HEAD_DIMS))} (tensor-core "
+                         f"route), not {hd}")
     if q_dtype in (torch.float32, torch.bfloat16) and \
             pool_dtype in (torch.float32, torch.bfloat16):
         return CUDA_CORE
@@ -204,14 +208,16 @@ def flash_attention_plain(q, k, v, *, window: int = 0,
 
 def flash_route(dtype, hd: int) -> str:
     """The flash kernel's route, a function of dtype and head dim only: bf16
-    at hd 64 or 128 takes ``"tensor_core"`` (mma.sync on 128-row tiles,
+    at hd 32, 64, 80, 96 or 128 takes ``"tensor_core"`` (mma.sync on 128-row
+    tiles,
     cp.async K/V ring); f32 at hd <= 128 takes ``"cuda_core"``; anything
     else raises, with no fallback from one route to the other."""
     if dtype == torch.bfloat16:
-        if hd in (64, 128):
+        if hd in TC_HEAD_DIMS:
             return TENSOR_CORE
-        raise ValueError(f"bf16 flash attention needs head dim 64 or 128 "
-                         f"(tensor-core route), not {hd}")
+        raise ValueError(f"bf16 flash attention needs head dim "
+                         f"{', '.join(map(str, TC_HEAD_DIMS))} (tensor-core "
+                         f"route), not {hd}")
     if dtype == torch.float32:
         if hd <= 128:
             return CUDA_CORE

@@ -17,7 +17,8 @@ tiles are those of the dequantized values.
 The kernel source is ``csrc/paged_attention.cu``; it replaces the JAX
 package's Pallas ``paged_attention_kernel`` and
 ``paged_attention_kernel_int8``. It takes the shapes of
-:func:`decode_shape_check` (hd 64 or 128, G <= 8, page <= 128) over a pool
+:func:`decode_shape_check` (hd 32, 64, 80, 96 or 128, G <= 8, page <= 128)
+over a pool
 whose base and strides are whole chunks (:func:`chunk_aligned`); the
 wrappers raise on anything else.
 """
@@ -103,22 +104,33 @@ def paged_attention_int8_plain(q, k_pool, v_pool, k_scale, v_scale, pos,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# head dims the decode kernel is built for: every q / pool pair at 64 and
+# 128; at the others a pool of q's own dtype or int8 (the pairs a model's
+# own pool or an int8 one gives)
+DECODE_HEAD_DIMS = (32, 64, 80, 96, 128)
+DECODE_ANY_PAIR_HEAD_DIMS = (64, 128)
 
 
 def decode_shape_check(q_dtype, pool_dtype, G: int, hd: int,
                        page: int) -> None:
     """What the decode kernel takes, a function of dtypes and shape only: a
-    float32 or bfloat16 query over a float32, bfloat16 or int8 pool, head
-    dim 64 or 128, 1 <= G <= 8 query heads per KV head, pages of at most 128
+    float32 or bfloat16 query over a float32, bfloat16 or int8 pool at head
+    dim 64 or 128, or over a pool of its own dtype or int8 at head dim 32,
+    80 or 96; 1 <= G <= 8 query heads per KV head, pages of at most 128
     tokens. Raises TypeError or ValueError on anything else: there is no
     other decode kernel to fall back to."""
     if q_dtype not in (torch.float32, torch.bfloat16) or \
             pool_dtype not in _DTYPES:
         raise TypeError(f"no decode kernel for a {q_dtype} query over a "
                         f"{pool_dtype} pool")
-    if hd not in (64, 128):
-        raise ValueError(f"the decode kernel takes head dim 64 or 128, not "
-                         f"{hd}")
+    if hd not in DECODE_HEAD_DIMS:
+        raise ValueError(f"the decode kernel takes head dim "
+                         f"{', '.join(map(str, DECODE_HEAD_DIMS))}, not {hd}")
+    if hd not in DECODE_ANY_PAIR_HEAD_DIMS and \
+            pool_dtype not in (q_dtype, torch.int8):
+        raise ValueError(f"at head dim {hd} the decode kernel takes a pool "
+                         f"of the query's dtype or int8, not a {pool_dtype} "
+                         f"pool under a {q_dtype} query")
     if not 1 <= G <= 8:
         raise ValueError(f"the decode kernel takes 1 to 8 query heads per KV "
                          f"head, not {G}")

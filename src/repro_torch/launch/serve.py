@@ -8,22 +8,40 @@ policy, on the GPU by default.
 ``--policy`` takes any registered policy (paged_eviction, full, and the
 paper's baselines streaming_llm, inverse_key_l2 and keydiff) and refuses
 other names. ``--reduced`` serves the family's tiny CPU-sized variant;
-``--device cpu`` runs the kernels' plain torch versions on the CPU. ``--profile START:COUNT``
-(repeatable) traces steps START .. START+COUNT-1 with ``torch.profiler`` and
-prints each window's device time by kernel and the device's busy share."""
+``--device cpu`` runs the kernels' plain torch versions on the CPU.
+``--profile START:COUNT`` (repeatable) traces steps START .. START+COUNT-1
+with ``torch.profiler`` and prints each window's device time by kernel and
+the device's busy share (with ``--profile-annotations`` the host regions
+``engine.plan`` and ``engine.step`` show in its table).
+
+Observability (``repro_torch.obs``): the metrics dashboard (TTFT, TPOT, ITL,
+queue, plan and step histograms; pool counters) is printed after the run
+unless ``--no-metrics``; ``--trace FILE`` writes one JSONL record per step
+(schema v2; validate with ``python -m repro_torch.obs.trace FILE``),
+``--timeline FILE`` a Perfetto timeline of per-request spans, ``--lineage``
+keeps the page-lineage ledger (reconciled after the run), ``--regret-every
+N`` runs the eviction-regret shadow probes, ``--snapshot FILE`` writes the
+final metrics as JSON:
+
+    python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \
+        --device cpu --trace t.jsonl --timeline tl.json --lineage \
+        --regret-every 4 --snapshot s.json"""
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import CacheConfig, get_arch
+from repro_torch.core.paged_cache import lineage_snapshot_host
 from repro_torch.core.policies import POLICIES
-from repro_torch.models.transformer import init_model
-from repro_torch.serving import Engine, SamplingParams
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_model
+from repro_torch.obs import ObsConfig
+from repro_torch.serving import Engine, SamplingParams
 
 
 def device_busy_us(events) -> tuple[float, float]:
@@ -104,6 +122,27 @@ def main() -> None:
     ap.add_argument("--profile", action="append", default=[],
                     metavar="START:COUNT",
                     help="trace steps START..START+COUNT-1 (repeatable)")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="write a per-step JSONL trace here")
+    ap.add_argument("--timeline", default=None, metavar="FILE",
+                    help="write a Chrome-trace/Perfetto JSON timeline of "
+                         "per-request spans here (load in chrome://tracing "
+                         "or ui.perfetto.dev)")
+    ap.add_argument("--lineage", action="store_true",
+                    help="keep a host-side page-lineage ledger (emits v2 "
+                         "'event' records into --trace and prints a "
+                         "reconciliation + per-request loss summary)")
+    ap.add_argument("--regret-every", type=int, default=0, metavar="N",
+                    help="probe eviction regret every N decode steps per "
+                         "request against an uncompressed shadow cache "
+                         "(0 = off; emits v2 'probe' records into --trace)")
+    ap.add_argument("--snapshot", default=None, metavar="FILE",
+                    help="write the final metrics snapshot (JSON) here")
+    ap.add_argument("--no-metrics", action="store_true",
+                    help="disable all engine instrumentation: bare caches, "
+                         "no stats vector and no per-step read of it")
+    ap.add_argument("--profile-annotations", action="store_true",
+                    help="wrap plan/step in torch.profiler.record_function")
     args = ap.parse_args()
 
     device = resolve_device(args.device)
@@ -120,7 +159,13 @@ def main() -> None:
                  sampling=SamplingParams(greedy=True),
                  chunk_size=args.chunk, token_budget=args.token_budget,
                  prefix_sharing=not args.no_prefix_sharing,
-                 decode_splits=args.decode_splits, device=device)
+                 decode_splits=args.decode_splits, device=device,
+                 obs=ObsConfig(metrics=not args.no_metrics,
+                               trace_path=args.trace,
+                               profiler_annotations=args.profile_annotations,
+                               timeline=args.timeline is not None,
+                               lineage=args.lineage,
+                               regret_every=args.regret_every))
 
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
@@ -135,15 +180,16 @@ def main() -> None:
         windows[start] = count
     t0 = time.perf_counter()
     step = 0
-    while True:
-        if step in windows:
-            more = profile_steps(eng, step, windows[step])
-            step += windows[step]
-        else:
-            more = eng.step()
-            step += 1
-        if not more:
-            break
+    with eng:                   # closing flushes the trace, on error too
+        while True:
+            if step in windows:
+                more = profile_steps(eng, step, windows[step])
+                step += windows[step]
+            else:
+                more = eng.step()
+                step += 1
+            if not more:
+                break
     done = eng.scheduler.finished
     dt = time.perf_counter() - t0
     s = eng.stats
@@ -152,7 +198,7 @@ def main() -> None:
     print(f"finished {len(done)} requests, {s.tokens_generated} tokens "
           f"in {dt:.2f}s ({s.tokens_generated / dt:.1f} tok/s)")
     print(f"decode-only throughput: {s.decode_tok_per_s:.1f} tok/s; "
-          f"steps={s.steps}")
+          f"steps={s.steps}; programs={eng.num_compiled_programs()}")
     print(f"evicted pages={s.pages_evicted} tokens={s.tokens_evicted} "
           f"forced={s.forced_evictions}")
     if s.shared_prefix_hits:
@@ -163,6 +209,40 @@ def main() -> None:
     if ttfts:
         print(f"ttft: mean={1e3 * np.mean(ttfts):.1f}ms "
               f"max={1e3 * np.max(ttfts):.1f}ms (chunk={args.chunk})")
+    if args.timeline:
+        n = eng.export_timeline(args.timeline)
+        print(f"wrote {args.timeline} ({n} timeline events)")
+    led = eng.obs.ledger
+    if led is not None:
+        errs = led.reconcile(lineage_snapshot_host(eng.cache.layers[0]))
+        print(f"lineage: {led.counts()}; reconcile: "
+              f"{'ok' if not errs else errs}")
+        for slot in range(args.max_batch):
+            rep = led.request_loss_report(slot)
+            if rep["pages_lost"]:
+                score = rep["mean_evict_score"]
+                print(f"  slot {slot}: lost {rep['pages_lost']} pages / "
+                      f"{rep['tokens_lost']} tokens at {rep['positions']} "
+                      f"(mean victim score "
+                      f"{'n/a' if score is None else format(score, '.3g')})")
+    if args.regret_every:
+        for req in done:
+            summ = req.regret_summary()
+            if summ:
+                print(f"  req {req.request_id}: {summ['probes']} probes, "
+                      f"divergence mean={summ['mean_divergence']:.3g} "
+                      f"max={summ['max_divergence']:.3g}, evicted mass "
+                      f"mean={summ['mean_evicted_mass']:.3g}")
+        print(f"regret shadow cache: {eng.shadow_nbytes()} bytes")
+    if not args.no_metrics:
+        print(eng.obs.registry.render())
+    if args.snapshot:
+        with open(args.snapshot, "w") as f:
+            json.dump(eng.metrics_snapshot(), f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"wrote {args.snapshot}")
+    if args.trace:
+        print(f"wrote {args.trace} ({eng.obs.writer.events_written} events)")
 
 
 if __name__ == "__main__":

@@ -169,11 +169,16 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
                 decode_mask, prefill_mask, reset_mask, share_src, share_pages,
                 times: list[int], has_decode: bool, has_prefill: bool,
                 has_reset: bool, decode_splits: int, fused_scores: bool,
-                plain_kernels: bool):
+                plain_kernels: bool, want_taps: bool = False):
     """One attention + MLP layer of the unified step. x: (B, T, D);
     positions: (B, T) int32 with -1 past each row's ``n_tok``. The
     ``has_*`` flags come from host copies of the masks and skip hooks that
-    would be identities (the JAX package skips them under ``lax.cond``)."""
+    would be identities (the JAX package skips them under ``lax.cond``).
+    Returns (x, tap): with ``want_taps`` (the regret shadow probes,
+    obs/regret.py) tap holds this step's k and v, the q used, the attention
+    output before the projection, and ``live_pos``, the cache's positions
+    after the append and before the eviction (a gathered copy: the eviction
+    mutates the pool in place); else tap is None and nothing more runs."""
     B, T, _ = x.shape
     h = apply_norm(lp["norm1"], x)
     q, k, v = attn_mod.project_qkv(lp["attn"], cfg, h,
@@ -189,6 +194,9 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
     o, pscores = attn_mod.step_attention(
         q, kvc, q_pos=positions, window=window, decode_splits=decode_splits,
         want_scores=fused_scores, plain=plain_kernels)
+    tap = None
+    if want_taps:
+        tap = {"k": k, "v": v, "q": q, "o": o, "live_pos": kvc.pos_view()}
     if has_decode:
         policy.post_write(kvc, ccfg, active=decode_mask, page_scores=pscores)
     if has_prefill:
@@ -196,14 +204,15 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
                                    window=window, page_scores=pscores)
     x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
     h2 = apply_norm(lp["norm2"], x)
-    return x + mlp_forward(lp["mlp"], cfg, h2)
+    return x + mlp_forward(lp["mlp"], cfg, h2), tap
 
 
 def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
                  cache: ModelCache, policy: EvictionPolicy, ccfg: CacheConfig,
                  decode_mask=None, prefill_mask=None, reset_mask=None,
                  share_src=None, share_pages=None, decode_splits: int = 1,
-                 fused_scores: bool = False, plain_kernels: bool = False):
+                 fused_scores: bool = False, plain_kernels: bool = False,
+                 want_taps: bool = False):
     """Unified mixed-batch step, as ``transformer.forward_step`` of the JAX
     package. tokens (B, T) int32 (row b's live tokens are tokens[b,
     :n_tok[b]]); n_tok (B,); the masks (B,) bool; share_src / share_pages
@@ -214,7 +223,10 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
     Updates ``cache`` in place and returns (logits (B, vocab) f32 at each
     row's last live token, cache). One host read per step: the layers'
     write heads and the masks, from which each layer's page-boundary plan
-    for ``append_chunk`` is computed."""
+    for ``append_chunk`` is computed. ``want_taps`` (obs/regret.py) also
+    returns the taps {"layers": [per-layer tap of :func:`_step_layer`],
+    "positions": (B, T)} as a third value; False runs exactly the ops of a
+    step without it."""
     x = embed_tokens(params, cfg, tokens)
     B, T = x.shape[0], x.shape[1]
     dev = x.device
@@ -243,24 +255,30 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
     n_h, dec_h, pre_h, reset_h = host[2 * B * L:].reshape(4, B)
     flags = dict(has_decode=bool(dec_h.any()), has_prefill=bool(pre_h.any()),
                  has_reset=bool(reset_h.any()))
+    taps = []
     for lp, spec, kvc, (off, mapped) in zip(params["layers"],
                                             cfg.layer_specs(), cache.layers,
                                             heads):
         # release / adopt park a reset row's head full: it rolls at t == 0
         off = np.where(reset_h > 0, page, off)
         times = append_plan(kvc, off, mapped, n_h, T)
-        x = _step_layer(lp, cfg, spec, x, kvc, positions=positions,
-                        n_tok=n_tok, policy=policy, ccfg=ccfg,
-                        decode_mask=decode_mask, prefill_mask=prefill_mask,
-                        reset_mask=reset_mask, share_src=share_src,
-                        share_pages=share_pages, times=times,
-                        decode_splits=decode_splits,
-                        fused_scores=fused_scores,
-                        plain_kernels=plain_kernels, **flags)
+        x, tap = _step_layer(lp, cfg, spec, x, kvc, positions=positions,
+                             n_tok=n_tok, policy=policy, ccfg=ccfg,
+                             decode_mask=decode_mask,
+                             prefill_mask=prefill_mask,
+                             reset_mask=reset_mask, share_src=share_src,
+                             share_pages=share_pages, times=times,
+                             decode_splits=decode_splits,
+                             fused_scores=fused_scores,
+                             plain_kernels=plain_kernels,
+                             want_taps=want_taps, **flags)
+        taps.append(tap)
     last = (n_tok.long() - 1).clamp_min(0)
     x_last = x[torch.arange(B, device=dev), last]
     logits = lm_logits(params, cfg, x_last)
     cache.cur_pos = cur_pos + n_tok.to(torch.int32)
+    if want_taps:
+        return logits, cache, {"layers": taps, "positions": positions}
     return logits, cache
 
 

@@ -1,6 +1,5 @@
 """Request lifecycle objects for the serving engine (a copy of the JAX
-package's numpy-only ``repro.serving.request``, without the regret probe
-fields, which wait for the observability slice)."""
+package's numpy-only ``repro.serving.request``)."""
 from __future__ import annotations
 
 import enum
@@ -57,6 +56,21 @@ class Request:
                                             # chunks — adopted pages cost no
                                             # prefill compute)
     decode_times: list[float] = field(default_factory=list)
+    probe: bool = True                      # eligible for eviction-regret
+                                            # shadow probes (only sampled
+                                            # when the engine runs with
+                                            # ObsConfig.regret_every > 0)
+    regret_samples: list[dict] = field(default_factory=list)
+                                            # one dict per shadow probe:
+                                            # per-layer divergence +
+                                            # evicted attention mass
+                                            # (obs/regret.py)
+
+    def regret_summary(self) -> dict | None:
+        """Aggregate this request's shadow-probe samples (None if never
+        probed); see ``repro_torch.obs.regret.summarize_request``."""
+        from repro_torch.obs.regret import summarize_request
+        return summarize_request(self.regret_samples)
 
     @property
     def num_generated(self) -> int:

@@ -18,7 +18,10 @@ value (both compute in f32, so a bf16 output may differ by one rounding
 step); bf16 on the tensor-core routes within ``ref.tc_bf16_bound`` (each
 probability is rounded to bf16 before P V); norms and page scores within
 1e-3 relative. Each launch's route is checked against its counter.
-The per-Q-head prefill kernel must equal the G-fold one bit for bit. The
+The per-Q-head prefill kernel must equal the G-fold one bit for bit.
+Every kernel also at the head dims beside 64 and 128 (``NEW_HD``): TINY's
+32 (4 heads, 4 KV heads), stablelm-3b's 80 (32 and 32) and 96 at G 4,
+with the same tolerances. The
 one-shot prefill of a ragged prompt above 2048 tokens (not a multiple of
 128) goes through the flash kernel and agrees with its plain version.
 """
@@ -64,6 +67,8 @@ def cuda():
 DECODE_SHAPES = [(8, 4, 64, 16), (8, 3, 128, 16), (8, 4, 128, 16),
                  (2, 8, 128, 16), (2, 2, 64, 8), (4, 1, 64, 8)]
 DECODE_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-5, 2 ** -7)}
+# (KV, G, hd) at the other head dims: TINY, stablelm-3b, G 4 at hd 96
+NEW_HD = [(4, 1, 32), (32, 1, 80), (2, 4, 96)]
 
 
 def _decode_cases(kernel, plain, q, pool, bt, cur, P):
@@ -113,12 +118,31 @@ def test_cuda_decode_int8_matches_plain(cuda, KV, G, hd, page, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.int8), (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("KV,G,hd", NEW_HD)
+def test_cuda_decode_new_head_dims_match_plain(cuda, KV, G, hd, dtype,
+                                               pool_dtype):
+    """hd 32, 80 and 96: lanes padded to a power of two, the extra ones
+    idle; a pool of the query's dtype or int8."""
+    pool = ref.churned_pool(8, 49, 16, KV, hd, pool_dtype, seed=hd + G,
+                            device=cuda)
+    *pool, bt, cur = pool
+    q = torch.randn((8, KV, G, hd), device=cuda).to(dtype)
+    kernel, plain = (paged_attention_int8_cuda, paged_attention_int8_plain) \
+        if pool_dtype == torch.int8 else (paged_attention_cuda,
+                                          paged_attention_plain)
+    _decode_cases(kernel, plain, q, tuple(pool), bt, cur, 49)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,pool_dtype,atol,rtol", [
     (torch.float32, torch.float32, 1e-4, 0.0),
     (torch.bfloat16, torch.bfloat16, 1e-5, 2 ** -7),
     (torch.bfloat16, torch.float32, 1e-5, 2 ** -7),   # a dequantized pool
 ])
-@pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)])
+@pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)] + NEW_HD)
 def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, pool_dtype, atol,
                                     rtol):
     k, v, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd, pool_dtype,
@@ -148,7 +172,8 @@ def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, pool_dtype, atol,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol,rtol", TOL)
-@pytest.mark.parametrize("H,KV,hd", [(32, 8, 64), (24, 8, 128)])
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 64), (24, 8, 128)] +
+                         [(KV * G, KV, hd) for KV, G, hd in NEW_HD])
 def test_cuda_flash_matches_plain(cuda, H, KV, hd, dtype, atol, rtol):
     for B, S, window in ((2, 128, 0), (1, 1000, 0), (1, 1024, 256)):
         q = torch.randn((B, S, H, hd), device=cuda).to(dtype)
@@ -170,7 +195,8 @@ def test_cuda_flash_matches_plain(cuda, H, KV, hd, dtype, atol, rtol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("page,KV,hd", [(16, 8, 64), (16, 8, 128),
-                                        (32, 8, 64), (16, 2, 64)])
+                                        (32, 8, 64), (16, 2, 64)] +
+                         [(16, KV, hd) for KV, _, hd in NEW_HD])
 def test_cuda_block_score_matches_plain(cuda, page, KV, hd, dtype):
     k, v, pos, bt, cur = ref.churned_pool(8, 49, page, KV, hd, dtype,
                                           seed=hd + KV + page, device=cuda)

@@ -204,7 +204,7 @@ def test_serve_cli_takes_the_five_policies(monkeypatch, capsys):
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.convert, repro_torch.kernels.ops, "
-            "repro_torch.kernels.build\n"
+            "repro_torch.kernels.build, repro_torch.obs.regret\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

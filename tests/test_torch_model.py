@@ -5,7 +5,11 @@ made non-zero), same token steps: chunked prefill on fresh rows, a mixed
 step, decode-only steps, a prefix adoption. After every step the logits
 of the live rows agree within 1e-4 and every layer's pool state is equal:
 integer fields and devstats bit for bit, K/V/scores within 1e-4 (RoPE's
-sin/cos differ in the last bits between XLA and torch).
+sin/cos differ in the last bits between XLA and torch). The configs:
+reduced llama-3.2-1b and qwen2.5-3b, a KV 2 variant, and three whose head
+dim is not d_model / H: mistral-nemo-12b's (hd 96), and llama's at hd 80
+and 32 (the head dims the CUDA kernels take besides 64 and 128, through
+their plain versions here).
 """
 import dataclasses
 
@@ -36,10 +40,19 @@ _jstep = jax.jit(jtf.forward_step, static_argnames=(
     "want_taps", "tp_axis"))
 
 
+# reduced configs whose head dim is not d_model / H (256 / 4 = 64): the
+# other head dims the CUDA kernels take, through their plain versions here
+HEAD_DIMS = {"mistral-nemo-12b": ("mistral-nemo-12b", 96),
+             "hd80": ("llama-3.2-1b", 80), "hd32": ("llama-3.2-1b", 32)}
+
+
 def _configs(name):
     if name == "kv2":
         jcfg = dataclasses.replace(jget_arch("llama-3.2-1b").reduced(),
                                    num_heads=4, num_kv_heads=2)
+    elif name in HEAD_DIMS:
+        arch, hd = HEAD_DIMS[name]
+        jcfg = dataclasses.replace(jget_arch(arch).reduced(), head_dim=hd)
     else:
         jcfg = jget_arch(name).reduced()
     return jcfg, ModelConfig(**dataclasses.asdict(jcfg))
@@ -88,7 +101,17 @@ def _compare(jlogits, jcache, tlogits, tcache, n_tok, period, ctx):
                                        err_msg=f"{ctx}: layer {i} {f}")
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-1b", "qwen2.5-3b", "kv2"])
+def test_mistral_nemo_resolves_as_in_jax():
+    from repro_torch.configs import get_arch
+    cfg = get_arch("mistral-nemo-12b")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jget_arch("mistral-nemo-12b"))
+    assert cfg.resolved_head_dim * cfg.num_heads != cfg.d_model
+    ttf.check_supported(cfg)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-1b", "qwen2.5-3b", "kv2",
+                                  "mistral-nemo-12b", "hd80", "hd32"])
 def test_forward_step_matches_jax(arch):
     rng = np.random.default_rng(0)
     jcfg, tcfg = _configs(arch)
