@@ -46,7 +46,8 @@ Phases (any failure exits non-zero; none is skipped):
               step; and the float paged_eviction requests served once more
               with regret probes every 2 decode steps give the same tokens
               and the same kernel launches
-  4. serve    llama-3.2-1b at full width (bf16, random weights from a seed):
+  4. serve    llama-3.2-1b at full width (bf16, random weights from a seed;
+              8 of its 16 layers, a depth cut for the run time since PR 17):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
               prefix), 32 greedy tokens each, under paged_eviction (page 16,
               budget 512, max batch 8, chunk 256, decode splits 4). Checks
@@ -66,13 +67,14 @@ Phases (any failure exits non-zero; none is skipped):
               kernel (all 16 launches on the tensor-core route), compressed
               to budget 512 by Alg. 2, then 32 greedy tokens under Alg. 3,
               once on a bf16 and once on an int8 pool
-  6. int8     phase 4's workload (4 requests) served on an int8 pool (every
-              prefill launch on the CUDA-core route: a bf16 query over the
-              dequantized f32 pool)
+  6. int8     phase 4's workload (4 requests) served on an int8 pool at 8
+              of the 16 layers (full width; depth cut for the run time;
+              every prefill launch on the CUDA-core route: a bf16 query
+              over the dequantized f32 pool)
   7. baselines the paper's comparison: streaming_llm, inverse_key_l2 and
               keydiff each serve 4 of phase 4's requests (16 greedy tokens)
               and run phase 5's prompts one-shot (bf16, 16 decode steps),
-              at 8 of the model's 16 layers (full width; depth cut for the
+              at 4 of the model's 16 layers (full width; depth cut for the
               run time).
               Checks after every step the budget (budget + page, plus the
               shared prefix for rows that share one: copy-on-write sheds it
@@ -80,12 +82,35 @@ Phases (any failure exits non-zero; none is skipped):
               forced a rollover), that tokens were evicted, F1-F4 and the
               kernels' routes; prints tok/s, step times, live tokens per
               mapped page, forced evictions and prefix adoptions.
-  8. regret   eviction-regret shadow probes at full width: 2 of phase 4's
-              requests, 16 greedy tokens, probes every 4 decode steps, under
-              paged_eviction at budget 512; every probe's divergence finite,
-              its evicted attention mass in [0, 1] and above 0 in one probe
-              at least; prints the shadow cache's bytes and the taps read
-              per step.
+  8. regret   eviction-regret shadow probes at full width, 8 of the 16
+              layers: 2 of phase 4's requests, 16 greedy tokens, probes
+              every 4 decode steps, under paged_eviction at budget 512;
+              every probe's divergence finite, its evicted attention mass
+              in [0, 1] and above 0 in one probe at least; prints the
+              shadow cache's bytes and the taps read per step.
+  9. train    9a: a reduced f32 llama-3.2-1b from one init on the card and
+              its copy on the CPU, 4 AdamW steps of lm_batch at B 1 x S 3072
+              (the blocked attention route; TF32 off, PyTorch's default for
+              matmuls): losses within 1e-4 relative at every step, step-1
+              gradients within atol 1e-5 + rtol 1e-4 leaf by leaf, every
+              layer's wq/wk/wv gradient nonzero, no kernel launched; a
+              params + AdamW-state checkpoint restored bit for bit.
+              9b: llama-3.2-1b at full width (bf16, random weights from a
+              seed) trains 6 steps at B 2 x S 4096 (warmup 2): losses
+              finite and falling, every layer's attention weights with a
+              gradient at step 1, no kernel launched; prints the median
+              step time of steps 2-6, tokens/s, peak memory and the model
+              FLOP/s (6 N T + 12 L B H hd S^2) as a share of 989 TFLOP/s;
+              its params checkpoint is restored bit for bit and serves 2
+              requests of 1024 prompt tokens (8 greedy tokens, max batch
+              2, paged_eviction at budget 512): K1 and K3 (tensor cores)
+              launch, pages are evicted, F1-F4 hold, nothing requires grad.
+              9c: TINY (benchmarks/accuracy.py) trained 900 steps on the
+              recall task by accuracy.py's recipe, then scored on 6
+              held-out batches by forward_prefill and 2 decode_steps (K5 on
+              the f32 CUDA-core route, K1): full at budget 32 must answer
+              >= 0.60; paged_eviction and streaming_llm at budgets 16 and 8
+              are printed. Prints phase 9's seconds.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
@@ -1058,13 +1083,17 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
 
 def serve_full_width(torch, np, kv_dtype, n_requests,
                      policy="paged_eviction", new_tokens=32, on_step=None,
-                     obs=None, max_batch=8, num_layers=None):
+                     obs=None, max_batch=8, num_layers=None, params=None,
+                     prompt_len=None):
     """Serve ``n_requests`` prompts of 1024-2048 tokens (every other one
-    opening with a shared 256-token prefix) on llama-3.2-1b at full width,
-    ``new_tokens`` greedy tokens each, with ``obs`` (an ObsConfig; default
-    metrics only), at ``num_layers`` of its 16 layers when given. Checks that every request finished, the path's kernels
-    and routes, that the policy evicted (and, under paged_eviction with
-    more than 2 requests, shared prefixes) and F1-F4 at the end. Returns
+    opening with a shared 256-token prefix; each cut to ``prompt_len``
+    tokens when given) on llama-3.2-1b at full width, ``new_tokens`` greedy
+    tokens each, with ``obs`` (an ObsConfig; default metrics only), at
+    ``num_layers`` of its 16 layers when given, from ``params`` when given
+    (else random weights from seed 0). Checks that every request finished,
+    the path's kernels and routes, that the policy evicted (and, under
+    paged_eviction with more than 2 requests, shared prefixes) and F1-F4 at
+    the end. Returns
     (launches, engine, wall seconds, per-step wall seconds of
     ``eng.step()``)."""
     from repro_torch.configs import CacheConfig, get_arch
@@ -1075,7 +1104,8 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
     if num_layers:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     t0 = time.perf_counter()
-    params = init_model(cfg, seed=0, device="cuda")
+    if params is None:
+        params = init_model(cfg, seed=0, device="cuda")
     eng = Engine(cfg, params, cache_cfg=CacheConfig(
         page_size=16, cache_budget=512, policy=policy,
         dtype=kv_dtype), max_batch=max_batch, max_prompt_len=2048,
@@ -1093,7 +1123,8 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
         n = int(rng.integers(1024, 2049))
         head = shared if i % 2 == 0 else rng.integers(0, cfg.vocab_size, 256)
         prompts.append(np.concatenate(
-            [head, rng.integers(0, cfg.vocab_size, n - 256)]).astype(np.int32))
+            [head, rng.integers(0, cfg.vocab_size, n - 256)]).astype(np.int32)
+            [:prompt_len])
     reset_launches()
     tokens, _, wall, step_walls = run_engine(torch, np, devstats, eng,
                                              prompts, new_tokens, on_step)
@@ -1273,7 +1304,12 @@ def baseline_checks(torch, devstats, policy, limit, n_sinks, seen,
     return check
 
 
-BASELINE_LAYERS = 8     # of llama-3.2-1b's 16: depth cut for run time
+# depth cuts for the run time (of llama-3.2-1b's 16 layers, full width):
+# phase 4, phase 6, phase 7 (served and one-shot) and phase 8
+SERVE_LAYERS = 8
+INT8_SERVE_LAYERS = 8
+BASELINE_LAYERS = 4
+REGRET_LAYERS = 8
 
 
 def baselines_full_width(torch, np):
@@ -1368,7 +1404,7 @@ def serve_observed(torch, np, n_requests=16):
     with tempfile.TemporaryDirectory() as tmp:
         trace = os.path.join(tmp, "trace.jsonl")
         launches, eng, _, walls = serve_full_width(
-            torch, np, "bfloat16", n_requests,
+            torch, np, "bfloat16", n_requests, num_layers=SERVE_LAYERS,
             obs=ObsConfig(trace_path=trace, timeline=True, lineage=True),
             on_step=lambda e: hooks.append(e.last_hook_s))
         eng.close()
@@ -1425,14 +1461,14 @@ def serve_observed(torch, np, n_requests=16):
 
 
 def regret_full_width(torch, np):
-    """Phase 8: eviction-regret shadow probes at full width: 2 of phase 4's
-    requests (max batch 2), 16 greedy tokens, probes every 4 decode
-    steps, paged_eviction at budget 512."""
+    """Phase 8: eviction-regret shadow probes at full width (REGRET_LAYERS
+    of the 16 layers): 2 of phase 4's requests (max batch 2), 16 greedy
+    tokens, probes every 4 decode steps, paged_eviction at budget 512."""
     from repro_torch.obs import ObsConfig
     taps = []
     _, eng, wall, _ = serve_full_width(
         torch, np, "bfloat16", 2, new_tokens=16, max_batch=2,
-        obs=ObsConfig(regret_every=4),
+        num_layers=REGRET_LAYERS, obs=ObsConfig(regret_every=4),
         on_step=lambda e: taps.append((e.stats.decode_steps,
                                        e.last_tap_bytes)))
     samples = [x for r in eng.scheduler.finished for x in r.regret_samples]
@@ -1458,6 +1494,291 @@ def regret_full_width(torch, np):
           f"{max(dec, default=0)} bytes; per request {summ}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training, and the trained weights handed to serving and one-shot
+# ---------------------------------------------------------------------------
+
+# the in-repo eval model of benchmarks/accuracy.py:42-46 (TINY), copied
+TINY = dict(name="tiny-recall", arch_type="dense",
+            source="in-repo eval model", num_layers=2, d_model=128,
+            num_heads=4, num_kv_heads=4, head_dim=32, d_ff=512,
+            vocab_size=64, norm="rmsnorm", act="silu", dtype="float32")
+TRAIN_RTOL = 1e-4                    # losses, card against CPU
+GRAD_TOL = (1e-5, 1e-4)              # step-1 gradients: atol, rtol
+RECALL_GATE = 0.60                   # TINY, full cache at budget 32
+
+
+def _leaves(tree):
+    from repro_torch.training.tree import leaves
+    return leaves(tree)
+
+
+def _require_grad(params):
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def _no_kernel_launched(what):
+    launched = {k: v for k, v in read_launches().items() if v}
+    if launched:
+        fail(f"{what}: kernels launched during training: {launched}")
+
+
+def _checkpoint_round_trip(torch, tree, what):
+    """save_checkpoint, then load_checkpoint into ``tree`` itself as the
+    template: every leaf bit-equal (dtype, device, requires_grad kept).
+    Returns (the restored tree, bytes on disk, save s, load s)."""
+    from repro_torch.training import load_checkpoint, save_checkpoint
+    with tempfile.TemporaryDirectory(prefix=".ckpt-", dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, 1, tree)
+        t1 = time.perf_counter()
+        size = os.path.getsize(path)
+        back = load_checkpoint(tmp, 1, tree)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    for a, b in zip(_leaves(back), _leaves(tree)):
+        if isinstance(b, int):
+            same = a == b
+        else:
+            same = (a.dtype == b.dtype and a.device == b.device and
+                    a.requires_grad == b.requires_grad and
+                    torch.equal(a.detach().view(torch.uint8),
+                                b.detach().view(torch.uint8)))
+        if not same:
+            fail(f"{what}: the checkpoint did not restore bit for bit")
+    return back, size, t1 - t0, t2 - t1
+
+
+def train_run(torch, cfg, params, opt_cfg, batches, device):
+    """Train from ``params`` (leaves that require grad) on the numpy
+    ``batches``, the first step by ``value_and_grad`` then
+    ``adamw_update`` (the body of ``train_step``, so that its gradient is
+    kept), the rest by ``make_train_step``. Returns (params, opt state,
+    losses, step-1 gradients, wall seconds of each step)."""
+    from repro_torch.training import (adamw_update, batch_to_device,
+                                      init_adamw, make_train_step,
+                                      value_and_grad)
+    step = make_train_step(cfg, opt_cfg)
+    opt = init_adamw(params)
+    losses, walls, grads = [], [], None
+    for i, batch in enumerate(batches):
+        batch = batch_to_device(batch, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            (loss, _), grads = value_and_grad(params, cfg, batch)
+            params, opt, _ = adamw_update(params, grads, opt, opt_cfg)
+            _require_grad(params)
+        else:
+            params, opt, m = step(params, opt, batch)
+            loss = m["loss"]
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    return params, opt, losses, grads, walls
+
+
+def train_parity(torch, np):
+    """9a: reduced f32 llama-3.2-1b, one init on the card and its copy on
+    the CPU, 4 AdamW steps of lm_batch (B 1, S 3072: the blocked attention
+    route) on each by :func:`train_run`; TF32 off (PyTorch's default for
+    matmuls)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import AdamWConfig, DataConfig, lm_batch
+    from repro_torch.training.tree import leaves_with_path, map_leaves
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("9a: TF32 is on for matmuls")
+    cfg = get_arch("llama-3.2-1b").reduced()
+    card = _require_grad(init_model(cfg, seed=0, device="cuda"))
+    host = _require_grad(map_leaves(lambda t: t.detach().cpu(), card))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=3072, batch_size=1,
+                      seed=0)
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=4)
+    out = {}
+    for dev, params in (("cuda", card), ("cpu", host)):
+        reset_launches()
+        batches = [lm_batch(dcfg, i) for i in range(4)]
+        params, opt, losses, grads, _ = train_run(torch, cfg, params,
+                                                  opt_cfg, batches, dev)
+        if dev == "cuda":
+            _no_kernel_launched("9a")
+        out[dev] = (losses, grads, params, opt)
+    (lk, gk, pk, ok), (lc, gc, _, _) = out["cuda"], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
+    if rel > TRAIN_RTOL:
+        fail(f"9a: losses on the card {lk} and on the CPU {lc}: {rel:.3g} "
+             f"relative")
+    atol, rtol = GRAD_TOL
+    worst = 0.0
+    for (path, a), b in zip(leaves_with_path(gk), _leaves(gc)):
+        err = ((a.cpu() - b).abs() / (atol + rtol * b.abs())).max()
+        worst = max(worst, float(err))
+        if float(err) > 1:
+            fail(f"9a: step-1 gradient {path} beyond atol {atol} + rtol "
+                 f"{rtol}: {float(err):.3g} of the tolerance")
+    for i, lp in enumerate(gk["layers"]):
+        for name in ("wq", "wk", "wv"):
+            if not float(lp["attn"][name].abs().max()) > 0:
+                fail(f"9a: layer {i} {name} has no gradient on the card")
+    _, size, _, _ = _checkpoint_round_trip(torch, {"params": pk, "opt": ok},
+                                           "9a")
+    print(f"  9a reduced llama-3.2-1b f32, B 1 x S 3072 (blocked attention), "
+          f"TF32 off: losses card {[f'{x:.6f}' for x in lk]}, CPU "
+          f"{[f'{x:.6f}' for x in lc]} ({rel:.3g} relative, tol "
+          f"{TRAIN_RTOL}); step-1 gradients within {worst:.3g} of atol "
+          f"{atol} + rtol {rtol}, wq/wk/wv nonzero in every layer; no kernel "
+          f"launched; params + AdamW checkpoint ({size} bytes) restored bit "
+          f"for bit", flush=True)
+
+
+def train_full_width(torch, np):
+    """9b: llama-3.2-1b at full width (bf16, random weights from seed 0):
+    6 AdamW steps of lm_batch at B 2 x S 4096 (the blocked route), lr 1e-4,
+    warmup 2, by :func:`train_run`;
+    then a params checkpoint restored bit for bit and 2 requests of 1024
+    prompt tokens served from the restored weights (which require grad).
+    Returns the serving launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import AdamWConfig, DataConfig, lm_batch
+    cfg = get_arch("llama-3.2-1b")
+    B, S, steps = 2, 4096, 6
+    params = _require_grad(init_model(cfg, seed=0, device="cuda"))
+    n_params = sum(p.numel() for p in _leaves(params))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                      seed=0)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, grads, walls = train_run(
+        torch, cfg, params, AdamWConfig(lr_peak=1e-4, warmup_steps=2,
+                                        total_steps=steps),
+        [lm_batch(dcfg, i) for i in range(steps)], "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    for i, lp in enumerate(grads["layers"]):
+        for name in ("wq", "wk", "wv", "wo"):
+            if not float(lp["attn"][name].abs().max()) > 0:
+                fail(f"9b: layer {i} {name} has no gradient at step 1")
+    del grads
+    _no_kernel_launched("9b")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"9b: losses {losses} not finite or not falling")
+    med = float(np.median(walls[1:]))
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    flops = 6 * n_params * B * S + 12 * L * B * H * hd * S * S
+    print(f"  9b llama-3.2-1b bf16, {n_params} parameters, B {B} x S {S}: "
+          f"losses {[f'{x:.4f}' for x in losses]}; step times "
+          f"{[f'{1e3 * w:.1f}' for w in walls]} ms, median of steps 2-{steps} "
+          f"{1e3 * med:.1f} ms, {B * S / med:.0f} tokens/s; peak memory "
+          f"{peak} bytes ({peak / 2 ** 30:.2f} GiB); {flops:.4g} model FLOP "
+          f"per step (6 N T + 12 L B H hd S^2), {flops / med / 1e12:.1f} "
+          f"TFLOP/s, {100 * flops / med / PEAK_FLOPS['bfloat16']:.2f}% of "
+          f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f}; no kernel launched",
+          flush=True)
+    del opt
+    torch.cuda.empty_cache()
+    restored, size, t_save, t_load = _checkpoint_round_trip(
+        torch, {"params": params}, "9b")
+    del params
+    torch.cuda.empty_cache()
+    print(f"  9b params checkpoint: {size} bytes, saved in {t_save:.1f} s, "
+          f"restored bit for bit in {t_load:.1f} s", flush=True)
+    launches, eng, _, _ = serve_full_width(
+        torch, np, "bfloat16", 2, new_tokens=8, max_batch=2,
+        params=restored["params"], prompt_len=1024)
+    graph = [f for c in eng.cache.layers for f, t in vars(c).items()
+             if isinstance(t, torch.Tensor) and t.requires_grad]
+    if graph or not all(p.requires_grad for p in _leaves(restored)):
+        fail(f"9b: serving recorded a graph ({graph}) or the weights lost "
+             f"requires_grad")
+    return launches
+
+
+def recall_accuracy(torch, params, cfg, dcfg, policy, budget, page=8,
+                    n_batches=6, seed0=10_000):
+    """benchmarks/accuracy.py:eval_policy on the port: each held-out batch's
+    context prefilled under ``policy`` / ``budget`` (forward_prefill), then
+    the 2-token query decoded (decode_step) and the answer scored."""
+    from repro_torch.configs import CacheConfig
+    from repro_torch.core.policies import get_policy
+    from repro_torch.models.transformer import decode_step, forward_prefill
+    from repro_torch.training import recall_batch
+    pol = get_policy(policy)
+    ccfg = CacheConfig(page_size=page, cache_budget=budget, policy=policy,
+                       dtype="float32")
+    S = dcfg.seq_len
+    correct = total = 0
+    for i in range(n_batches):
+        b = recall_batch(dcfg, seed0 + i)
+        tok = torch.from_numpy(b["tokens"]).cuda()
+        lg, cache = forward_prefill(params, cfg, tok[:, :S - 2], pol, ccfg,
+                                    total_seq_hint=S + 2)
+        lg, cache = decode_step(params, cfg, tok[:, S - 2], cache, pol, ccfg)
+        lg, cache = decode_step(params, cfg, tok[:, S - 1], cache, pol, ccfg)
+        pred = lg.argmax(-1).cpu().numpy()
+        correct += int((pred == b["answers"]).sum())
+        total += len(pred)
+    return correct / total
+
+
+def train_recall(torch, np):
+    """9c: TINY trained on the card by accuracy.py's recipe (recall_batch
+    steps 0-899, seq 32, batch 32, lr 3e-3, warmup 50, 2 pairs, key space
+    8), then scored on 6 held-out batches: full at budget 32 (gated),
+    paged_eviction and streaming_llm at budgets 16 and 8 (page 8)."""
+    from repro_torch.configs import ModelConfig
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      batch_to_device, init_adamw,
+                                      make_train_step, recall_batch)
+    cfg = ModelConfig(**TINY)
+    steps = 900
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, batch_size=32,
+                      seed=0, num_pairs=2, key_space=8)
+    params = _require_grad(init_model(cfg, seed=0, device="cuda"))
+    opt = init_adamw(params)
+    step = make_train_step(cfg, AdamWConfig(lr_peak=3e-3, warmup_steps=50,
+                                            total_steps=steps))
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        params, opt, m = step(params, opt,
+                              batch_to_device(recall_batch(dcfg, i), "cuda"))
+        if i == 0:
+            first = float(m["loss"])
+    loss = float(m["loss"])
+    t_train = time.perf_counter() - t0
+    _no_kernel_launched("9c")
+    if not np.isfinite(loss) or not loss < first:
+        fail(f"9c: training loss {first} -> {loss}")
+    reset_launches()
+    t0 = time.perf_counter()
+    acc = {("full", 32): recall_accuracy(torch, params, cfg, dcfg, "full",
+                                         32)}
+    for budget in (16, 8):
+        for policy in ("paged_eviction", "streaming_llm"):
+            acc[(policy, budget)] = recall_accuracy(torch, params, cfg, dcfg,
+                                                    policy, budget)
+    t_eval = time.perf_counter() - t0
+    launches = read_launches()
+    if not launches["paged_decode"] or not launches["flash_attention"] or \
+            launches["flash_attention/cuda_core"] != \
+            launches["flash_attention"]:
+        fail(f"9c: the one-shot path did not run K5 on the f32 CUDA-core "
+             f"route and K1: {launches}")
+    print(f"  9c TINY (f32, 2 layers, d 128, hd 32) trained {steps} steps "
+          f"in {t_train:.1f} s ({1e3 * t_train / steps:.2f} ms/step): loss "
+          f"{first:.4f} -> {loss:.4f}; recall accuracy on 192 held-out "
+          f"prompts: " + ", ".join(f"{p} @ {b} {a:.4f}"
+                                   for (p, b), a in acc.items()) +
+          f" ({t_eval:.1f} s); launches {launches}", flush=True)
+    if acc[("full", 32)] < RECALL_GATE:
+        fail(f"9c: full-cache recall accuracy {acc[('full', 32)]:.4f} below "
+             f"{RECALL_GATE}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1478,7 +1799,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/8] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/9] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -1488,7 +1809,7 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/8] kernels against their plain versions")
+    phase("[2/9] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
@@ -1496,7 +1817,7 @@ def main() -> None:
     other_hd = {shape[2]: time_kernels(torch, F, shape, dname, full=False)
                 for shape, dname in NEW_HD_SHAPES.values()}
 
-    phase("[3/8] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/9] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
@@ -1507,25 +1828,40 @@ def main() -> None:
     # a ragged prompt above 2048 tokens: the flash kernel on the card
     oneshot_parity(torch, np, "float32", S=3000)
 
-    phase("[4/8] llama-3.2-1b at full width: serving, bf16 pool, with "
-          "metrics, trace, timeline and lineage ledger")
+    phase(f"[4/9] llama-3.2-1b at full width: serving, bf16 pool, with "
+          f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
+          f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/8] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/9] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[6/8] llama-3.2-1b at full width: serving, int8 pool")
-    serve8 = serve_full_width(torch, np, "int8", 4)[0]
+    phase(f"[6/9] llama-3.2-1b at full width: serving, int8 pool "
+          f"({INT8_SERVE_LAYERS} layers)")
+    serve8 = serve_full_width(torch, np, "int8", 4,
+                              num_layers=INT8_SERVE_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    phase("[7/8] llama-3.2-1b at full width: the paper's baselines")
+    phase(f"[7/9] llama-3.2-1b at full width: the paper's baselines "
+          f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[8/8] llama-3.2-1b at full width: eviction-regret probes")
+    phase(f"[8/9] llama-3.2-1b at full width: eviction-regret probes "
+          f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
+    torch.cuda.empty_cache()
+
+    phase("[9/9] training: card against CPU, llama-3.2-1b at full width "
+          "then served from its checkpoint, TINY trained and scored")
+    t9 = time.perf_counter()
+    train_parity(torch, np)
+    train_full_width(torch, np)
+    torch.cuda.empty_cache()
+    train_recall(torch, np)
+    print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4
     # and 6), flash attention from the one-shot prefill (phase 5); the

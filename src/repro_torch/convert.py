@@ -11,10 +11,18 @@ repetitions, the port holds a plain list of layers in depth order (layer
 cross with their int8 values and scales when quantized; a JAX cache from
 ``forward_prefill`` or ``init_decode_caches`` converts alike.
 
+AdamW state crosses alike (``adamw_state_from_jax``: the moments
+unstacked as the weights are), and so does a checkpoint directory that the
+JAX package's ``save_checkpoint({"params", "opt"})`` wrote
+(``checkpoint_from_jax``, numpy only: bf16 leaves are read as their 2-byte
+payload).
+
 Functions that make tensors put them on ``device``: default CUDA, raising
 without a card (tests pass ``device="cpu"``).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,17 +31,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import ModelCache
+from repro_torch.training.checkpoint import tensor_from_numpy
+from repro_torch.training.optimizer import AdamWState
 
 CACHE_FIELDS = ("k", "v", "pos", "score", "block_table", "ref_count",
                 "cur_page", "cur_off", "stats", "k_scale", "v_scale")
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a))
+    t = tensor_from_numpy(a)
     return t.to(device=device, dtype=dtype) if dtype else t.to(device)
 
 
@@ -55,6 +61,59 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
     out = {k: v for k, v in tree.items() if k not in ("pattern", "tail")}
     out["layers"] = layers
     return _map(out, lambda a: _tensor(a, device, dtype))
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig,
+                         device=None) -> AdamWState:
+    """A JAX ``AdamWState`` (numpy leaves; read by its fields) -> the
+    port's: mu / nu unstacked into the port's list of layers, step an
+    int."""
+    return AdamWState(step=int(np.asarray(state.step)),
+                      mu=params_from_jax(state.mu, cfg, device),
+                      nu=params_from_jax(state.nu, cfg, device))
+
+
+def _unflatten_keys(flat: dict) -> dict:
+    """{"a/0/b": leaf} -> nested dicts, a node whose keys are all digits
+    made a list (the JAX package's key paths)."""
+    root: dict = {}
+    for key, leaf in flat.items():
+        node = root
+        *parts, last = key.split("/")
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+    return listify(root)
+
+
+def checkpoint_from_jax(ckpt_dir: str, step: int, cfg: ModelConfig,
+                        name: str = "state", device=None) -> dict:
+    """A checkpoint the JAX package's ``save_checkpoint(ckpt_dir, step,
+    {"params": params, "opt": opt_state}, name)`` wrote -> {"params": the
+    port's parameters, "opt": the port's ``AdamWState``}. Reads the npz
+    with numpy alone: keys ``params/pattern/<slot>/...`` (each leaf stacked
+    over the slot's repetitions), ``params/tail/<i>/...`` and the state's
+    fields ``opt/.step``, ``opt/.mu/...``, ``opt/.nu/...``; an empty list
+    (no tail layers) writes no key."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}", f"{name}.npz")
+    with np.load(path) as data:
+        tree = _unflatten_keys({k: data[k] for k in data.files})
+    for sub in (tree["params"], tree["opt"][".mu"], tree["opt"][".nu"]):
+        sub.setdefault("pattern", [])
+        sub.setdefault("tail", [])
+    opt = tree["opt"]
+    return {"params": params_from_jax(tree["params"], cfg, device),
+            "opt": AdamWState(step=int(opt[".step"]),
+                              mu=params_from_jax(opt[".mu"], cfg, device),
+                              nu=params_from_jax(opt[".nu"], cfg, device))}
 
 
 def layer_cache_from_jax(c, device=None) -> PagedLayerCache:

@@ -57,10 +57,12 @@ def block_score_shape_check(dtype, page: int, KV: int, hd: int) -> None:
 
 def block_score_cuda(k_pool, v_pool, pos):
     """Launch the CUDA page-score kernel; same contract as
-    :func:`block_score_plain`. Raises on CPU tensors, a shape or layout the
+    :func:`block_score_plain`. Raises on an input that
+    requires grad under autograd, on CPU tensors, a shape or layout the
     kernel does not take (:func:`block_score_shape_check`, 16-byte aligned
     chunks) or a failed launch. ``block_score_cuda.launches`` counts the
     launches."""
+    build.refuse_autograd("block_score", k_pool, v_pool)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool), ("pos", pos)):
         if not t.is_cuda:
             raise ValueError(f"{name} is not a CUDA tensor")
@@ -92,6 +94,7 @@ def launch_floor_cuda(out):
     """Launch the library's empty kernel (one block, one write to ``out[0]``,
     an f32 CUDA tensor): its time is the fixed cost of any launch, beside
     which the kernels' times are read. Not a kernel of any path."""
+    build.refuse_autograd("empty_launch", out)
     if not out.is_cuda or out.dtype != torch.float32:
         raise ValueError("out must be a float32 CUDA tensor")
     lib = build.load("block_score", _SIGNATURES)

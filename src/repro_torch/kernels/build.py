@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("paged_attention", "flash_prefill", "flash_attention",
@@ -108,6 +110,22 @@ def load(name: str, signatures: dict | None = None) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise when autograd is on and an input of ``kernel`` requires grad.
+    The kernels write into fresh tensors through ctypes and have no
+    backward pass: their outputs would carry no ``grad_fn`` and the
+    gradient of every input would be dropped without a word. Each CUDA
+    wrapper calls this first, before its device checks."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the CUDA kernel has no "
+            f"backward pass. The JAX package trains through plain attention "
+            f"(models.common.causal_attention, the route of "
+            f"transformer.forward_train); run inference under "
+            f"torch.no_grad()")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

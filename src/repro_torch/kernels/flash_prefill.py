@@ -130,13 +130,15 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
                        return_scores: bool = False, per_qhead: bool = False):
     """Launch the CUDA prefill kernel (the per-Q-head one when
     ``per_qhead``) on the route :func:`prefill_route` picks; same contract
-    as :func:`paged_prefill_plain`. Raises on CPU tensors, on what no route
+    as :func:`paged_prefill_plain`. Raises on an input that
+    requires grad under autograd, on CPU tensors, on what no route
     takes, or on a failed launch. The tensor-core fold orders its rows
     g * T + t, the JAX package's order (a token-major order measured no
     faster at the mixed step, PERF.md §6). Launch counts:
     ``paged_prefill_cuda.launches``
     (G-fold), ``.per_qhead_launches``, and per route over both grids
     ``.tensor_core_launches`` and ``.cuda_core_launches``."""
+    build.refuse_autograd("paged_prefill", q, k_pool, v_pool)
     if per_qhead and return_scores:
         raise ValueError("the per-Q-head kernel has no score epilogue")
     _check_pool(q, k_pool, v_pool, pos, block_table)
@@ -229,10 +231,12 @@ def flash_attention_cuda(q, k, v, *, window: int = 0,
                          scale: float | None = None):
     """Launch the CUDA flash attention kernel on the route
     :func:`flash_route` picks; same contract as
-    :func:`flash_attention_plain`. Raises on CPU tensors, on what no route
+    :func:`flash_attention_plain`. Raises on an input that
+    requires grad under autograd, on CPU tensors, on what no route
     takes, or on a failed launch. ``flash_attention_cuda.launches`` counts
     the launches, ``.tensor_core_launches`` and ``.cuda_core_launches``
     those of each route."""
+    build.refuse_autograd("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} is not a CUDA tensor")

@@ -203,9 +203,11 @@ def paged_attention_cuda(q, k_pool, v_pool, pos, block_table, cur_pos, *,
                          window: int = 0, scale: float | None = None,
                          num_splits: int = 1, return_scores: bool = False):
     """Launch the CUDA decode kernel; same contract as
-    :func:`paged_attention_plain`. Raises on CPU tensors, on what
+    :func:`paged_attention_plain`. Raises on an input that
+    requires grad under autograd, on CPU tensors, on what
     :func:`decode_shape_check` refuses, or on a failed launch.
     ``paged_attention_cuda.launches`` counts the launches."""
+    build.refuse_autograd("paged_attention", q, k_pool, v_pool)
     _check_pool(q, k_pool, v_pool, pos, block_table)
     _check_decode(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, None, pos, block_table, cur_pos,
@@ -219,9 +221,12 @@ def paged_attention_int8_cuda(q, k_pool, v_pool, k_scale, v_scale, pos,
                               scale: float | None = None, num_splits: int = 1,
                               return_scores: bool = False):
     """Launch the CUDA decode kernel on an int8 pool; same contract as
-    :func:`paged_attention_int8_plain`. Raises on CPU tensors, on what
+    :func:`paged_attention_int8_plain`. Raises on an input that
+    requires grad under autograd, on CPU tensors, on what
     :func:`decode_shape_check` refuses, or on a failed launch.
     ``paged_attention_int8_cuda.launches`` counts the launches."""
+    build.refuse_autograd("paged_attention_int8", q, k_pool, v_pool, k_scale,
+                          v_scale)
     _check_pool(q, k_pool, v_pool, pos, block_table, (k_scale, v_scale))
     _check_decode(q, k_pool, v_pool)
     out = _launch(q, k_pool, v_pool, (k_scale, v_scale), pos, block_table,

@@ -8,7 +8,9 @@ whatever its length. On the CPU it routes as the JAX package does: the
 flash kernel's plain version when S % 128 == 0 and hd % 8 == 0 (128 is the
 Pallas kernel's tile), the position-masked full causal attention otherwise.
 Kernels go through ``kernels.ops`` (CUDA kernel on the card, plain torch on
-the CPU)."""
+the CPU). With ``train=True`` (``forward_train``) it takes plain autograd
+attention (``common.causal_attention``) on every device, as the JAX
+package's ``use_pallas=False``: no kernel has a backward pass."""
 from __future__ import annotations
 
 import math
@@ -18,7 +20,8 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.kernels import ops
-from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
+from repro_torch.models.common import (apply_rope, causal_attention,
+                                       dense_init, dtype_of,
                                        full_causal_attention)
 
 
@@ -64,11 +67,13 @@ def spec_window(cfg: ModelConfig, spec: LayerSpec) -> int:
 
 
 def attention_forward(params: dict, cfg: ModelConfig, spec: LayerSpec, x,
-                      positions, plain: bool = False):
+                      positions, plain: bool = False, train: bool = False):
     """Causal self-attention over a contiguous sequence. x: (B, S, D);
     positions: (B, S) (-1 on padding, RoPE'd as is, as in the JAX package)
     -> (out (B, S, D), (k, v) post-RoPE). ``plain``: the flash kernel's
-    plain version on the card (a test switch).
+    plain version on the card (a test switch). ``train``: the training
+    route, :func:`causal_attention` (differentiable, position-masked) on
+    every device.
 
     The flash kernel masks by index, so with right-padded prompts the valid
     queries never see padding; the position-masked route lets them see the
@@ -77,7 +82,10 @@ def attention_forward(params: dict, cfg: ModelConfig, spec: LayerSpec, x,
     q, k, v = project_qkv(params, cfg, x, positions)
     window = spec_window(cfg, spec)
     B, S = x.shape[:2]
-    if q.is_cuda or (S % 128 == 0 and cfg.resolved_head_dim % 8 == 0):
+    if train:
+        out = causal_attention(q, k, v, q_positions=positions,
+                               kv_positions=positions, window=window)
+    elif q.is_cuda or (S % 128 == 0 and cfg.resolved_head_dim % 8 == 0):
         out = ops.flash_attention(q, k, v, window=window, plain=plain)
     else:
         out = full_causal_attention(q, k, v, q_positions=positions,

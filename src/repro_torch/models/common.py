@@ -1,6 +1,10 @@
-"""Shared model substrate: RMSNorm, RoPE, initialisers, and the plain
-causal attention of the one-shot prefill on the CPU (the full score
-matrix; on the card every prompt goes to the flash kernel).
+"""Shared model substrate: RMSNorm, RoPE, initialisers, and plain causal
+attention over contiguous K/V: the full score matrix (the one-shot prefill
+on the CPU; on the card every prompt goes to the flash kernel) and the
+memory-bounded blocked form with an online softmax, which
+:func:`causal_attention` picks for long sequences. ``forward_train`` trains
+through :func:`causal_attention` on the card as on the CPU, as the JAX
+package does: no kernel has a backward pass.
 
 Parameters are plain dicts of tensors laid out as in the JAX package:
 weights are (in, out) and applied as ``x @ W``."""
@@ -9,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int8": torch.int8}
@@ -101,3 +106,81 @@ def full_causal_attention(q, k, v, *, q_positions, kv_positions,
     p = torch.nan_to_num(p, nan=0.0)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _kv_block(m, l, acc, qb, kb, vb, qpb, kpb, *, scale: float,
+              window: int):
+    """One kv block of the online softmax: carries m, l (B, KV, G, qc) and
+    acc (B, KV, G, qc, hd) f32; qb (B, qc, KV, G, hd) f32. Rows that no key
+    has reached yet keep m = -inf, as in the JAX package."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb.float()) * scale
+    mask = kpb[:, None, :] <= qpb[:, :, None]
+    if window:
+        mask &= kpb[:, None, :] > (qpb[:, :, None] - window)
+    s = torch.where(mask[:, None, None], s, -torch.inf)
+    m_new = torch.maximum(m, s.amax(-1))
+    # fully masked rows keep m = -inf; exp(-inf - -inf) would be nan
+    safe_m = torch.where(torch.isneginf(m_new), 0.0, m_new)
+    p = torch.exp(s - safe_m[..., None])
+    m_inf = torch.isneginf(m)
+    corr = torch.exp(torch.where(m_inf, 0.0, m) - safe_m)
+    corr = torch.where(m_inf, 0.0, corr)
+    l_new = l * corr + p.sum(-1)
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p, vb.float())
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def blocked_causal_attention(q, k, v, *, q_positions, kv_positions,
+                             window: int = 0, q_chunk: int = 1024,
+                             kv_chunk: int = 1024,
+                             scale: float | None = None):
+    """Memory-bounded causal GQA attention by an online softmax over kv
+    chunks, as the JAX package's: never more than (q_chunk, kv_chunk)
+    scores per head at once, and each kv block recomputed in the backward
+    pass (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint(kv_block)``), so that autograd keeps only the
+    (m, l, acc) carries. Every block is computed, masked ones included.
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); Sq and Sk multiples of their
+    chunks; rows with no visible key give zeros."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if Sq % q_chunk or Sk % kv_chunk:
+        raise ValueError(f"sequence lengths {Sq}, {Sk} are not multiples of "
+                         f"the chunks {q_chunk}, {kv_chunk}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qb = q[:, q0:q0 + q_chunk].reshape(B, q_chunk, KV, G, hd).float()
+        qpb = q_positions[:, q0:q0 + q_chunk]
+        m = torch.full((B, KV, G, q_chunk), -torch.inf, **f32)
+        l = torch.zeros((B, KV, G, q_chunk), **f32)
+        acc = torch.zeros((B, KV, G, q_chunk, hd), **f32)
+        for k0 in range(0, Sk, kv_chunk):
+            sl = slice(k0, k0 + kv_chunk)
+            m, l, acc = checkpoint(
+                _kv_block, m, l, acc, qb, k[:, sl], v[:, sl],
+                qpb, kv_positions[:, sl], scale=scale, window=window,
+                use_reentrant=False)
+        out = acc / l.clamp_min(1e-30)[..., None]          # (B,KV,G,qc,hd)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd)
+                    .to(q.dtype))
+    return torch.cat(outs, 1)
+
+
+def causal_attention(q, k, v, *, q_positions, kv_positions, window: int = 0,
+                     scale: float | None = None,
+                     blocked_threshold: int = 8192):
+    """Dispatch, as the JAX package's: the full score matrix when
+    Sq * Sk <= blocked_threshold**2 / 16 or Sq < 1024, else the blocked
+    form over chunks of min(1024, S) rows and columns."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq * Sk <= blocked_threshold * blocked_threshold // 16 or Sq < 1024:
+        return full_causal_attention(q, k, v, q_positions=q_positions,
+                                     kv_positions=kv_positions,
+                                     window=window, scale=scale)
+    return blocked_causal_attention(q, k, v, q_positions=q_positions,
+                                    kv_positions=kv_positions, window=window,
+                                    q_chunk=min(1024, Sq),
+                                    kv_chunk=min(1024, Sk), scale=scale)

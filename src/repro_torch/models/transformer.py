@@ -1,5 +1,5 @@
-"""Decoder stack: the unified mixed-batch serving step and the one-shot
-prefill -> compress -> decode path.
+"""Decoder stack: the unified mixed-batch serving step, the one-shot
+prefill -> compress -> decode path, and the training forward.
 
 ``forward_step`` is the serving hot path, as in the JAX package: up to T
 tokens per request in one step (decode rows append 1, prefilling rows a
@@ -11,6 +11,12 @@ decode rows and incremental Alg.2 compression on prefill rows.
 offline / whole-prompt path): a contiguous forward over the whole prompt
 (the flash kernel), each layer's K/V compressed to the budget by Alg.2 and
 paged (``compress_and_page``), then one token per step under Alg.3.
+
+``forward_train`` gives logits over the whole sequence through plain
+autograd attention (``common.causal_attention``), never a kernel, as the
+JAX package trains with ``use_pallas=False``. The serving and one-shot
+entry points run under ``torch.no_grad()``: parameters handed over from
+the trainer still require grad, and the pools are written in place.
 
 Layout: the JAX package stacks each pattern slot's parameters over its
 repetitions (``pattern``/``tail``) for ``lax.scan``; the port holds a plain
@@ -27,6 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import CacheConfig, LayerSpec, ModelConfig
 from repro_torch.core.decode import decode_append
@@ -110,6 +117,38 @@ def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
     x = apply_norm(params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return (x @ head.T).float()
+
+
+# ---------------------------------------------------------------------------
+# train forward
+# ---------------------------------------------------------------------------
+
+def forward_train(params: dict, cfg: ModelConfig, tokens, cond=None,
+                  ac=None, remat: bool = True):
+    """tokens (B, S) -> (logits (B, S, vocab) f32, aux () f32), as the JAX
+    package's ``forward_train`` with ``use_pallas=False``: attention by
+    :func:`~repro_torch.models.common.causal_attention` on every device.
+    ``remat``: recompute each layer in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
+    the scanned layer), so that autograd keeps one (B, S, D) input per
+    layer. ``aux`` is 0: the port has no MoE layer (``check_supported``).
+    ``cond`` (cross-attention) and ``ac`` (activation sharding) are not
+    ported and raise when given."""
+    if cond is not None or ac is not None:
+        raise NotImplementedError("the torch port trains without "
+                                  "cross-attention and without sharding: "
+                                  "cond and ac are not ported")
+    check_supported(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    for lp, spec in zip(params["layers"], cfg.layer_specs()):
+        def layer(x, lp=lp, spec=spec):
+            return layer_forward(lp, cfg, spec, x, positions, train=True)[0]
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +246,7 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
     return x + mlp_forward(lp["mlp"], cfg, h2), tap
 
 
+@torch.no_grad()
 def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
                  cache: ModelCache, policy: EvictionPolicy, ccfg: CacheConfig,
                  decode_mask=None, prefill_mask=None, reset_mask=None,
@@ -305,12 +345,13 @@ def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                  plain_kernels: bool = False):
+                  plain_kernels: bool = False, train: bool = False):
     """One attention + dense-MLP layer over a contiguous sequence.
-    Returns (x, (k, v)) with k post-RoPE."""
+    Returns (x, (k, v)) with k post-RoPE. ``train``: attention by the
+    training route (``attention_forward``'s), never a kernel."""
     h = apply_norm(lp["norm1"], x)
     a, kv = attn_mod.attention_forward(lp["attn"], cfg, spec, h, positions,
-                                       plain=plain_kernels)
+                                       plain=plain_kernels, train=train)
     x = x + a
     return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["norm2"], x)), kv
 
@@ -335,6 +376,7 @@ def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
     return x, cache
 
 
+@torch.no_grad()
 def forward_prefill(params: dict, cfg: ModelConfig, tokens,
                     policy: EvictionPolicy, ccfg: CacheConfig, valid=None,
                     total_seq_hint: int | None = None,
@@ -390,6 +432,7 @@ def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc,
     return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["norm2"], x))
 
 
+@torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, tokens, cache: ModelCache,
                 policy: EvictionPolicy, ccfg: CacheConfig, active=None,
                 decode_splits: int = 1, fused_scores: bool = False,

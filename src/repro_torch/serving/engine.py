@@ -237,6 +237,7 @@ class Engine:
             ev["unexpected_compile"] = True
         self.obs.writer.emit(ev)
 
+    @torch.no_grad()
     def step(self) -> bool:
         """One engine iteration: plan a unified step and run it. Returns
         whether work remains. ``last_hook_s`` is then the host time of this

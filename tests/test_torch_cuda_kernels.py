@@ -19,6 +19,8 @@ step); bf16 on the tensor-core routes within ``ref.tc_bf16_bound`` (each
 probability is rounded to bf16 before P V); norms and page scores within
 1e-3 relative. Each launch's route is checked against its counter.
 The per-Q-head prefill kernel must equal the G-fold one bit for bit.
+Under autograd every wrapper refuses an input that requires grad (the
+kernels have no backward pass); forward_train launches none of them.
 Every kernel also at the head dims beside 64 and 128 (``NEW_HD``): TINY's
 32 (4 heads, 4 KV heads), stablelm-3b's 80 (32 and 32) and 96 at G 4,
 with the same tolerances. The
@@ -45,7 +47,8 @@ from repro_torch.kernels.paged_attention import (combine_splits,
                                                  paged_attention_int8_cuda,
                                                  paged_attention_int8_plain,
                                                  paged_attention_plain)
-from repro_torch.models.transformer import forward_prefill, init_model
+from repro_torch.models.transformer import (forward_prefill, forward_train,
+                                            init_model)
 
 TOL = [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 1e-5, 2 ** -7)]
 
@@ -232,3 +235,38 @@ def test_cuda_prefill_ragged_long_prompt(cuda):
     for a, b in zip(ck.layers, cp.layers):
         for f in ("block_table", "pos", "cur_page", "cur_off"):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_autograd(cuda):
+    """Under autograd a wrapper refuses an input that requires grad (the
+    kernels have no backward pass) and launches nothing; under no_grad the
+    same call runs. forward_train launches no kernel; the one-shot prefill
+    from weights that require grad runs (it is under no_grad)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g).to(cuda)
+               for s in ((2, 128, 4, 64), (2, 128, 2, 64), (2, 128, 2, 64)))
+    before = flash_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        flash_attention_cuda(q.requires_grad_(), k, v)
+    assert flash_attention_cuda.launches == before
+    with torch.no_grad():
+        out = flash_attention_cuda(q, k, v)
+    assert flash_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out, flash_attention_plain(q.detach(), k, v),
+                               atol=1e-4, rtol=0)
+    cfg = get_arch("llama-3.2-1b").reduced()
+    params = init_model(cfg, seed=0, device=cuda)
+    for p in params["layers"][0]["attn"].values():
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=g,
+                           dtype=torch.int32).to(cuda)
+    logits, _ = forward_train(params, cfg, tokens)
+    logits.sum().backward()
+    assert flash_attention_cuda.launches == before + 1
+    assert float(params["layers"][0]["attn"]["wq"].grad.abs().max()) > 0
+    ccfg = CacheConfig(page_size=8, cache_budget=64, dtype="float32")
+    lg, _ = forward_prefill(params, cfg, tokens, get_policy(ccfg.policy),
+                            ccfg)
+    assert flash_attention_cuda.launches == before + 1 + cfg.num_layers
+    assert not lg.requires_grad
