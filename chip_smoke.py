@@ -19,7 +19,12 @@ Phases (any failure exits non-zero; none is skipped):
               kernel also bit for bit against the G-fold one. Every kernel
               also at the head dims beside 64 and 128: TINY's 32 (4 heads, 4
               KV heads), stablelm-3b's 80 (32 and 32) and 96 at G 4 (the
-              decode kernel over a pool of the query's dtype or int8). f32
+              decode kernel over a pool of the query's dtype or int8); and
+              K1, K3 (K4 bit for bit) and K5 at the heads of the families
+              of phase 10 that the kernels had not met: chameleon-34b's G 8
+              (G * T = 2048 prefill rows), mixtral-8x22b's G 6 and
+              gemma3-27b's 32 / 16 heads at its window 1024 (on its local
+              slab of 65 pages), bf16 pools, windows 0 and > 0. f32
               cases within 1e-4; the tensor-core routes (bf16 prefill over a bf16
               pool, bf16 flash) within the derived bound 1e-5 + 2**-7 |plain|
               + 2**-8 (P |V|) / l; each case names its route. Then each one's
@@ -30,7 +35,8 @@ Phases (any failure exits non-zero; none is skipped):
               bound, the plain version's time and one PyTorch call's
               (scaled_dot_product_attention, a yardstick only, also in both
               clocks); and each one's device_ms and bound at those three
-              head dims, at their models' dtypes (TINY f32, the others bf16)
+              head dims, at their models' dtypes (TINY f32, the others bf16),
+              and at the three family shapes (bf16, window 0)
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions, under
               paged_eviction and each of the paper's baselines: the engine on
@@ -45,7 +51,13 @@ Phases (any failure exits non-zero; none is skipped):
               and lineage events equal, the ledger reconciled after every
               step; and the float paged_eviction requests served once more
               with regret probes every 2 decode steps give the same tokens
-              and the same kernel launches
+              and the same kernel launches. Then the reduced f32 gemma3-27b
+              (3 local layers of window 64, 1 global) and mixtral-8x7b (swa
+              64, MoE) the same way, engine (prompts of 96-160 tokens) and
+              one-shot, gemma3 at budget 128 (above the window) and mixtral
+              at 48 (below it), and 2 AdamW steps of each on the card
+              against the CPU (B 1 x
+              S 1024; losses and aux losses within 1e-4 relative)
   4. serve    llama-3.2-1b at full width (bf16, random weights from a seed;
               8 of its 16 layers, a depth cut for the run time since PR 17):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
@@ -111,12 +123,31 @@ Phases (any failure exits non-zero; none is skipped):
               the f32 CUDA-core route, K1): full at budget 32 must answer
               >= 0.60; paged_eviction and streaming_llm at budgets 16 and 8
               are printed. Prints phase 9's seconds.
+ 10. families stablelm-3b (8 of 32 layers), gemma3-27b (6 of 62: one period
+              of 5 local layers and 1 global), chameleon-34b (4 of 48) and
+              mixtral-8x7b (4 of 32) at full width (bf16, random weights
+              from a seed; depth cut for the run time): each serves 4
+              requests of 1024-3072 prompt tokens (2 share a 256-token
+              prefix), 16 greedy tokens, page 16, max batch 4, chunk 256
+              (4 chunks a step: the prompts prefill side by side), decode
+              splits 4, paged_eviction at budget 512 (gemma3 2048,
+              above its local window), then runs phase 5's prompts one-shot
+              (16 decode steps). Checks every request's token count, K1 and
+              K3 (tensor cores) served and K5 (tensor cores, every layer)
+              and K1 one-shot, pages evicted, F1-F4 and the devstats
+              identities at every step, and after each chunk evict no live
+              token at or below newest - window on an unshared page of a
+              windowed layer (a shared page keeps them until its lazy
+              copy-on-write fork, as in the JAX package); prints forced
+              rollovers and live tokens by layer kind, and mixtral's MoE
+              share of the mixed steps (host-clocked).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
 times "device_ms", "device_clean_ms" and "library_device_ms", the launch
-floor "floor_device_ms", the head dims it was checked at, "head_dims", and
-its device_ms and bound at hd 32, 80 and 96, "other_head_dims"), and as the
+floor "floor_device_ms", the head dims it was checked at, "head_dims", its
+device_ms and bound at hd 32, 80 and 96, "other_head_dims", and at the
+family shapes, "other_shapes"), and as the
 last line {"ok": true, "device":
 {...}}. Exits non-zero without a CUDA device or without the repository's
 sources beside it.
@@ -355,6 +386,109 @@ NEW_HD_SHAPES = {
 }
 
 
+# the heads of the families the kernels had not met on the card, each on a
+# bf16 pool: (KV, G, hd, page), the pool's slots per row, the windows held
+# (gemma3's local window at its local slab of (1024 + 16) / 16 = 65 pages)
+FAMILY_SHAPES = {
+    "chameleon-34b (G 8)": ((8, 8, 128, 16), P, (0, 8 * 16)),
+    "mixtral-8x22b (G 6)": ((8, 6, 128, 16), P, (0, 8 * 16)),
+    "gemma3-27b (32/16 heads, window 1024)": ((16, 2, 128, 16), 65,
+                                              (0, 1024)),
+}
+
+
+def check_family_shapes(torch, worst):
+    """K1, K3 (with K4 bit for bit) and K5 against their plain versions at
+    FAMILY_SHAPES, bf16 throughout: K1 at splits 1 and 4 on a churned pool
+    (row 1 unmapped, row 2 at cur_pos -1: exact zeros), K3/K4 at chunk 256
+    (G * T rows up to 2048), K5 on one prompt of 4096 tokens; each at the
+    shape's windows, within today's tolerances (K1 one bf16 step, the
+    tensor-core routes the derived bound)."""
+    from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                                   flash_attention_plain,
+                                                   flash_route,
+                                                   paged_prefill_cuda,
+                                                   paged_prefill_plain,
+                                                   prefill_route)
+    from repro_torch.kernels.paged_attention import (combine_splits,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+    from repro_torch.kernels.ref import (abs_value_weight, churned_pool,
+                                         prefill_positions)
+    bf16 = torch.bfloat16
+    for n, (label, ((KV, G, hd, page), Pn, windows)) in enumerate(
+            FAMILY_SHAPES.items()):
+        seed = 5000 + 10 * n
+        k, v, pos, bt, cur = churned_pool(B, Pn, page, KV, hd, bf16, seed)
+        bt[1] = -1
+        cur[2] = -1
+        g = torch.Generator().manual_seed(seed)
+        q = torch.randn((B, KV, G, hd), generator=g).to(bf16).cuda()
+        err = share = nerr = 0.0
+        for window in windows:
+            for splits in (1, 4):
+                kw = dict(window=window, num_splits=splits,
+                          return_scores=True)
+                a, m, l, nk = paged_attention_cuda(q, k, v, pos, bt, cur,
+                                                   **kw)
+                a2, m2, l2, nk2 = paged_attention_plain(q, k, v, pos, bt,
+                                                        cur, **kw)
+                o = combine_splits(a, m, l).to(bf16)
+                torch.cuda.synchronize()
+                if o[1:3].any():
+                    fail(f"paged_decode: the unmapped row or the row at "
+                         f"cur_pos -1 is not zero ({label})")
+                e, sh = _err(o, combine_splits(a2, m2, l2).to(bf16),
+                             "bfloat16")
+                err, share = max(err, e), max(share, sh)
+                nerr = max(nerr, _norm_err(nk, nk2))
+        _check(worst, "paged_decode", f"{label} (KV {KV}, G {G}, hd {hd}, "
+               f"{Pn} slots) bf16, windows {windows} x splits 1/4", err,
+               share, nerr, hd=hd)
+        # the prefill kernels on the same pool (its row 1 mapped again)
+        k, v, pos, bt, cur = churned_pool(B, Pn, page, KV, hd, bf16,
+                                          seed + 1)
+        qp = prefill_positions(cur.cpu(), T).cuda()
+        qf = torch.randn((B, T, KV * G, hd), generator=g).to(bf16).cuda()
+        route = prefill_route(bf16, bf16, hd)
+        for window in windows:
+            kw = dict(window=window, return_scores=True)
+            o, nk = paged_prefill_cuda(qf, k, v, pos, bt, qp, **kw)
+            o2, nk2 = paged_prefill_plain(qf, k, v, pos, bt, qp, **kw)
+            o3, _ = paged_prefill_cuda(qf, k, v, pos, bt, qp,
+                                       window=window, per_qhead=True)
+            torch.cuda.synchronize()
+            wt = abs_value_weight(qf, k, v, window=window, pos=pos,
+                                  block_table=bt, q_pos=qp) \
+                if route == "tensor_core" else None
+            case = f"{label} bf16 window {window}, {G * T} rows ({route})"
+            _check(worst, "paged_prefill", case, *_err(o, o2, "bfloat16", wt),
+                   _norm_err(nk, nk2), hd=hd)
+            _check(worst, "paged_prefill_per_qhead", case,
+                   *_err(o3, o2, "bfloat16", wt),
+                   extra=f"; bit-equal to the G-fold kernel: "
+                         f"{bool(torch.equal(o3, o))}", hd=hd)
+            if not torch.equal(o3, o):
+                fail(f"the per-Q-head prefill kernel is not bit-equal to "
+                     f"the G-fold one ({label}, window {window})")
+            del o, o2, o3, nk, nk2, wt
+        del k, v, pos, bt, qf
+        route = flash_route(bf16, hd)
+        for window in windows:
+            x = [torch.randn((1, S1, n, hd), generator=g).to(bf16).cuda()
+                 for n in (KV * G, KV, KV)]
+            o = flash_attention_cuda(*x, window=window)
+            o2 = flash_attention_plain(*x, window=window)
+            torch.cuda.synchronize()
+            wt = abs_value_weight(*x, window=window) \
+                if route == "tensor_core" else None
+            _check(worst, "flash_attention", f"{label} bf16 S {S1} window "
+                   f"{window} ({route})", *_err(o, o2, "bfloat16", wt),
+                   hd=hd)
+            del x, o, o2, wt
+        torch.cuda.empty_cache()
+
+
 def check_decode(torch, worst):
     """The decode kernel (float and int8 pools) against its plain version:
     every shape of DECODE_SHAPES, every q / pool dtype pair the wrapper
@@ -421,6 +555,7 @@ def check_kernels(torch):
                                          prefill_positions)
     worst: dict = {}
     check_decode(torch, worst)
+    check_family_shapes(torch, worst)
     seed = 0
     shapes = {**SHAPES,
               **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()}}
@@ -884,36 +1019,42 @@ def timeline_spans(eng):
     return out
 
 
-def engine_parity(torch, np, kv_dtype, policy="paged_eviction"):
+def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
+                  budget=48):
     """The reduced config served through the kernels and through their plain
     versions (with a trace, the lineage ledger and a timeline), and, for
     paged_eviction on a float pool, through the kernels once more with
-    regret probes every 2 decode steps."""
+    regret probes every 2 decode steps. ``arch``: that arch's reduced config
+    instead (a windowed family: prompts of 96-160 tokens, past its window of
+    64; no probe run; prefix adoptions printed, not required, since its
+    windowed layers shed prompt pages)."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
     from repro_torch.obs import ObsConfig
     from repro_torch.obs.trace import validate_file
     from repro_torch.serving import Engine
-    cfg = _reduced(get_arch)
+    cfg = _reduced(get_arch) if arch is None else get_arch(arch).reduced()
     params = init_model(cfg, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 32)
+    rest = (8, 64) if arch is None else (64, 128)
     prompts = [np.concatenate([shared if i % 2 else
                                rng.integers(0, cfg.vocab_size, 32),
                                rng.integers(0, cfg.vocab_size,
-                                            int(rng.integers(8, 64)))])
+                                            int(rng.integers(*rest)))])
                .astype(np.int32) for i in range(8)]
-    probe = policy == "paged_eviction" and kv_dtype == "float32"
+    probe = policy == "paged_eviction" and kv_dtype == "float32" and \
+        arch is None
     out, inputs, obs_out = [], [], []
     with tempfile.TemporaryDirectory() as tmp:
         for plain, every in ((False, 0), (True, 0)) + \
                 (((False, 2),) if probe else ()):
             trace = os.path.join(tmp, f"{plain}-{every}.jsonl")
             eng = Engine(cfg, params, cache_cfg=CacheConfig(
-                page_size=8, cache_budget=48, policy=policy, dtype=kv_dtype),
-                max_batch=4,
-                max_prompt_len=96, max_new_tokens=16, chunk_size=32,
+                page_size=8, cache_budget=budget, policy=policy,
+                dtype=kv_dtype), max_batch=4,
+                max_prompt_len=32 + rest[1], max_new_tokens=16, chunk_size=32,
                 decode_splits=2, device="cuda", plain_kernels=plain,
                 obs=ObsConfig(trace_path=trace, lineage=True, timeline=True,
                               regret_every=every))
@@ -937,7 +1078,8 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction"):
             out.append((toks, steps, *pool_state(np, eng.cache.layers),
                         eng.stats))
     (tk, sk, ik, qk, stk), (tp, sp, ip, qp, stp) = out
-    what = f"engine parity ({policy}, {kv_dtype})"
+    what = f"engine parity ({arch or 'reduced, G 2'}, {policy}, {kv_dtype}" \
+        f", budget {budget})"
     (rk, lk, tlk, _), (rp, _, tlp, _) = obs_out[:2]
     for rec in ("step", "event"):
         if untimed(rk, rec) != untimed(rp, rec):
@@ -971,11 +1113,18 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction"):
     if qk:
         print(f"  engine int8 quantizer inputs: {first_flip(torch, *inputs)}",
               flush=True)
-    # the baselines' token holes may leave no intact prefix to adopt
-    if not getattr(stk, evicted_stat(policy)) or \
-            (policy == "paged_eviction" and not stk.shared_prefix_hits):
+    # the baselines' token holes may leave no intact prefix to adopt, nor
+    # may a windowed family's layers; above its window, the window alone
+    # may drop its pages (freed) and force its rollovers
+    dropped = getattr(stk, evicted_stat(policy))
+    if arch is not None:
+        dropped += stk.forced_evictions + int(
+            sum(st[devstats.PAGES_FREED] for st in sk))
+    if not dropped or (policy == "paged_eviction" and arch is None and
+                       not stk.shared_prefix_hits):
         fail(f"{what} exercised too little: {stk}")
-    print(f"  engine {policy} {kv_dtype:8s}: {len(tk)} requests, {len(sk)} "
+    print(f"  engine {arch or ''} {policy} {kv_dtype:8s} budget {budget}: "
+          f"{len(tk)} requests, {len(sk)} "
           f"steps: tokens, per-step devstats, pool state, trace step "
           f"records, {n_events} lineage events and timelines equal; int8 "
           f"values one step apart {flips[0]} of {flips[1]}; evicted "
@@ -1028,11 +1177,15 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
             torch.stack(stats).cpu().numpy(), t1 - t0, t2 - t1)
 
 
-def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
+def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction",
+                   arch=None, budget=32):
+    """The reduced config's one-shot path (forward_prefill + 8 decode
+    steps) through the kernels and through their plain versions; ``arch``:
+    that arch's reduced config instead."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
-    cfg = _reduced(get_arch)
+    cfg = _reduced(get_arch) if arch is None else get_arch(arch).reduced()
     params = init_model(cfg, seed=1, device="cuda")
     rng = np.random.default_rng(1)
     Bp = 3
@@ -1040,7 +1193,7 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
                               .astype(np.int32)).cuda()
     valid = torch.arange(S, device="cuda")[None, :] < \
         torch.tensor([[S], [S - 5], [S - 19]], device="cuda")
-    ccfg = CacheConfig(page_size=8, cache_budget=32, policy=policy,
+    ccfg = CacheConfig(page_size=8, cache_budget=budget, policy=policy,
                        dtype=kv_dtype)
     reset_launches()
     runs, inputs = [], []
@@ -1054,7 +1207,8 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
         inputs.append(seen)
     launches = read_launches()
     (tk, lk, _, sk, _, _), (tp, lp, _, sp, _, _) = runs
-    what = f"one-shot parity ({policy}, {kv_dtype}, S {S})"
+    what = f"one-shot parity ({arch or 'reduced, G 2'}, {policy}, " \
+        f"{kv_dtype}, S {S}, budget {budget})"
     dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
     if not launches["flash_attention"] or not launches[dec]:
         fail(f"{what}: kernels not launched: {launches}")
@@ -1069,13 +1223,16 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
     flips = compare_int8(np, qk, qp, what) if qk else (0, 0)
     name = evicted_stat(policy)
     evicted = int(sk[:, devstats.STAT_NAMES.index(name)].sum())
+    if arch is not None:        # above its window: forced rollovers
+        evicted += int(sk[:, devstats.FORCED_EVICTIONS].sum())
     unit = name.removesuffix("_evicted")
     if not evicted:
         fail(f"{what}: no {unit} evicted in decode")
     if qk:
         print(f"  one-shot int8 quantizer inputs: "
               f"{first_flip(torch, *inputs)}", flush=True)
-    print(f"  one-shot {policy} {kv_dtype:8s} S {S}: {tk.shape[0]} prompts, "
+    print(f"  one-shot {arch or ''} {policy} {kv_dtype:8s} S {S} budget "
+          f"{budget}: {tk.shape[0]} prompts, "
           f"8 steps: tokens, per-step devstats and integer cache state "
           f"equal; int8 values one step apart {flips[0]} of {flips[1]}; "
           f"evicted {evicted} {unit}; launches {launches}", flush=True)
@@ -1084,47 +1241,57 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction"):
 def serve_full_width(torch, np, kv_dtype, n_requests,
                      policy="paged_eviction", new_tokens=32, on_step=None,
                      obs=None, max_batch=8, num_layers=None, params=None,
-                     prompt_len=None):
-    """Serve ``n_requests`` prompts of 1024-2048 tokens (every other one
-    opening with a shared 256-token prefix; each cut to ``prompt_len``
-    tokens when given) on llama-3.2-1b at full width, ``new_tokens`` greedy
+                     prompt_len=None, arch="llama-3.2-1b", budget=512,
+                     max_len=2048, sharing=None, on_engine=None,
+                     token_budget=None):
+    """Serve ``n_requests`` prompts of 1024-``max_len`` tokens (every other
+    one opening with a shared 256-token prefix; each cut to ``prompt_len``
+    tokens when given) on ``arch`` at full width, ``new_tokens`` greedy
     tokens each, with ``obs`` (an ObsConfig; default metrics only), at
-    ``num_layers`` of its 16 layers when given, from ``params`` when given
-    (else random weights from seed 0). Checks that every request finished,
-    the path's kernels and routes, that the policy evicted (and, under
-    paged_eviction with more than 2 requests, shared prefixes) and F1-F4 at
-    the end. Returns
+    ``num_layers`` of its layers when given, from ``params`` when given
+    (else random weights from seed 0), at ``budget``. Checks that every
+    request finished, the path's kernels and routes, that the policy evicted
+    (and, under paged_eviction with more than 2 requests or when
+    ``sharing``, shared prefixes) and F1-F4 at the end. ``on_engine(eng)``,
+    when given, runs once before the first request is submitted;
+    ``token_budget``: the engine's tokens per step (default one prefill
+    chunk beside the decode rows). Returns
     (launches, engine, wall seconds, per-step wall seconds of
     ``eng.step()``)."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
     from repro_torch.serving import Engine
-    cfg = get_arch("llama-3.2-1b")
+    cfg = get_arch(arch)
     if num_layers:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     t0 = time.perf_counter()
     if params is None:
         params = init_model(cfg, seed=0, device="cuda")
     eng = Engine(cfg, params, cache_cfg=CacheConfig(
-        page_size=16, cache_budget=512, policy=policy,
-        dtype=kv_dtype), max_batch=max_batch, max_prompt_len=2048,
+        page_size=16, cache_budget=budget, policy=policy,
+        dtype=kv_dtype), max_batch=max_batch, max_prompt_len=max_len,
         max_new_tokens=new_tokens, chunk_size=256, decode_splits=4,
-        device="cuda", obs=obs)
+        token_budget=token_budget, device="cuda", obs=obs)
     torch.cuda.synchronize()
+    # block-table widths differ by layer kind (a windowed layer's slab)
+    slots = sorted({(spec.attn_kind, c.num_pages) for spec, c in
+                    zip(cfg.layer_specs(), eng.cache.layers)})
     print(f"  model + caches ready in {time.perf_counter() - t0:.1f} s; "
           f"pool payload {eng.pool_bytes()['payload_total'] / 2 ** 20:.1f} "
-          f"MiB over {cfg.num_layers} layers ({kv_dtype}, {policy}, "
-          f"{eng.cache.layers[0].num_pages} slots per row)", flush=True)
+          f"MiB over {cfg.num_layers} layers ({kv_dtype}, {policy}, slots "
+          f"per row by layer kind {slots})", flush=True)
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab_size, 256)
     prompts = []
     for i in range(n_requests):
-        n = int(rng.integers(1024, 2049))
+        n = int(rng.integers(1024, max_len + 1))
         head = shared if i % 2 == 0 else rng.integers(0, cfg.vocab_size, 256)
         prompts.append(np.concatenate(
             [head, rng.integers(0, cfg.vocab_size, n - 256)]).astype(np.int32)
             [:prompt_len])
+    if on_engine is not None:
+        on_engine(eng)
     reset_launches()
     tokens, _, wall, step_walls = run_engine(torch, np, devstats, eng,
                                              prompts, new_tokens, on_step)
@@ -1159,7 +1326,8 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
     if launches[f"paged_prefill/{route}"] != launches["paged_prefill"]:
         fail(f"{kv_dtype} serving: not every prefill launch took the "
              f"{route} route: {launches}")
-    sharing = policy == "paged_eviction" and n_requests > 2
+    if sharing is None:
+        sharing = policy == "paged_eviction" and n_requests > 2
     if not getattr(s, evicted_stat(policy)) or \
             (sharing and not s.shared_prefix_hits):
         fail(f"{policy}: no eviction or no prefix sharing at full width: "
@@ -1495,6 +1663,215 @@ def regret_full_width(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the attention-only families at full width
+# ---------------------------------------------------------------------------
+
+# arch -> (layers run, budget): depth cut for the run time, widths never cut;
+# gemma3 runs one whole period (5 local layers, 1 global) at a budget above
+# its local window, so that the window, not the budget, bounds those layers
+FAMILIES = {
+    "stablelm-3b": (8, 512),
+    "gemma3-27b": (6, 2048),
+    "chameleon-34b": (4, 512),
+    "mixtral-8x7b": (4, 512),
+}
+FAMILY_NEW_TOKENS = 16
+
+
+def _kind_sums(torch, cfg, layers, field):
+    """{attn kind: sum over its layers} of a devstats field."""
+    out: dict = {}
+    for spec, c in zip(cfg.layer_specs(), layers):
+        out[spec.attn_kind] = out.get(spec.attn_kind, 0) + \
+            int(c.stats[field])
+    return out
+
+
+def _kind_live(cfg, layers):
+    """{attn kind: the most live tokens a row holds in one of its
+    layers}."""
+    out: dict = {}
+    for spec, c in zip(cfg.layer_specs(), layers):
+        out[spec.attn_kind] = max(out.get(spec.attn_kind, 0),
+                                  int(c.total_valid().max()))
+    return out
+
+
+def _window_leftovers(torch, cfg, layers, rows):
+    """Live tokens at or below newest - window in the windowed layers'
+    ``rows``: (on pages the row holds alone, on shared pages). A chunk
+    evict drops the first kind all; a shared page keeps its tokens until
+    its copy-on-write fork, one per row and call, as in the JAX
+    package."""
+    from repro_torch.models.attention import spec_window
+    alone = shared = 0
+    for spec, c in zip(cfg.layer_specs(), layers):
+        w = spec_window(cfg, spec)
+        if not w or not rows:
+            continue
+        pv = c.pos_view()[rows]                          # (r, P, page)
+        newest = pv.reshape(len(rows), -1).amax(-1)[:, None, None]
+        out = (pv >= 0) & (pv <= newest - w)
+        own = (c.ref_count[c._phys()[rows]] <= 1)[..., None]
+        alone += int((out & own).sum())
+        shared += int((out & ~own).sum())
+    return alone, shared
+
+
+def family_full_width(torch, np, arch, num_layers, budget):
+    """One family at full width (bf16, random weights from seed 0, the
+    first ``num_layers`` layers): 4 requests of 1024-3072 prompt tokens
+    served (2 share a 256-token prefix; 16 greedy tokens, page 16, max batch
+    4, chunk 256 with a token budget of 4 chunks a step, so that the 4
+    prompts prefill side by side; decode splits 4, paged_eviction at
+    ``budget``), F1-F4
+    and devstats conservation at every step; then phase 5's 4 prompts
+    one-shot (K5), compressed to ``budget`` and 16 decode steps. Checks K1,
+    K3 (tensor cores) and K5 (tensor cores, every layer) launched and pages
+    evicted; on windowed layers, no live token at or below newest - window
+    in a row just after its chunk evict. Prints forced rollovers and live
+    tokens by layer kind, and for an MoE model the MoE blocks' share of the
+    mixed steps (host-clocked: the card synchronized around each block).
+    Returns the launches of the serving and the one-shot runs."""
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.core import devstats
+    from repro_torch.models import transformer as tf
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=num_layers)
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"  {arch}: {num_layers} of {full.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters "
+          f"({sum(nbytes(p) for p in _leaves(params)) / 2 ** 30:.2f} GiB), "
+          f"initialised in {time.perf_counter() - t0:.1f} s; layer kinds "
+          f"{[s.attn_kind + '/' + s.mlp for s in cfg.layer_specs()]}",
+          flush=True)
+    seen = {"forced": {}, "live": {}, "leftover": 0, "on_shared": 0,
+            "mixed_moe_s": 0.0,
+            "moe_s": 0.0, "plan": None}
+
+    def on_engine(eng):
+        plan = eng.scheduler.plan
+
+        def recorded():
+            seen["plan"] = plan()
+            return seen["plan"]
+        eng.scheduler.plan = recorded
+
+    def on_step(eng):
+        layers = eng.cache.layers
+        check_invariants(np, layers)
+        for k, v in _kind_sums(torch, cfg, layers,
+                               devstats.FORCED_EVICTIONS).items():
+            seen["forced"][k] = seen["forced"].get(k, 0) + v
+        for k, v in _kind_live(cfg, layers).items():
+            seen["live"][k] = max(seen["live"].get(k, 0), v)
+        plan = seen["plan"]
+        rows = [slot for slot, *_ in plan.prefill]
+        alone, shared = _window_leftovers(torch, cfg, layers, rows)
+        seen["leftover"] += alone
+        seen["on_shared"] = max(seen["on_shared"], shared)
+        if plan.prefill:
+            seen["mixed_moe_s"] += seen["moe_s"]
+        seen["moe_s"] = 0.0
+
+    block = tf.mlp_block
+
+    def timed_block(lp, cfg_, spec, x, dense_combine):
+        if spec.mlp != "moe":
+            return block(lp, cfg_, spec, x, dense_combine)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = block(lp, cfg_, spec, x, dense_combine)
+        torch.cuda.synchronize()
+        seen["moe_s"] += time.perf_counter() - t
+        return out
+
+    moe = any(s.mlp == "moe" for s in cfg.layer_specs())
+    if moe:
+        tf.mlp_block = timed_block
+    try:
+        launches, eng, wall, _ = serve_full_width(
+            torch, np, "bfloat16", 4, new_tokens=FAMILY_NEW_TOKENS,
+            max_batch=4, params=params, arch=arch, budget=budget,
+            max_len=3072, sharing=False, on_step=on_step,
+            on_engine=on_engine, num_layers=num_layers, token_budget=4 * 256)
+    finally:
+        tf.mlp_block = block
+    s = eng.stats
+    if seen["leftover"]:
+        fail(f"{arch}: {seen['leftover']} live tokens at or below newest - "
+             f"window on unshared pages of windowed layers after their "
+             f"chunk evict")
+    if launches["paged_prefill/tensor_core"] != launches["paged_prefill"]:
+        fail(f"{arch}: a prefill launch left the tensor cores: {launches}")
+    print(f"  {arch} serving: forced rollovers by layer kind "
+          f"{seen['forced']}, most live tokens per row by layer kind "
+          f"{seen['live']}; after a chunk evict no live token out of the "
+          f"window on an unshared page, at most {seen['on_shared']} on "
+          f"shared pages awaiting their copy-on-write fork", flush=True)
+    if moe:
+        print(f"  {arch} serving: MoE blocks {1e3 * seen['mixed_moe_s']:.1f} "
+              f"ms of {1e3 * s.prefill_s:.1f} ms in the "
+              f"{s.steps - s.decode_steps} mixed steps "
+              f"({seen['mixed_moe_s'] / s.prefill_s:.3f}; host-clocked, the "
+              f"card synchronized around each block)", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # one-shot
+    tokens, valid = oneshot_prompts(torch, np, cfg.vocab_size)
+    ccfg = CacheConfig(page_size=16, cache_budget=budget,
+                       policy="paged_eviction", dtype="bfloat16")
+    forced: dict = {}
+
+    def on_decode(layers):
+        check_invariants(np, layers)
+        for k, v in _kind_sums(torch, cfg, layers,
+                               devstats.FORCED_EVICTIONS).items():
+            forced[k] = forced.get(k, 0) + v
+
+    reset_launches()
+    toks, layers, live, stats, t_pre, t_dec = oneshot_run(
+        torch, params, cfg, ccfg, tokens, valid, FAMILY_NEW_TOKENS,
+        plain=False, decode_splits=4, on_step=on_decode)
+    one = read_launches()
+    L = cfg.num_layers
+    if one["flash_attention"] != L or one["flash_attention/tensor_core"] != L \
+            or not one["paged_decode"]:
+        fail(f"{arch} one-shot: not {L} flash launches on the tensor cores "
+             f"and decode launches: {one}")
+    evicted = int(stats[:, devstats.PAGES_EVICTED].sum() +
+                  stats[:, devstats.FORCED_EVICTIONS].sum())
+    if not evicted:
+        fail(f"{arch} one-shot: no page evicted in decode")
+    if int(live.max()) > budget + 16:
+        fail(f"{arch} one-shot: {int(live.max())} live tokens after "
+             f"prefill, above budget + page")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{arch} one-shot: a token outside the vocabulary")
+    kinds = [sp.attn_kind for sp in cfg.layer_specs()]
+    after = {k: int(max(live[i].max() for i in range(L) if kinds[i] == k))
+             for k in set(kinds)}
+    print(f"  {arch} one-shot: prefill {1e3 * t_pre:.1f} ms, mean decode "
+          f"step {1e3 * t_dec / FAMILY_NEW_TOKENS:.2f} ms; live tokens per "
+          f"row after prefill by layer kind {after}; "
+          f"{int(stats[:, devstats.PAGES_EVICTED].sum())} pages evicted and "
+          f"forced rollovers by layer kind {forced} in decode; launches "
+          f"{one}", flush=True)
+    del layers, params
+    torch.cuda.empty_cache()
+    return {"serving": launches, "one_shot": one}
+
+
+def families_full_width(torch, np):
+    return {arch: family_full_width(torch, np, arch, layers, budget)
+            for arch, (layers, budget) in FAMILIES.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: training, and the trained weights handed to serving and one-shot
 # ---------------------------------------------------------------------------
 
@@ -1556,61 +1933,67 @@ def train_run(torch, cfg, params, opt_cfg, batches, device):
     ``batches``, the first step by ``value_and_grad`` then
     ``adamw_update`` (the body of ``train_step``, so that its gradient is
     kept), the rest by ``make_train_step``. Returns (params, opt state,
-    losses, step-1 gradients, wall seconds of each step)."""
+    losses, step-1 gradients, wall seconds of each step, aux losses)."""
     from repro_torch.training import (adamw_update, batch_to_device,
                                       init_adamw, make_train_step,
                                       value_and_grad)
     step = make_train_step(cfg, opt_cfg)
     opt = init_adamw(params)
-    losses, walls, grads = [], [], None
+    losses, walls, auxes, grads = [], [], [], None
     for i, batch in enumerate(batches):
         batch = batch_to_device(batch, device)
         if device == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 0:
-            (loss, _), grads = value_and_grad(params, cfg, batch)
+            (loss, parts), grads = value_and_grad(params, cfg, batch)
             params, opt, _ = adamw_update(params, grads, opt, opt_cfg)
             _require_grad(params)
         else:
-            params, opt, m = step(params, opt, batch)
-            loss = m["loss"]
+            params, opt, parts = step(params, opt, batch)
+            loss = parts["loss"]
         losses.append(float(loss))
+        auxes.append(float(parts["aux"]))
         walls.append(time.perf_counter() - t0)
-    return params, opt, losses, grads, walls
+    return params, opt, losses, grads, walls, auxes
 
 
-def train_parity(torch, np):
-    """9a: reduced f32 llama-3.2-1b, one init on the card and its copy on
-    the CPU, 4 AdamW steps of lm_batch (B 1, S 3072: the blocked attention
-    route) on each by :func:`train_run`; TF32 off (PyTorch's default for
-    matmuls)."""
+def train_parity(torch, np, arch="llama-3.2-1b", steps=4, seq=3072):
+    """9a: reduced f32 ``arch``, one init on the card and its copy on the
+    CPU, ``steps`` AdamW steps of lm_batch (B 1, S ``seq``; 3072 takes the
+    blocked attention route) on each by :func:`train_run`; TF32 off
+    (PyTorch's default for matmuls). The losses hold the MoE layers' aux
+    term (0.01 aux), and the aux losses are held alike."""
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import init_model
     from repro_torch.training import AdamWConfig, DataConfig, lm_batch
     from repro_torch.training.tree import leaves_with_path, map_leaves
     if torch.backends.cuda.matmul.allow_tf32:
         fail("9a: TF32 is on for matmuls")
-    cfg = get_arch("llama-3.2-1b").reduced()
+    cfg = get_arch(arch).reduced()
     card = _require_grad(init_model(cfg, seed=0, device="cuda"))
     host = _require_grad(map_leaves(lambda t: t.detach().cpu(), card))
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=3072, batch_size=1,
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=1,
                       seed=0)
-    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=4)
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=steps)
     out = {}
     for dev, params in (("cuda", card), ("cpu", host)):
         reset_launches()
-        batches = [lm_batch(dcfg, i) for i in range(4)]
-        params, opt, losses, grads, _ = train_run(torch, cfg, params,
-                                                  opt_cfg, batches, dev)
+        batches = [lm_batch(dcfg, i) for i in range(steps)]
+        params, opt, losses, grads, _, aux = train_run(
+            torch, cfg, params, opt_cfg, batches, dev)
         if dev == "cuda":
             _no_kernel_launched("9a")
-        out[dev] = (losses, grads, params, opt)
-    (lk, gk, pk, ok), (lc, gc, _, _) = out["cuda"], out["cpu"]
+        out[dev] = (losses, grads, params, opt, aux)
+    (lk, gk, pk, ok, ak), (lc, gc, _, _, ac) = out["cuda"], out["cpu"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
     if rel > TRAIN_RTOL:
         fail(f"9a: losses on the card {lk} and on the CPU {lc}: {rel:.3g} "
              f"relative")
+    rel_aux = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(ak, ac)) \
+        if any(ac) else 0.0
+    if rel_aux > TRAIN_RTOL or (any(ak) != bool(cfg.num_experts)):
+        fail(f"9a {arch}: aux losses on the card {ak} and on the CPU {ac}")
     atol, rtol = GRAD_TOL
     worst = 0.0
     for (path, a), b in zip(leaves_with_path(gk), _leaves(gc)):
@@ -1625,10 +2008,10 @@ def train_parity(torch, np):
                 fail(f"9a: layer {i} {name} has no gradient on the card")
     _, size, _, _ = _checkpoint_round_trip(torch, {"params": pk, "opt": ok},
                                            "9a")
-    print(f"  9a reduced llama-3.2-1b f32, B 1 x S 3072 (blocked attention), "
-          f"TF32 off: losses card {[f'{x:.6f}' for x in lk]}, CPU "
-          f"{[f'{x:.6f}' for x in lc]} ({rel:.3g} relative, tol "
-          f"{TRAIN_RTOL}); step-1 gradients within {worst:.3g} of atol "
+    print(f"  9a reduced {arch} f32, B 1 x S {seq}, TF32 off: losses card "
+          f"{[f'{x:.6f}' for x in lk]}, CPU {[f'{x:.6f}' for x in lc]} "
+          f"({rel:.3g} relative, tol {TRAIN_RTOL}); aux {ak} ({rel_aux:.3g} "
+          f"relative); step-1 gradients within {worst:.3g} of atol "
           f"{atol} + rtol {rtol}, wq/wk/wv nonzero in every layer; no kernel "
           f"launched; params + AdamW checkpoint ({size} bytes) restored bit "
           f"for bit", flush=True)
@@ -1652,7 +2035,7 @@ def train_full_width(torch, np):
                       seed=0)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    params, opt, losses, grads, walls = train_run(
+    params, opt, losses, grads, walls, _ = train_run(
         torch, cfg, params, AdamWConfig(lr_peak=1e-4, warmup_steps=2,
                                         total_steps=steps),
         [lm_batch(dcfg, i) for i in range(steps)], "cuda")
@@ -1799,7 +2182,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/9] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/10] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -1809,15 +2192,17 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/9] kernels against their plain versions")
+    phase("[2/10] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
     timing = time_kernels(torch, F)
     other_hd = {shape[2]: time_kernels(torch, F, shape, dname, full=False)
                 for shape, dname in NEW_HD_SHAPES.values()}
+    other_shapes = {label: time_kernels(torch, F, shape, full=False)
+                    for label, (shape, _, _) in FAMILY_SHAPES.items()}
 
-    phase("[3/9] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/10] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
@@ -1827,34 +2212,42 @@ def main() -> None:
             oneshot_parity(torch, np, kv_dtype, policy=policy)
     # a ragged prompt above 2048 tokens: the flash kernel on the card
     oneshot_parity(torch, np, "float32", S=3000)
+    # the windowed families, reduced (window 64), served and one-shot:
+    # gemma3 at a budget above the window (the window bounds its local
+    # layers), mixtral below it (the budget binds); 2 AdamW steps each card
+    # against CPU
+    for arch, budget in (("gemma3-27b", 128), ("mixtral-8x7b", 48)):
+        engine_parity(torch, np, "float32", arch=arch, budget=budget)
+        oneshot_parity(torch, np, "float32", arch=arch, budget=budget)
+        train_parity(torch, np, arch=arch, steps=2, seq=1024)
 
-    phase(f"[4/9] llama-3.2-1b at full width: serving, bf16 pool, with "
+    phase(f"[4/10] llama-3.2-1b at full width: serving, bf16 pool, with "
           f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
           f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/9] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/10] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[6/9] llama-3.2-1b at full width: serving, int8 pool "
+    phase(f"[6/10] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
     serve8 = serve_full_width(torch, np, "int8", 4,
                               num_layers=INT8_SERVE_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    phase(f"[7/9] llama-3.2-1b at full width: the paper's baselines "
+    phase(f"[7/10] llama-3.2-1b at full width: the paper's baselines "
           f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[8/9] llama-3.2-1b at full width: eviction-regret probes "
+    phase(f"[8/10] llama-3.2-1b at full width: eviction-regret probes "
           f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[9/9] training: card against CPU, llama-3.2-1b at full width "
+    phase("[9/10] training: card against CPU, llama-3.2-1b at full width "
           "then served from its checkpoint, TINY trained and scored")
     t9 = time.perf_counter()
     train_parity(torch, np)
@@ -1862,6 +2255,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_recall(torch, np)
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    phase("[10/10] the attention-only families at full width: "
+          + ", ".join(f"{a} ({n} layers, budget {b})"
+                      for a, (n, b) in FAMILIES.items()))
+    t10 = time.perf_counter()
+    families = families_full_width(torch, np)
+    print(f"  phase 10: {time.perf_counter() - t10:.1f} s; K1 / K3 / K5 "
+          f"launches by family: " + "; ".join(
+              f"{a} {r['serving']['paged_decode']} / "
+              f"{r['serving']['paged_prefill']} / "
+              f"{r['one_shot']['flash_attention']} (one-shot K1 "
+              f"{r['one_shot']['paged_decode']})"
+              for a, r in families.items()), flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4
     # and 6), flash attention from the one-shot prefill (phase 5); the
@@ -1893,7 +2300,12 @@ def main() -> None:
                          hd: {"device_ms": t[name]["device_ms"],
                               "bound_ms": t[name]["bound"][0],
                               "bound_by": t[name]["bound"][1]}
-                         for hd, t in other_hd.items()}})
+                         for hd, t in other_hd.items()},
+                     "other_shapes": {
+                         label: {"device_ms": t[name]["device_ms"],
+                                 "bound_ms": t[name]["bound"][0],
+                                 "bound_by": t[name]["bound"][1]}
+                         for label, t in other_shapes.items()}})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -43,24 +43,30 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype else t.to(device)
 
 
-def _map(tree, fn):
+def _map(tree, fn, key=None):
+    """``fn(leaf, key)`` over a tree of dicts and lists, ``key`` the name
+    of the dict entry that holds the leaf."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: _map(v, fn, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+        return [_map(v, fn, key) for v in tree]
+    return fn(tree, key)
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
                     dtype=None) -> dict:
-    """JAX ``init_model`` tree (numpy leaves) -> the port's parameters."""
+    """JAX ``init_model`` tree (numpy leaves) -> the port's parameters (MoE
+    expert stacks (R, E, D, F) unstack as every leaf does). ``dtype`` casts
+    every leaf but the MoE router, which stays f32 as in the JAX
+    package."""
     device = resolve_device(device)
-    layers = [_map(tree["pattern"][p], lambda a, r=r: np.asarray(a)[r])
+    layers = [_map(tree["pattern"][p], lambda a, _, r=r: np.asarray(a)[r])
               for r in range(cfg.full_pattern_reps)
               for p in range(cfg.pattern_period)] + list(tree["tail"])
     out = {k: v for k, v in tree.items() if k not in ("pattern", "tail")}
     out["layers"] = layers
-    return _map(out, lambda a: _tensor(a, device, dtype))
+    return _map(out, lambda a, key: _tensor(
+        a, device, None if key == "router" else dtype))
 
 
 def adamw_state_from_jax(state, cfg: ModelConfig,

@@ -22,7 +22,7 @@ from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, causal_attention,
                                        dense_init, dtype_of,
-                                       full_causal_attention)
+                                       full_causal_attention, rms_head_norm)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -38,13 +38,17 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.qkv_bias:
         for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = torch.zeros((width,), dtype=dt, device=gen.device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones((hd,), dtype=dt, device=gen.device)
     return p
 
 
 def project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor):
-    """x: (B, S, D) -> q (B, S, H, hd), k, v (B, S, KV, hd), RoPE applied.
-    Head counts come from the projection widths, as in the JAX package."""
+    """x: (B, S, D) -> q (B, S, H, hd), k, v (B, S, KV, hd): the bias, then
+    qk-norm (when the params carry it), then RoPE, as in the JAX package.
+    Head counts come from the projection widths."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ params["wq"]
@@ -53,8 +57,12 @@ def project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     H, KV = q.shape[-1] // hd, k.shape[-1] // hd
-    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd)
+    if "q_norm" in params:
+        q = rms_head_norm(q, params["q_norm"])
+        k = rms_head_norm(k, params["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, KV, hd)
 
 

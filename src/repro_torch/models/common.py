@@ -1,4 +1,5 @@
-"""Shared model substrate: RMSNorm, RoPE, initialisers, and plain causal
+"""Shared model substrate: RMSNorm and LayerNorm, qk-norm, RoPE,
+activations, logit soft-capping, initialisers, and plain causal
 attention over contiguous K/V: the full score matrix (the one-shot prefill
 on the CPU; on the card every prompt goes to the flash kernel) and the
 memory-bounded blocked form with an online softmax, which
@@ -11,8 +12,10 @@ weights are (in, out) and applied as ``x @ W``."""
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -42,8 +45,13 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype
     return (w * 0.02).to(dtype)
 
 
-def init_norm(dim: int, dtype, device) -> dict:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def init_norm(norm: str, dim: int, dtype, device) -> dict:
+    """RMSNorm params ({"scale"}), or LayerNorm's ({"scale", "bias"}) for
+    any other ``norm``, as the JAX package's."""
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if norm != "rmsnorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -52,10 +60,42 @@ def init_norm(dim: int, dtype, device) -> dict:
 
 def apply_norm(params: dict, x: torch.Tensor, eps: float = 1e-6
                ) -> torch.Tensor:
-    """RMSNorm, computed in f32."""
+    """LayerNorm when ``params`` carry a bias (population variance, as
+    ``jnp.var``), else RMSNorm; computed in f32."""
+    xf = x.float()
+    if "bias" in params:
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        out = (xf - mean) * torch.rsqrt(var + eps)
+        out = out * params["scale"].float() + params["bias"].float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * params["scale"].float()
+    return out.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """qk-norm: RMS over the head dim (the last axis), in f32."""
     xf = x.float()
     ms = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * params["scale"].float()).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations and logit soft-capping
+# ---------------------------------------------------------------------------
+
+def activation(name: str):
+    """"silu", or "gelu": the tanh approximation, as the JAX package's
+    ``jax.nn.gelu(approximate=True)``."""
+    return {"silu": F.silu, "gelu": partial(F.gelu, approximate="tanh")}[name]
+
+
+def soft_cap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0.0:
+        return torch.tanh(logits / cap) * cap
+    return logits
 
 
 # ---------------------------------------------------------------------------

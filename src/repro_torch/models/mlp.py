@@ -1,11 +1,10 @@
-"""Gated MLP (SwiGLU)."""
+"""Gated MLP (SwiGLU / GeGLU)."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init, dtype_of
+from repro_torch.models.common import activation, dense_init, dtype_of
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -19,5 +18,5 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def mlp_forward(params: dict, cfg: ModelConfig, x: torch.Tensor
                 ) -> torch.Tensor:
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    h = activation(cfg.act)(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]

@@ -24,8 +24,15 @@ list of layers in depth order (``convert.params_from_jax`` maps one onto the
 other) and loops. Caches are in place: the step mutates the layer caches it
 is given and returns the same :class:`ModelCache`.
 
-This slice serves dense pure-attention stacks (RMSNorm, attention, SwiGLU
-MLP); ``check_supported`` rejects the rest.
+Every family whose mixers are all attention is served: RMSNorm or
+LayerNorm, qk-norm, global / local / sliding-window layers, a dense gated
+MLP or an MoE MLP per layer, logit soft-capping. An MoE layer takes the
+capacity dispatch (``moe_forward``) over a contiguous sequence (training
+and the one-shot prefill) and the dense all-expert combine
+(``moe_forward_decode``) in the serving step and one-shot decode, each
+where the JAX package takes it, so a MoE model's served and one-shot
+logits differ as they do there. ``check_supported`` rejects recurrent
+mixers, cross-attention and codebooks.
 """
 from __future__ import annotations
 
@@ -50,26 +57,22 @@ from repro_torch.core.prefill import compress_and_page
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
-                                       init_norm)
+                                       init_norm, soft_cap)
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_forward, moe_forward_decode
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of a config this slice does not serve yet."""
+    """Raise for the parts of a config the port does not serve yet."""
     cfg.validate()
     missing = []
-    if any(s.mixer != "attn" or s.mlp != "dense" for s in cfg.layer_specs()):
-        missing.append("non-attention mixers / MoE MLPs")
-    if cfg.qk_norm:
-        missing.append("qk-norm")
+    if any(s.mixer != "attn" or s.mlp not in ("dense", "moe")
+           for s in cfg.layer_specs()):
+        missing.append("non-attention mixers")
     if cfg.cross_attention:
         missing.append("cross-attention")
     if cfg.num_codebooks > 1:
         missing.append("codebooks")
-    if cfg.norm != "rmsnorm" or cfg.act != "silu":
-        missing.append(f"{cfg.norm} / {cfg.act}")
-    if cfg.logit_soft_cap:
-        missing.append("logit soft-capping")
     if missing:
         raise NotImplementedError(f"{cfg.name}: the torch port does not "
                                   f"serve {', '.join(missing)} yet")
@@ -78,6 +81,21 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+               device) -> dict:
+    """{"norm1", "attn", "norm2", "mlp" | "moe"} by the layer's spec, as
+    the JAX package's ``init_layer``; norms follow ``cfg.norm``."""
+    dt = dtype_of(cfg.dtype)
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dt, device),
+         "attn": attn_mod.init_attention(gen, cfg),
+         "norm2": init_norm(cfg.norm, cfg.d_model, dt, device)}
+    if spec.mlp == "moe":
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
+
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
@@ -89,13 +107,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = dtype_of(cfg.dtype)
     params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt)}
-    params["layers"] = [
-        {"norm1": init_norm(cfg.d_model, dt, device),
-         "attn": attn_mod.init_attention(gen, cfg),
-         "norm2": init_norm(cfg.d_model, dt, device),
-         "mlp": init_mlp(gen, cfg)}
-        for _ in range(cfg.num_layers)]
-    params["final_norm"] = init_norm(cfg.d_model, dt, device)
+    params["layers"] = [init_layer(gen, cfg, spec, device)
+                        for spec in cfg.layer_specs()]
+    params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dt, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
     return params
@@ -113,10 +127,28 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor
 
 def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
-    """x: (B, [S,] D) -> f32 logits (B, [S,] vocab)."""
+    """x: (B, [S,] D) -> f32 logits (B, [S,] vocab), soft-capped by
+    ``cfg.logit_soft_cap`` when it is set."""
     x = apply_norm(params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head.T).float()
+    return soft_cap((x @ head.T).float(), cfg.logit_soft_cap)
+
+
+def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
+              dense_combine: bool):
+    """The layer's second half: x + MLP(norm2(x)) -> (x, MoE aux loss or
+    None). An MoE layer takes the dense all-expert combine over every token
+    of x when ``dense_combine`` (the serving step and one-shot decode), else
+    the capacity dispatch per example of x (B, S, D) (the one-shot prefill
+    and training), as the JAX package's call sites do."""
+    h = apply_norm(lp["norm2"], x)
+    if spec.mlp != "moe":
+        return x + mlp_forward(lp["mlp"], cfg, h), None
+    if dense_combine:
+        out = moe_forward_decode(lp["moe"], cfg, h.reshape(-1, h.shape[-1]))
+        return x + out.reshape(h.shape), None
+    out, stats = moe_forward(lp["moe"], cfg, h)
+    return x + out, stats.aux_loss
 
 
 # ---------------------------------------------------------------------------
@@ -131,9 +163,9 @@ def forward_train(params: dict, cfg: ModelConfig, tokens, cond=None,
     ``remat``: recompute each layer in the backward pass
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
     the scanned layer), so that autograd keeps one (B, S, D) input per
-    layer. ``aux`` is 0: the port has no MoE layer (``check_supported``).
-    ``cond`` (cross-attention) and ``ac`` (activation sharding) are not
-    ported and raise when given."""
+    layer. ``aux`` is the sum of the MoE layers' load-balance losses (0
+    without MoE layers). ``cond`` (cross-attention) and ``ac`` (activation
+    sharding) are not ported and raise when given."""
     if cond is not None or ac is not None:
         raise NotImplementedError("the torch port trains without "
                                   "cross-attention and without sharding: "
@@ -143,11 +175,15 @@ def forward_train(params: dict, cfg: ModelConfig, tokens, cond=None,
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, spec in zip(params["layers"], cfg.layer_specs()):
         def layer(x, lp=lp, spec=spec):
-            return layer_forward(lp, cfg, spec, x, positions, train=True)[0]
-        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a, _ = layer_forward(lp, cfg, spec, x, positions, train=True)
+            return (x,) if a is None else (x, a)
+        out = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        x = out[0]
+        if len(out) > 1:
+            aux = aux + out[1]
     return lm_logits(params, cfg, x), aux
 
 
@@ -242,8 +278,7 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
         policy.chunk_prefill_evict(kvc, ccfg, active=prefill_mask,
                                    window=window, page_scores=pscores)
     x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
-    h2 = apply_norm(lp["norm2"], x)
-    return x + mlp_forward(lp["mlp"], cfg, h2), tap
+    return mlp_block(lp, cfg, spec, x, dense_combine=True)[0], tap
 
 
 @torch.no_grad()
@@ -346,21 +381,21 @@ def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
 
 def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   plain_kernels: bool = False, train: bool = False):
-    """One attention + dense-MLP layer over a contiguous sequence.
-    Returns (x, (k, v)) with k post-RoPE. ``train``: attention by the
-    training route (``attention_forward``'s), never a kernel."""
+    """One attention + MLP layer over a contiguous sequence. Returns (x,
+    MoE aux loss or None, (k, v)) with k post-RoPE. ``train``: attention
+    by the training route (``attention_forward``'s), never a kernel."""
     h = apply_norm(lp["norm1"], x)
     a, kv = attn_mod.attention_forward(lp["attn"], cfg, spec, h, positions,
                                        plain=plain_kernels, train=train)
-    x = x + a
-    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["norm2"], x)), kv
+    x, aux = mlp_block(lp, cfg, spec, x + a, dense_combine=False)
+    return x, aux, kv
 
 
 def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
                    valid, policy: EvictionPolicy, ccfg: CacheConfig,
                    seq_len_hint: int, plain_kernels: bool):
     """Layer forward that also builds its decode cache (Alg.2)."""
-    x, (k, v) = layer_forward(lp, cfg, spec, x, positions, plain_kernels)
+    x, _, (k, v) = layer_forward(lp, cfg, spec, x, positions, plain_kernels)
     window = attn_mod.spec_window(cfg, spec)
     hint = seq_len_hint if not window else min(seq_len_hint,
                                                window + ccfg.page_size)
@@ -429,7 +464,7 @@ def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc,
     decode_append(kvc, k, v, cur_pos, policy, ccfg, active=active,
                   attend=attend)
     x = x + out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
-    return x + mlp_forward(lp["mlp"], cfg, apply_norm(lp["norm2"], x))
+    return mlp_block(lp, cfg, spec, x, dense_combine=True)[0]
 
 
 @torch.no_grad()

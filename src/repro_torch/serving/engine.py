@@ -331,6 +331,9 @@ class Engine:
         step_no = self.stats.steps
         lin_events = []
         if self.obs.ledger is not None:
+            # the first layer, as the JAX engine's first attention layer:
+            # a local (windowed) one on gemma3, whose block table is
+            # narrower than the global layers'
             snap = lineage_snapshot_host(self.cache.layers[0])
             ctx = StepPlanContext(
                 reset_slots=frozenset(plan.reset),
