@@ -57,9 +57,15 @@ Phases (any failure exits non-zero; none is skipped):
               one-shot, gemma3 at budget 128 (above the window) and mixtral
               at 48 (below it), and 2 AdamW steps of each on the card
               against the CPU (B 1 x
-              S 1024; losses and aux losses within 1e-4 relative)
+              S 1024; losses and aux losses within 1e-4 relative). Then the
+              recurrent families the same way: the reduced f32 jamba
+              (attention, then 3 mamba layers; budget 48) and xlstm (3
+              mLSTM, 1 sLSTM; no attention layer, so no kernel and no
+              lineage ledger): no prefix adoption (sharing is off for
+              them), and each run's recurrent states within 1e-3 of their
+              magnitude of the other's (printed)
   4. serve    llama-3.2-1b at full width (bf16, random weights from a seed;
-              8 of its 16 layers, a depth cut for the run time since PR 17):
+              4 of its 16 layers, a depth cut for the run time):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
               prefix), 32 greedy tokens each, under paged_eviction (page 16,
               budget 512, max batch 8, chunk 256, decode splits 4). Checks
@@ -79,14 +85,14 @@ Phases (any failure exits non-zero; none is skipped):
               kernel (all 16 launches on the tensor-core route), compressed
               to budget 512 by Alg. 2, then 32 greedy tokens under Alg. 3,
               once on a bf16 and once on an int8 pool
-  6. int8     phase 4's workload (4 requests) served on an int8 pool at 8
+  6. int8     phase 4's workload (4 requests) served on an int8 pool at 4
               of the 16 layers (full width; depth cut for the run time;
               every prefill launch on the CUDA-core route: a bf16 query
               over the dequantized f32 pool)
   7. baselines the paper's comparison: streaming_llm, inverse_key_l2 and
               keydiff each serve 4 of phase 4's requests (16 greedy tokens)
               and run phase 5's prompts one-shot (bf16, 16 decode steps),
-              at 4 of the model's 16 layers (full width; depth cut for the
+              at 2 of the model's 16 layers (full width; depth cut for the
               run time).
               Checks after every step the budget (budget + page, plus the
               shared prefix for rows that share one: copy-on-write sheds it
@@ -108,7 +114,8 @@ Phases (any failure exits non-zero; none is skipped):
               layer's wq/wk/wv gradient nonzero, no kernel launched; a
               params + AdamW-state checkpoint restored bit for bit.
               9b: llama-3.2-1b at full width (bf16, random weights from a
-              seed) trains 6 steps at B 2 x S 4096 (warmup 2): losses
+              seed; 8 of its 16 layers, a depth cut for the run time)
+              trains 6 steps at B 2 x S 4096 (warmup 2): losses
               finite and falling, every layer's attention weights with a
               gradient at step 1, no kernel launched; prints the median
               step time of steps 2-6, tokens/s, peak memory and the model
@@ -141,6 +148,21 @@ Phases (any failure exits non-zero; none is skipped):
               copy-on-write fork, as in the JAX package); prints forced
               rollovers and live tokens by layer kind, and mixtral's MoE
               share of the mixed steps (host-clocked).
+ 11. recurrent jamba-1.5-large (4 of 72 layers: attention + dense MLP, mamba
+              + MoE, mamba + dense, mamba + MoE; 23.02 B parameters) and
+              xlstm-1.3b (8 of 48: 7 mLSTM, 1 sLSTM) at full width (bf16,
+              random weights from a seed; depth cut for the card's memory
+              and the run time): each serves phase 10's 4 requests (page
+              16, max batch 4, 4 chunks of 256 a step, decode splits 4,
+              paged_eviction at budget 512, 16 greedy tokens), then 4
+              prompts of 2048 tokens one-shot (16 decode steps). Checks
+              every request's token count, no prefix adoption, every
+              recurrent state finite after every step; jamba: K1 and K3
+              (tensor cores) served, K5 (tensor cores) and K1 one-shot,
+              pages evicted, F1-F4 and the devstats identities at every
+              step; xlstm: no kernel launched. Prints tok/s, step times,
+              one-shot times and the recurrent layers' share of the mixed
+              steps (host-clocked, synchronized around each layer).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
@@ -156,6 +178,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -824,13 +847,52 @@ def time_kernels(torch, F, shape=None, dname="bfloat16", full=True):
 # phases 3-6: the engine and the one-shot path
 # ---------------------------------------------------------------------------
 
+def states(layers):
+    """The recurrent states among a model's layer caches, in depth
+    order."""
+    from repro_torch.core.paged_cache import PagedLayerCache
+    return [c for c in layers if not isinstance(c, PagedLayerCache)]
+
+
+def state_tensors(st):
+    return [getattr(st, f.name) for f in dataclasses.fields(st)]
+
+
+def recurrent_gap(torch, layers_a, layers_b):
+    """(largest |a - b| over the recurrent states of two runs, the states'
+    largest finite magnitude); entries equal on both (the -inf of an
+    unused xLSTM row among them) count 0, and any other non-finite entry
+    on either run makes the gap inf."""
+    gap = mag = 0.0
+    for sa, sb in zip(states(layers_a), states(layers_b)):
+        for a, b in zip(state_tensors(sa), state_tensors(sb)):
+            d = torch.where(a == b, 0.0, (a.float() - b.float()).abs())
+            g = float(d.nan_to_num(math.inf, posinf=math.inf).max())
+            gap = max(gap, g)
+            mag = max(mag, float(a.float().abs().nan_to_num(
+                0.0, posinf=0.0, neginf=0.0).max()))
+    return gap, mag
+
+
+def check_states_finite(torch, layers, rows, what):
+    """Every recurrent state of batch ``rows`` finite."""
+    for i, st in enumerate(states(layers)):
+        for f, t in zip(dataclasses.fields(st), state_tensors(st)):
+            if not bool(torch.isfinite(t[rows]).all()):
+                fail(f"{what}: recurrent layer {i} {f.name} not finite")
+
+
 def pool_totals(torch, eng):
-    """[sum(ref_count), free pages, mapped entries] over every layer (one
-    device read)."""
+    """[sum(ref_count), free pages, mapped entries] over every attention
+    layer (one device read); None without one."""
+    from repro_torch.models.transformer import paged_layers
+    ps = paged_layers(eng.cache.layers)
+    if not ps:
+        return None
     return torch.stack([torch.stack([c.ref_count.sum(),
                                      (c.ref_count == 0).sum(),
                                      (c.block_table >= 0).sum()])
-                        for c in eng.cache.layers]).sum(0).cpu().numpy()
+                        for c in ps]).sum(0).cpu().numpy()
 
 
 def check_conservation(np, devstats, before, after, st):
@@ -844,7 +906,8 @@ def check_conservation(np, devstats, before, after, st):
 
 
 def check_invariants(np, layers):
-    for i, c in enumerate(layers):
+    from repro_torch.models.transformer import paged_layers
+    for i, c in enumerate(paged_layers(layers)):
         ref = c.ref_count.cpu().numpy()
         bt = c.block_table.cpu().numpy()
         pos = c.pos.cpu().numpy()
@@ -867,8 +930,11 @@ def run_engine(torch, np, devstats, eng, prompts, new_tokens, on_step=None):
     identities (and ``on_step(eng)``, when given) at every step. Returns
     ({request id: tokens}, per-step devstats, wall seconds without the
     checks, per-step wall seconds of ``eng.step()``); with the lineage
-    ledger on, it is reconciled after every step."""
+    ledger on, it is reconciled after every step. A model without an
+    attention layer has no devstats and no pool to conserve (None per
+    step)."""
     from repro_torch.core.paged_cache import lineage_snapshot_host
+    from repro_torch.models.transformer import paged_layers
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
     per_step, step_walls = [], []
@@ -883,14 +949,16 @@ def run_engine(torch, np, devstats, eng, prompts, new_tokens, on_step=None):
         c0 = time.perf_counter()
         led = eng.obs.ledger
         if led is not None:
-            errs = led.reconcile(lineage_snapshot_host(eng.cache.layers[0]))
+            errs = led.reconcile(lineage_snapshot_host(
+                paged_layers(eng.cache.layers)[0]))
             if errs:
                 fail(f"lineage ledger after step {eng.stats.steps}: {errs}")
-        check_conservation(np, devstats, before, pool_totals(torch, eng),
-                           eng.last_stats)
+        if before is not None:
+            check_conservation(np, devstats, before,
+                               pool_totals(torch, eng), eng.last_stats)
         if on_step is not None:
             on_step(eng)
-        per_step.append(eng.last_stats.copy())
+        per_step.append(None if before is None else eng.last_stats.copy())
         t_check += time.perf_counter() - c0
         if not more:
             break
@@ -901,10 +969,11 @@ def run_engine(torch, np, devstats, eng, prompts, new_tokens, on_step=None):
 
 
 def pool_state(np, layers):
-    """Per layer: the integer pool state (one array) and, on int8 pools,
-    (int8 K and V, their scales)."""
+    """Per attention layer: the integer pool state (one array) and, on int8
+    pools, (int8 K and V, their scales)."""
+    from repro_torch.models.transformer import paged_layers
     ints, q8 = [], []
-    for c in layers:
+    for c in paged_layers(layers):
         ints.append(np.concatenate([
             t.cpu().numpy().ravel()
             for t in (c.block_table, c.ref_count, c.pos, c.cur_page,
@@ -1025,9 +1094,13 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
     versions (with a trace, the lineage ledger and a timeline), and, for
     paged_eviction on a float pool, through the kernels once more with
     regret probes every 2 decode steps. ``arch``: that arch's reduced config
-    instead (a windowed family: prompts of 96-160 tokens, past its window of
-    64; no probe run; prefix adoptions printed, not required, since its
-    windowed layers shed prompt pages)."""
+    instead (prompts of 96-160 tokens, past a windowed family's window of
+    64; no probe run; prefix adoptions printed, not required, since
+    windowed layers shed prompt pages). A recurrent family (jamba, xlstm)
+    must adopt no prefix (sharing is off for it) and its recurrent states
+    after the two runs must agree within 1e-3 of their magnitude; xlstm,
+    with no attention layer, has no lineage ledger and launches no
+    kernel."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
@@ -1046,6 +1119,7 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
                .astype(np.int32) for i in range(8)]
     probe = policy == "paged_eviction" and kv_dtype == "float32" and \
         arch is None
+    attn = cfg.num_attn_layers() > 0
     out, inputs, obs_out = [], [], []
     with tempfile.TemporaryDirectory() as tmp:
         for plain, every in ((False, 0), (True, 0)) + \
@@ -1056,7 +1130,7 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
                 dtype=kv_dtype), max_batch=4,
                 max_prompt_len=32 + rest[1], max_new_tokens=16, chunk_size=32,
                 decode_splits=2, device="cuda", plain_kernels=plain,
-                obs=ObsConfig(trace_path=trace, lineage=True, timeline=True,
+                obs=ObsConfig(trace_path=trace, lineage=attn, timeline=True,
                               regret_every=every))
             seen, undo = record_quantize()
             reset_launches()
@@ -1076,8 +1150,8 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
                 break
             inputs.append(seen)
             out.append((toks, steps, *pool_state(np, eng.cache.layers),
-                        eng.stats))
-    (tk, sk, ik, qk, stk), (tp, sp, ip, qp, stp) = out
+                        eng.stats, eng.cache.layers))
+    (tk, sk, ik, qk, stk, cache_k), (tp, sp, ip, qp, stp, cache_p) = out
     what = f"engine parity ({arch or 'reduced, G 2'}, {policy}, {kv_dtype}" \
         f", budget {budget})"
     (rk, lk, tlk, _), (rp, _, tlp, _) = obs_out[:2]
@@ -1117,12 +1191,24 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
     # may a windowed family's layers; above its window, the window alone
     # may drop its pages (freed) and force its rollovers
     dropped = getattr(stk, evicted_stat(policy))
-    if arch is not None:
+    if arch is not None and attn:
         dropped += stk.forced_evictions + int(
             sum(st[devstats.PAGES_FREED] for st in sk))
-    if not dropped or (policy == "paged_eviction" and arch is None and
-                       not stk.shared_prefix_hits):
+    if (attn and not dropped) or (policy == "paged_eviction" and
+                                  arch is None and
+                                  not stk.shared_prefix_hits):
         fail(f"{what} exercised too little: {stk}")
+    if states(cache_k):
+        gap, mag = recurrent_gap(torch, cache_k, cache_p)
+        launched = {k: v for k, v in obs_out[0][1].items() if v}
+        if stk.shared_prefix_hits or gap > 1e-3 * mag or \
+                (not attn and launched):
+            fail(f"{what}: {stk.shared_prefix_hits} prefix adoptions, "
+                 f"recurrent states {gap:.3g} apart (magnitude {mag:.3g}), "
+                 f"launches {launched}")
+        print(f"  engine {arch}: recurrent states of the two runs at most "
+              f"{gap:.3g} apart (magnitude {mag:.3g}, {gap / mag:.3g} of "
+              f"it); launches {launched}", flush=True)
     print(f"  engine {arch or ''} {policy} {kv_dtype:8s} budget {budget}: "
           f"{len(tk)} requests, {len(sk)} "
           f"steps: tokens, per-step devstats, pool state, trace step "
@@ -1140,12 +1226,14 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
     vectors after the prefill (a wholesale reset, it emits none), so every
     decode step's events are read; ``on_step(layers)``, when given, after
     each step (its time counts). Returns (tokens (B, steps), layer caches,
-    live tokens per row after prefill, per-step devstats (steps, NSTATS),
-    prefill seconds, decode seconds)."""
+    live tokens per attention layer and row after prefill, per-step
+    devstats (steps, NSTATS; zeros without an attention layer), prefill
+    seconds, decode seconds)."""
     from repro_torch.core import devstats
     from repro_torch.core.policies import get_policy
     from repro_torch.models.transformer import (collect_step_stats,
-                                                decode_step, forward_prefill)
+                                                decode_step, forward_prefill,
+                                                paged_layers)
     pol = get_policy(ccfg.policy)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1156,15 +1244,20 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
     tok = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    live = torch.stack([c.total_valid() for c in cache.layers])
-    for c in cache.layers:
+    ps = paged_layers(cache.layers)
+    live = torch.stack([c.total_valid() for c in ps]) if ps else \
+        torch.zeros((0, tokens.shape[0]), dtype=torch.int32)
+    for c in ps:
         c.stats = devstats.zeros(c.device)
+    none = torch.zeros((devstats.NSTATS,), dtype=torch.int32,
+                       device=tokens.device)
     out, stats = [], []
     for _ in range(steps):
         logits, cache = decode_step(params, cfg, tok, cache, pol, ccfg,
                                     decode_splits=decode_splits,
                                     fused_scores=True, plain_kernels=plain)
-        stats.append(collect_step_stats(cache))
+        st = collect_step_stats(cache)
+        stats.append(none if st is None else st)
         tok = logits.argmax(-1).to(torch.int32)
         out.append(tok)
         if on_step is not None:
@@ -1210,8 +1303,14 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction",
     what = f"one-shot parity ({arch or 'reduced, G 2'}, {policy}, " \
         f"{kv_dtype}, S {S}, budget {budget})"
     dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
-    if not launches["flash_attention"] or not launches[dec]:
-        fail(f"{what}: kernels not launched: {launches}")
+    attn = cfg.num_attn_layers() > 0
+    if attn != bool(launches["flash_attention"] and launches[dec]) or \
+            (not attn and any(launches.values())):
+        fail(f"{what}: kernels not launched as the layers ask: {launches}")
+    gap, mag = recurrent_gap(torch, lk, lp)
+    if gap > 1e-3 * mag:
+        fail(f"{what}: recurrent states {gap:.3g} apart (magnitude "
+             f"{mag:.3g})")
     if not np.array_equal(tk, tp):
         fail(f"{what}: greedy tokens differ")
     if not np.array_equal(sk, sp):
@@ -1226,7 +1325,7 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction",
     if arch is not None:        # above its window: forced rollovers
         evicted += int(sk[:, devstats.FORCED_EVICTIONS].sum())
     unit = name.removesuffix("_evicted")
-    if not evicted:
+    if attn and not evicted:
         fail(f"{what}: no {unit} evicted in decode")
     if qk:
         print(f"  one-shot int8 quantizer inputs: "
@@ -1235,7 +1334,24 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction",
           f"{budget}: {tk.shape[0]} prompts, "
           f"8 steps: tokens, per-step devstats and integer cache state "
           f"equal; int8 values one step apart {flips[0]} of {flips[1]}; "
-          f"evicted {evicted} {unit}; launches {launches}", flush=True)
+          f"evicted {evicted} {unit}; recurrent states {gap:.3g} apart "
+          f"(magnitude {mag:.3g}); launches {launches}", flush=True)
+
+
+def serving_prompts(np, vocab, n_requests, max_len, prompt_len=None):
+    """``n_requests`` prompts of 1024-``max_len`` tokens from seed 0, every
+    other one opening with a shared 256-token prefix; each cut to
+    ``prompt_len`` tokens when given."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, 256)
+    prompts = []
+    for i in range(n_requests):
+        n = int(rng.integers(1024, max_len + 1))
+        head = shared if i % 2 == 0 else rng.integers(0, vocab, 256)
+        prompts.append(np.concatenate(
+            [head, rng.integers(0, vocab, n - 256)]).astype(np.int32)
+            [:prompt_len])
+    return prompts
 
 
 def serve_full_width(torch, np, kv_dtype, n_requests,
@@ -1281,15 +1397,8 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
           f"pool payload {eng.pool_bytes()['payload_total'] / 2 ** 20:.1f} "
           f"MiB over {cfg.num_layers} layers ({kv_dtype}, {policy}, slots "
           f"per row by layer kind {slots})", flush=True)
-    rng = np.random.default_rng(0)
-    shared = rng.integers(0, cfg.vocab_size, 256)
-    prompts = []
-    for i in range(n_requests):
-        n = int(rng.integers(1024, max_len + 1))
-        head = shared if i % 2 == 0 else rng.integers(0, cfg.vocab_size, 256)
-        prompts.append(np.concatenate(
-            [head, rng.integers(0, cfg.vocab_size, n - 256)]).astype(np.int32)
-            [:prompt_len])
+    prompts = serving_prompts(np, cfg.vocab_size, n_requests, max_len,
+                              prompt_len)
     if on_engine is not None:
         on_engine(eng)
     reset_launches()
@@ -1473,11 +1582,15 @@ def baseline_checks(torch, devstats, policy, limit, n_sinks, seen,
 
 
 # depth cuts for the run time (of llama-3.2-1b's 16 layers, full width):
-# phase 4, phase 6, phase 7 (served and one-shot) and phase 8
-SERVE_LAYERS = 8
-INT8_SERVE_LAYERS = 8
-BASELINE_LAYERS = 4
+# phase 4, phase 6, phase 7 (served and one-shot), phase 8 and 9b; 4, 6, 7
+# and 9b at half their earlier depth, so that the run with phase 3's
+# recurrent runs and phase 11 takes no longer than it did without them
+# (PERF.md section 4 gives what each cut saves)
+SERVE_LAYERS = 4
+INT8_SERVE_LAYERS = 4
+BASELINE_LAYERS = 2
 REGRET_LAYERS = 8
+TRAIN_LAYERS = 8
 
 
 def baselines_full_width(torch, np):
@@ -1872,6 +1985,176 @@ def families_full_width(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+# arch -> layers run, the source's widths: jamba 4 of 72 (attention + dense
+# MLP, mamba + MoE, mamba + dense, mamba + MoE; 23.02 B parameters, 46.0
+# GB in bf16, beside one attention layer's pool; its period of 8 layers
+# would be 45.2 B, ~90 GB, past the card); xlstm one period, 8 of 48 (7
+# mLSTM, 1 sLSTM; 0.508 B; the whole model would fit, but the serving
+# step's per-token scan is host-bound)
+RECURRENT = {"jamba-1.5-large-398b": 4, "xlstm-1.3b": 8}
+
+
+def recurrent_full_width(torch, np, arch, num_layers, card):
+    """One recurrent family at full width (bf16, random weights from seed
+    0, the first ``num_layers`` layers): 4 requests of 1024-3072 prompt
+    tokens (2 share a 256-token prefix), 16 greedy tokens, page 16, max
+    batch 4, chunk 256 with a token budget of 4 chunks a step, decode
+    splits 4, paged_eviction at budget 512; then 4 prompts of 2048 tokens
+    one-shot, 16 decode steps. Checks every request's token count, no
+    prefix adoption (sharing is off for a recurrent model), every recurrent
+    state finite after every step; with an attention layer (jamba) K1 and
+    K3 (tensor cores) served, K5 (tensor cores) and K1 one-shot, pages
+    evicted, F1-F4 and the devstats identities at every step; without one
+    (xlstm) no kernel launched. Prints the recurrent layers' share of the
+    mixed steps (host-clocked: the card synchronized around each layer),
+    each reading beside ``card`` (its name and power limit). Returns the
+    launches of the serving and the one-shot runs."""
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.core import devstats
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import Engine
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, num_layers=num_layers)
+    attn = cfg.num_attn_layers() > 0
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"  {arch}: {num_layers} of {full.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters "
+          f"({sum(nbytes(p) for p in _leaves(params)) / 2 ** 30:.2f} GiB; "
+          f"{before / 2 ** 30:.2f} GiB allocated before), initialised in "
+          f"{time.perf_counter() - t0:.1f} s; layer kinds "
+          f"{[s.mixer + '/' + s.mlp for s in cfg.layer_specs()]}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    ccfg = CacheConfig(page_size=16, cache_budget=512,
+                       policy="paged_eviction", dtype="bfloat16")
+    eng = Engine(cfg, params, cache_cfg=ccfg, max_batch=4,
+                 max_prompt_len=3072, max_new_tokens=FAMILY_NEW_TOKENS,
+                 chunk_size=256, token_budget=4 * 256, decode_splits=4,
+                 device="cuda")
+    seen = {"used": set(), "rec_s": 0.0, "mixed_rec_s": 0.0, "plan": None}
+    plan = eng.scheduler.plan
+
+    def recorded():
+        seen["plan"] = plan()
+        return seen["plan"]
+    eng.scheduler.plan = recorded
+
+    def on_step(eng):
+        check_invariants(np, eng.cache.layers)
+        seen["used"] |= {i for i, r in enumerate(eng.scheduler.slots)
+                         if r is not None}
+        check_states_finite(torch, eng.cache.layers, sorted(seen["used"]),
+                            f"{arch} serving step {eng.stats.steps}")
+        if seen["plan"].prefill:
+            seen["mixed_rec_s"] += seen["rec_s"]
+        seen["rec_s"] = 0.0
+
+    step_recurrent = tf._step_recurrent
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_recurrent(*args, **kw)
+        torch.cuda.synchronize()
+        seen["rec_s"] += time.perf_counter() - t
+        return out
+
+    prompts = serving_prompts(np, cfg.vocab_size, 4, 3072)
+    tf._step_recurrent = timed
+    reset_launches()
+    try:
+        tokens, _, wall, _ = run_engine(torch, np, devstats, eng, prompts,
+                                        FAMILY_NEW_TOKENS, on_step)
+    finally:
+        tf._step_recurrent = step_recurrent
+    launches = read_launches()
+    s = eng.stats
+    mixed = s.steps - s.decode_steps
+    print(f"  {arch} serving: {len(tokens)} requests, {s.tokens_generated} "
+          f"tokens, {s.steps} steps ({mixed} mixed, {s.decode_steps} "
+          f"decode-only) in {wall:.2f} s: {s.tokens_generated / wall:.1f} "
+          f"tok/s; mean step {1e3 * s.prefill_s / max(mixed, 1):.2f} ms "
+          f"mixed, {1e3 * s.decode_s / max(s.decode_steps, 1):.2f} ms "
+          f"decode-only; recurrent layers {1e3 * seen['mixed_rec_s']:.1f} ms "
+          f"of {1e3 * s.prefill_s:.1f} ms in the mixed steps "
+          f"({seen['mixed_rec_s'] / s.prefill_s:.3f}; host-clocked, the card "
+          f"synchronized around each layer); pages evicted "
+          f"{s.pages_evicted}, forced {s.forced_evictions}, prefix "
+          f"adoptions {s.shared_prefix_hits}; pool {eng.pool_stats()}; "
+          f"launches {launches}; {card}", flush=True)
+    if len(tokens) != 4 or any(len(t) != FAMILY_NEW_TOKENS
+                               for t in tokens.values()) or \
+            any(not 0 <= x < cfg.vocab_size for t in tokens.values()
+                for x in t):
+        fail(f"{arch} serving: not every request finished with "
+             f"{FAMILY_NEW_TOKENS} tokens in the vocabulary: {tokens}")
+    if s.shared_prefix_hits:
+        fail(f"{arch} serving: {s.shared_prefix_hits} prefix adoptions with "
+             f"sharing off")
+    if attn:
+        if not launches["paged_decode"] or not launches["paged_prefill"] or \
+                launches["paged_prefill/tensor_core"] != \
+                launches["paged_prefill"] or launches["paged_decode_int8"] \
+                or not s.pages_evicted:
+            fail(f"{arch} serving: K1 and K3 (tensor cores) not as expected "
+                 f"or no page evicted: {launches}, {s}")
+    elif any(launches.values()):
+        fail(f"{arch} serving: kernels launched without an attention layer: "
+             f"{launches}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # one-shot: equal lengths (a padded prompt would run its padding
+    # through the recurrence, fault 9)
+    B, S = 4, 2048
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    valid = torch.ones((B, S), dtype=torch.bool, device="cuda")
+
+    def on_decode(layers):
+        check_invariants(np, layers)
+        check_states_finite(torch, layers, list(range(B)),
+                            f"{arch} one-shot decode")
+
+    reset_launches()
+    toks, layers, live, stats, t_pre, t_dec = oneshot_run(
+        torch, params, cfg, ccfg, tokens, valid, FAMILY_NEW_TOKENS,
+        plain=False, decode_splits=4, on_step=on_decode)
+    one = read_launches()
+    check_states_finite(torch, layers, list(range(B)), f"{arch} one-shot")
+    evicted = int(stats[:, devstats.PAGES_EVICTED].sum())
+    L = cfg.num_attn_layers()
+    if attn:
+        if one["flash_attention"] != L or \
+                one["flash_attention/tensor_core"] != L or \
+                not one["paged_decode"] or not evicted or \
+                int(live.max()) > 512 + 16:
+            fail(f"{arch} one-shot: not {L} flash launches on the tensor "
+                 f"cores, decode launches, evictions and the budget: {one}, "
+                 f"{evicted} pages evicted, {int(live.max())} live tokens")
+    elif any(one.values()):
+        fail(f"{arch} one-shot: kernels launched without an attention "
+             f"layer: {one}")
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{arch} one-shot: a token outside the vocabulary")
+    print(f"  {arch} one-shot, {B} x {S}: prefill {1e3 * t_pre:.1f} ms, mean "
+          f"decode step {1e3 * t_dec / FAMILY_NEW_TOKENS:.2f} ms; "
+          f"{evicted} pages evicted in decode; launches {one}; {card}",
+          flush=True)
+    print(f"  {arch}: peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB", flush=True)
+    del layers, params
+    torch.cuda.empty_cache()
+    return {"serving": launches, "one_shot": one}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: training, and the trained weights handed to serving and one-shot
 # ---------------------------------------------------------------------------
 
@@ -1881,6 +2164,11 @@ TINY = dict(name="tiny-recall", arch_type="dense",
             num_heads=4, num_kv_heads=4, head_dim=32, d_ff=512,
             vocab_size=64, norm="rmsnorm", act="silu", dtype="float32")
 TRAIN_RTOL = 1e-4                    # losses, card against CPU
+# the weights of each mixer that must get a gradient in 9a
+MIXER_WEIGHTS = {"attn": ("wq", "wk", "wv"),
+                 "mamba": ("in_proj", "x_proj", "dt_proj", "A_log"),
+                 "mlstm": ("wq", "wk", "wv", "w_igate", "w_fgate"),
+                 "slstm": ("w_gates", "r_z", "r_i", "r_f", "r_o")}
 GRAD_TOL = (1e-5, 1e-4)              # step-1 gradients: atol, rtol
 RECALL_GATE = 0.60                   # TINY, full cache at budget 32
 
@@ -2002,32 +2290,36 @@ def train_parity(torch, np, arch="llama-3.2-1b", steps=4, seq=3072):
         if float(err) > 1:
             fail(f"9a: step-1 gradient {path} beyond atol {atol} + rtol "
                  f"{rtol}: {float(err):.3g} of the tolerance")
-    for i, lp in enumerate(gk["layers"]):
-        for name in ("wq", "wk", "wv"):
-            if not float(lp["attn"][name].abs().max()) > 0:
-                fail(f"9a: layer {i} {name} has no gradient on the card")
+    for i, (lp, spec) in enumerate(zip(gk["layers"], cfg.layer_specs())):
+        for name in MIXER_WEIGHTS[spec.mixer]:
+            if not float(lp[spec.mixer][name].abs().max()) > 0:
+                fail(f"9a: layer {i} {spec.mixer} {name} has no gradient on "
+                     f"the card")
     _, size, _, _ = _checkpoint_round_trip(torch, {"params": pk, "opt": ok},
                                            "9a")
     print(f"  9a reduced {arch} f32, B 1 x S {seq}, TF32 off: losses card "
           f"{[f'{x:.6f}' for x in lk]}, CPU {[f'{x:.6f}' for x in lc]} "
           f"({rel:.3g} relative, tol {TRAIN_RTOL}); aux {ak} ({rel_aux:.3g} "
           f"relative); step-1 gradients within {worst:.3g} of atol "
-          f"{atol} + rtol {rtol}, wq/wk/wv nonzero in every layer; no kernel "
+          f"{atol} + rtol {rtol}, every mixer's weights "
+          f"({', '.join(sorted({s.mixer for s in cfg.layer_specs()}))}) "
+          f"nonzero in every layer; no kernel "
           f"launched; params + AdamW checkpoint ({size} bytes) restored bit "
           f"for bit", flush=True)
 
 
 def train_full_width(torch, np):
-    """9b: llama-3.2-1b at full width (bf16, random weights from seed 0):
-    6 AdamW steps of lm_batch at B 2 x S 4096 (the blocked route), lr 1e-4,
-    warmup 2, by :func:`train_run`;
+    """9b: llama-3.2-1b at full width (bf16, random weights from seed 0;
+    TRAIN_LAYERS of its 16 layers): 6 AdamW steps of lm_batch at B 2 x S
+    4096 (the blocked route), lr 1e-4, warmup 2, by :func:`train_run`;
     then a params checkpoint restored bit for bit and 2 requests of 1024
     prompt tokens served from the restored weights (which require grad).
     Returns the serving launches."""
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import init_model
     from repro_torch.training import AdamWConfig, DataConfig, lm_batch
-    cfg = get_arch("llama-3.2-1b")
+    cfg = dataclasses.replace(get_arch("llama-3.2-1b"),
+                              num_layers=TRAIN_LAYERS)
     B, S, steps = 2, 4096, 6
     params = _require_grad(init_model(cfg, seed=0, device="cuda"))
     n_params = sum(p.numel() for p in _leaves(params))
@@ -2051,7 +2343,8 @@ def train_full_width(torch, np):
     med = float(np.median(walls[1:]))
     L, H, hd = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
     flops = 6 * n_params * B * S + 12 * L * B * H * hd * S * S
-    print(f"  9b llama-3.2-1b bf16, {n_params} parameters, B {B} x S {S}: "
+    print(f"  9b llama-3.2-1b bf16, {L} of 16 layers, {n_params} parameters, "
+          f"B {B} x S {S}: "
           f"losses {[f'{x:.4f}' for x in losses]}; step times "
           f"{[f'{1e3 * w:.1f}' for w in walls]} ms, median of steps 2-{steps} "
           f"{1e3 * med:.1f} ms, {B * S / med:.0f} tokens/s; peak memory "
@@ -2070,7 +2363,7 @@ def train_full_width(torch, np):
           f"restored bit for bit in {t_load:.1f} s", flush=True)
     launches, eng, _, _ = serve_full_width(
         torch, np, "bfloat16", 2, new_tokens=8, max_batch=2,
-        params=restored["params"], prompt_len=1024)
+        params=restored["params"], prompt_len=1024, num_layers=TRAIN_LAYERS)
     graph = [f for c in eng.cache.layers for f, t in vars(c).items()
              if isinstance(t, torch.Tensor) and t.requires_grad]
     if graph or not all(p.requires_grad for p in _leaves(restored)):
@@ -2182,7 +2475,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/10] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/11] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -2192,7 +2485,7 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/10] kernels against their plain versions")
+    phase("[2/11] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
@@ -2202,7 +2495,7 @@ def main() -> None:
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
 
-    phase("[3/10] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/11] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
@@ -2216,38 +2509,41 @@ def main() -> None:
     # gemma3 at a budget above the window (the window bounds its local
     # layers), mixtral below it (the budget binds); 2 AdamW steps each card
     # against CPU
-    for arch, budget in (("gemma3-27b", 128), ("mixtral-8x7b", 48)):
+    # and the recurrent ones, jamba (budget 48: its attention layer
+    # evicts) and xlstm (no attention layer)
+    for arch, budget in (("gemma3-27b", 128), ("mixtral-8x7b", 48),
+                         ("jamba-1.5-large-398b", 48), ("xlstm-1.3b", 48)):
         engine_parity(torch, np, "float32", arch=arch, budget=budget)
         oneshot_parity(torch, np, "float32", arch=arch, budget=budget)
         train_parity(torch, np, arch=arch, steps=2, seq=1024)
 
-    phase(f"[4/10] llama-3.2-1b at full width: serving, bf16 pool, with "
+    phase(f"[4/11] llama-3.2-1b at full width: serving, bf16 pool, with "
           f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
           f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/10] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/11] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[6/10] llama-3.2-1b at full width: serving, int8 pool "
+    phase(f"[6/11] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
     serve8 = serve_full_width(torch, np, "int8", 4,
                               num_layers=INT8_SERVE_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    phase(f"[7/10] llama-3.2-1b at full width: the paper's baselines "
+    phase(f"[7/11] llama-3.2-1b at full width: the paper's baselines "
           f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[8/10] llama-3.2-1b at full width: eviction-regret probes "
+    phase(f"[8/11] llama-3.2-1b at full width: eviction-regret probes "
           f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[9/10] training: card against CPU, llama-3.2-1b at full width "
+    phase("[9/11] training: card against CPU, llama-3.2-1b at full width "
           "then served from its checkpoint, TINY trained and scored")
     t9 = time.perf_counter()
     train_parity(torch, np)
@@ -2257,7 +2553,7 @@ def main() -> None:
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    phase("[10/10] the attention-only families at full width: "
+    phase("[10/11] the attention-only families at full width: "
           + ", ".join(f"{a} ({n} layers, budget {b})"
                       for a, (n, b) in FAMILIES.items()))
     t10 = time.perf_counter()
@@ -2269,6 +2565,19 @@ def main() -> None:
               f"{r['one_shot']['flash_attention']} (one-shot K1 "
               f"{r['one_shot']['paged_decode']})"
               for a, r in families.items()), flush=True)
+    torch.cuda.empty_cache()
+
+    phase("[11/11] the recurrent families at full width: "
+          + ", ".join(f"{a} ({n} layers)" for a, n in RECURRENT.items()))
+    t11 = time.perf_counter()
+    recurrent = {arch: recurrent_full_width(torch, np, arch, n, card)
+                 for arch, n in RECURRENT.items()}
+    jamba = recurrent["jamba-1.5-large-398b"]
+    print(f"  phase 11: {time.perf_counter() - t11:.1f} s; jamba K1 / K3 "
+          f"served {jamba['serving']['paged_decode']} / "
+          f"{jamba['serving']['paged_prefill']}, K5 / K1 one-shot "
+          f"{jamba['one_shot']['flash_attention']} / "
+          f"{jamba['one_shot']['paged_decode']}; {card}", flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4
     # and 6), flash attention from the one-shot prefill (phase 5); the

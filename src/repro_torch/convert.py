@@ -9,7 +9,9 @@ Parameter layouts agree leaf by leaf (weights (in, out), applied as
 repetitions, the port holds a plain list of layers in depth order (layer
 ``r * period + p`` is repetition r of slot p, then the tail layers). Caches
 cross with their int8 values and scales when quantized; a JAX cache from
-``forward_prefill`` or ``init_decode_caches`` converts alike.
+``forward_prefill`` or ``init_decode_caches`` converts alike, a recurrent
+layer's state (``LayerCaches(mamba=|mlstm=|slstm=)``) as the port's
+``MambaState``, ``MLSTMState`` or ``SLSTMState``.
 
 AdamW state crosses alike (``adamw_state_from_jax``: the moments
 unstacked as the weights are), and so does a checkpoint directory that the
@@ -22,6 +24,8 @@ without a card (tests pass ``device="cpu"``).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -30,12 +34,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import ModelCache
+from repro_torch.models.mamba import MambaState
+from repro_torch.models.transformer import ModelCache, init_layer
+from repro_torch.models.xlstm import MLSTMState, SLSTMState
 from repro_torch.training.checkpoint import tensor_from_numpy
 from repro_torch.training.optimizer import AdamWState
 
 CACHE_FIELDS = ("k", "v", "pos", "score", "block_table", "ref_count",
                 "cur_page", "cur_off", "stats", "k_scale", "v_scale")
+# a recurrent state's type by its fields (the JAX package's NamedTuples
+# carry the same names)
+STATE_TYPES = {tuple(f.name for f in dataclasses.fields(t)): t
+               for t in (MambaState, MLSTMState, SLSTMState)}
+# the JAX package's LayerCaches field of each mixer's decode state
+LAYER_CACHE_FIELDS = ("kv", "mamba", "mlstm", "slstm")
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -53,20 +65,38 @@ def _map(tree, fn, key=None):
     return fn(tree, key)
 
 
+@functools.cache
+def f32_leaf_names(cfg: ModelConfig) -> frozenset:
+    """Names of the parameters a bf16 model holds in f32: the MoE router,
+    mamba's ``A_log``, ``D`` and ``dt_bias``, the xLSTM gates' weights and
+    biases and the sLSTM's ``r_*`` (those of ``cfg``'s layer kinds), read
+    off the port's own initialisers (held to the JAX package's dtypes by
+    tests/test_torch_families.py) on a narrow bf16 copy of ``cfg``, on the
+    CPU."""
+    tiny = dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    names = set()
+    for spec in {(s.mixer, s.mlp): s for s in cfg.layer_specs()}.values():
+        _map(init_layer(gen, tiny, spec, "cpu"), lambda t, key: names.add(
+            key) if t.dtype == torch.float32 else None)
+    return frozenset(names)
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None,
                     dtype=None) -> dict:
     """JAX ``init_model`` tree (numpy leaves) -> the port's parameters (MoE
     expert stacks (R, E, D, F) unstack as every leaf does). ``dtype`` casts
-    every leaf but the MoE router, which stays f32 as in the JAX
-    package."""
+    every leaf but those the JAX package holds in f32 in a bf16 model
+    (:func:`f32_leaf_names`), which stay f32."""
     device = resolve_device(device)
     layers = [_map(tree["pattern"][p], lambda a, _, r=r: np.asarray(a)[r])
               for r in range(cfg.full_pattern_reps)
               for p in range(cfg.pattern_period)] + list(tree["tail"])
     out = {k: v for k, v in tree.items() if k not in ("pattern", "tail")}
     out["layers"] = layers
+    keep = f32_leaf_names(cfg) if dtype is not None else frozenset()
     return _map(out, lambda a, key: _tensor(
-        a, device, None if key == "router" else dtype))
+        a, device, None if key in keep else dtype))
 
 
 def adamw_state_from_jax(state, cfg: ModelConfig,
@@ -146,12 +176,30 @@ def layer_cache_from_jax(c, device=None) -> PagedLayerCache:
         v_scale_buf=scale(c.v_scale))
 
 
+def _state_fields(c) -> tuple:
+    """Field names of a recurrent state, the port's or the JAX package's."""
+    if dataclasses.is_dataclass(c):
+        return tuple(f.name for f in dataclasses.fields(c))
+    return tuple(c._fields)
+
+
+def state_from_jax(st, device=None):
+    """A JAX recurrent state (``MambaState``, ``MLSTMState`` or
+    ``SLSTMState``, numpy fields) -> the port's, by its field names."""
+    device = resolve_device(device)
+    names = _state_fields(st)
+    return STATE_TYPES[names](**{f: _tensor(getattr(st, f), device)
+                                 for f in names})
+
+
 def layer_cache_to_numpy(c) -> dict:
-    """A layer cache -> {field: ndarray} over CACHE_FIELDS (stats and the
-    scales None when off). Accepts the port's cache or a JAX one with
-    numpy-able fields."""
+    """A layer cache -> {field: ndarray}: over CACHE_FIELDS for a page pool
+    (stats and the scales None when off), over its own fields for a
+    recurrent state. Accepts the port's cache or a JAX one with numpy-able
+    fields."""
     out = {}
-    for f in CACHE_FIELDS:
+    names = CACHE_FIELDS if hasattr(c, "block_table") else _state_fields(c)
+    for f in names:
         a = getattr(c, f)
         if a is None:
             out[f] = None
@@ -163,24 +211,33 @@ def layer_cache_to_numpy(c) -> dict:
     return out
 
 
+def _layer_state(lc):
+    """The populated field of a JAX ``LayerCaches``: the page pool of an
+    attention layer, the state of a recurrent one."""
+    return next(getattr(lc, f) for f in LAYER_CACHE_FIELDS
+                if getattr(lc, f) is not None)
+
+
 def jax_cache_layers(mc, period: int) -> list:
-    """A JAX ``ModelCache`` (numpy leaves) -> per-layer JAX layer caches in
-    depth order (pattern slots unstacked)."""
+    """A JAX ``ModelCache`` (numpy leaves) -> per-layer JAX layer caches
+    (``PagedLayerCache``, or a recurrent layer's state) in depth order
+    (pattern slots unstacked)."""
     layers = []
-    pattern = list(mc.pattern)
-    reps = np.asarray(pattern[0].kv.ref_count).shape[0] if pattern else 0
+    pattern = [_layer_state(lc) for lc in mc.pattern]
+    reps = np.asarray(pattern[0][0]).shape[0] if pattern else 0
     for r in range(reps):
         for p in range(period):
-            kv = pattern[p].kv
-            layers.append(type(kv)(*[None if a is None else np.asarray(a)[r]
-                                     for a in kv]))
-    return layers + [lc.kv for lc in mc.tail]
+            c = pattern[p]
+            layers.append(type(c)(*[None if a is None else np.asarray(a)[r]
+                                    for a in c]))
+    return layers + [_layer_state(lc) for lc in mc.tail]
 
 
 def cache_from_jax(mc, cfg: ModelConfig, device=None) -> ModelCache:
     """A JAX ``ModelCache`` (numpy leaves) -> the port's ``ModelCache``."""
     device = resolve_device(device)
-    layers = [layer_cache_from_jax(c, device)
+    layers = [layer_cache_from_jax(c, device) if hasattr(c, "block_table")
+              else state_from_jax(c, device)
               for c in jax_cache_layers(mc, cfg.pattern_period)]
     return ModelCache(layers=layers, cur_pos=_tensor(mc.cur_pos, device))
 

@@ -39,7 +39,7 @@ from repro_torch.configs import CacheConfig, get_arch
 from repro_torch.core.paged_cache import lineage_snapshot_host
 from repro_torch.core.policies import POLICIES
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import init_model
+from repro_torch.models.transformer import init_model, paged_layers
 from repro_torch.obs import ObsConfig
 from repro_torch.serving import Engine, SamplingParams
 
@@ -214,7 +214,8 @@ def main() -> None:
         print(f"wrote {args.timeline} ({n} timeline events)")
     led = eng.obs.ledger
     if led is not None:
-        errs = led.reconcile(lineage_snapshot_host(eng.cache.layers[0]))
+        errs = led.reconcile(lineage_snapshot_host(
+            paged_layers(eng.cache.layers)[0]))
         print(f"lineage: {led.counts()}; reconcile: "
               f"{'ok' if not errs else errs}")
         for slot in range(args.max_batch):

@@ -149,7 +149,11 @@ def moe_forward_decode(params: dict, cfg: ModelConfig, x: torch.Tensor
     gate = torch.zeros((N, cfg.num_experts), dtype=torch.float32,
                        device=x.device).scatter(1, top_e, top_p)
     act = activation(cfg.act)
-    h = act(torch.einsum("bd,edf->ebf", x, params["w_gate"])) * \
-        torch.einsum("bd,edf->ebf", x, params["w_up"])
-    eout = torch.einsum("ebf,efd->ebd", h, params["w_down"])
+    # the JAX package's einsums "bd,edf->ebf" and "ebf,efd->ebd" as
+    # matmuls batched over the experts: torch.einsum folds e into one
+    # GEMM's columns for "bd,edf->ebf" and so copies the whole (E, D, F)
+    # weight stack on every call (6 GiB for jamba-1.5-large)
+    h = act(torch.matmul(x, params["w_gate"])) * \
+        torch.matmul(x, params["w_up"])                    # (E, N, F)
+    eout = torch.matmul(h, params["w_down"])               # (E, N, D)
     return torch.einsum("ebd,be->bd", eout.float(), gate).to(x.dtype)

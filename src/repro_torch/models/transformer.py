@@ -14,29 +14,39 @@ paged (``compress_and_page``), then one token per step under Alg.3.
 
 ``forward_train`` gives logits over the whole sequence through plain
 autograd attention (``common.causal_attention``), never a kernel, as the
-JAX package trains with ``use_pallas=False``. The serving and one-shot
-entry points run under ``torch.no_grad()``: parameters handed over from
-the trainer still require grad, and the pools are written in place.
+JAX package trains with ``use_pallas=False``; its recurrent layers take
+``mamba_forward``, ``mlstm_chunkwise`` and ``slstm_forward``. The serving
+and one-shot entry points run under ``torch.no_grad()``: parameters handed
+over from the trainer still require grad, and the pools are written in
+place.
 
 Layout: the JAX package stacks each pattern slot's parameters over its
 repetitions (``pattern``/``tail``) for ``lax.scan``; the port holds a plain
 list of layers in depth order (``convert.params_from_jax`` maps one onto the
 other) and loops. Caches are in place: the step mutates the layer caches it
-is given and returns the same :class:`ModelCache`.
+is given and returns the same :class:`ModelCache`. Each layer's cache is
+the state of its mixer: a ``PagedLayerCache`` for attention, a
+``MambaState``, ``MLSTMState`` or ``SLSTMState`` for a recurrent layer (the
+JAX package's ``LayerCaches``).
 
-Every family whose mixers are all attention is served: RMSNorm or
-LayerNorm, qk-norm, global / local / sliding-window layers, a dense gated
-MLP or an MoE MLP per layer, logit soft-capping. An MoE layer takes the
-capacity dispatch (``moe_forward``) over a contiguous sequence (training
-and the one-shot prefill) and the dense all-expert combine
-(``moe_forward_decode``) in the serving step and one-shot decode, each
-where the JAX package takes it, so a MoE model's served and one-shot
-logits differ as they do there. ``check_supported`` rejects recurrent
-mixers, cross-attention and codebooks.
+Served: RMSNorm or LayerNorm, qk-norm, global / local / sliding-window
+attention layers, mamba, mLSTM and sLSTM layers (plain torch, as the JAX
+package's plain jnp: the serving step runs them token by token over the
+chunk, ``_scan_recurrent``), a dense gated MLP, an MoE MLP or none per
+layer, logit soft-capping. An MoE layer takes the capacity dispatch
+(``moe_forward``) over a contiguous sequence (training and the one-shot
+prefill) and the dense all-expert combine (``moe_forward_decode``) in the
+serving step and one-shot decode, each where the JAX package takes it, so a
+MoE model's served and one-shot logits differ as they do there.
+``check_supported`` rejects cross-attention and codebooks.
+
+As in the JAX package, ``forward_prefill`` gives a recurrent mixer no mask:
+a right-padded prompt runs its padding through the recurrence, and the
+final state (mamba's conv window too) carries it into decode.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -45,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import CacheConfig, LayerSpec, ModelConfig
 from repro_torch.core.decode import decode_append
 from repro_torch.core.paged_cache import (
+    PagedLayerCache,
     adopt_prefix,
     append_chunk,
     append_plan,
@@ -56,6 +67,8 @@ from repro_torch.core.policies import EvictionPolicy
 from repro_torch.core.prefill import compress_and_page
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm, soft_cap)
 from repro_torch.models.mlp import init_mlp, mlp_forward
@@ -66,9 +79,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of a config the port does not serve yet."""
     cfg.validate()
     missing = []
-    if any(s.mixer != "attn" or s.mlp not in ("dense", "moe")
-           for s in cfg.layer_specs()):
-        missing.append("non-attention mixers")
     if cfg.cross_attention:
         missing.append("cross-attention")
     if cfg.num_codebooks > 1:
@@ -82,18 +92,25 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
+MIXER_INIT = {"attn": attn_mod.init_attention, "mamba": mamba_mod.init_mamba,
+              "mlstm": xlstm_mod.init_mlstm, "slstm": xlstm_mod.init_slstm}
+
+
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device) -> dict:
-    """{"norm1", "attn", "norm2", "mlp" | "moe"} by the layer's spec, as
-    the JAX package's ``init_layer``; norms follow ``cfg.norm``."""
+    """{"norm1", mixer ("attn" | "mamba" | "mlstm" | "slstm")[, "norm2",
+    "mlp" | "moe"]} by the layer's spec, as the JAX package's
+    ``init_layer`` (an xLSTM layer has no MLP); norms follow
+    ``cfg.norm``."""
     dt = dtype_of(cfg.dtype)
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, dt, device),
-         "attn": attn_mod.init_attention(gen, cfg),
-         "norm2": init_norm(cfg.norm, cfg.d_model, dt, device)}
-    if spec.mlp == "moe":
-        p["moe"] = init_moe(gen, cfg)
-    else:
-        p["mlp"] = init_mlp(gen, cfg)
+         spec.mixer: MIXER_INIT[spec.mixer](gen, cfg)}
+    if spec.mlp != "none":
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dt, device)
+        if spec.mlp == "moe":
+            p["moe"] = init_moe(gen, cfg)
+        else:
+            p["mlp"] = init_mlp(gen, cfg)
     return p
 
 
@@ -140,7 +157,10 @@ def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
     None). An MoE layer takes the dense all-expert combine over every token
     of x when ``dense_combine`` (the serving step and one-shot decode), else
     the capacity dispatch per example of x (B, S, D) (the one-shot prefill
-    and training), as the JAX package's call sites do."""
+    and training), as the JAX package's call sites do. A layer without an
+    MLP (``spec.mlp == "none"``, xLSTM) passes x through."""
+    if spec.mlp == "none":
+        return x, None
     h = apply_norm(lp["norm2"], x)
     if spec.mlp != "moe":
         return x + mlp_forward(lp["mlp"], cfg, h), None
@@ -193,8 +213,38 @@ def forward_train(params: dict, cfg: ModelConfig, tokens, cond=None,
 
 @dataclass
 class ModelCache:
-    layers: list          # one PagedLayerCache per layer, in depth order
+    layers: list          # per layer, in depth order: its PagedLayerCache
+    #                       or MambaState / MLSTMState / SLSTMState
     cur_pos: torch.Tensor  # (B,) int32: next token position per request
+
+
+def paged_layers(layers: list) -> list[PagedLayerCache]:
+    """The attention layers' page pools among a model's layer caches
+    (``ModelCache.layers``), in depth order."""
+    return [c for c in layers if isinstance(c, PagedLayerCache)]
+
+
+# a recurrent mixer's one-token step: (params, cfg, x (B, D), state) ->
+# (out (B, D), new state)
+RECURRENT_STEP = {"mamba": mamba_mod.mamba_decode_step,
+                  "mlstm": xlstm_mod.mlstm_decode_step,
+                  "slstm": xlstm_mod.slstm_decode_step}
+
+
+def recurrent_init_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                         dtype, device):
+    """A recurrent layer's empty state (``dtype``: the conv windows')."""
+    if spec.mixer == "mamba":
+        return mamba_mod.mamba_init_state(cfg, batch, dtype, device)
+    if spec.mixer == "mlstm":
+        return xlstm_mod.mlstm_init_state(cfg, batch, dtype, device)
+    return xlstm_mod.slstm_init_state(cfg, batch, device)
+
+
+def _assign(state, new) -> None:
+    """Write ``new``'s fields into the recurrent ``state`` in place."""
+    for f in fields(state):
+        getattr(state, f.name).copy_(getattr(new, f.name))
 
 
 def _layer_cache_shapes(cfg: ModelConfig, spec: LayerSpec, seq_len: int,
@@ -216,12 +266,17 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
                        policy: EvictionPolicy, ccfg: CacheConfig, dtype=None,
                        chunk_tokens: int = 0, track_stats: bool = False,
                        device=None) -> ModelCache:
-    """Empty per-layer caches (pool N = batch * P pages each) on ``device``
-    (default CUDA; raises without a card); ``ccfg.dtype`` "int8" makes
-    quantized pools."""
+    """Empty per-layer caches on ``device`` (default CUDA; raises without a
+    card): a page pool (N = batch * P pages) per attention layer,
+    ``ccfg.dtype`` "int8" making quantized pools, and an empty state per
+    recurrent layer. A recurrent state takes the model's dtype, never the
+    pools': its one-token steps return the conv window in the activations'
+    dtype, which an int8 state would truncate (the JAX package's carries
+    the pools' dtype and runs only where that is the activations')."""
     check_supported(cfg)
     device = resolve_device(device)
     dt = dtype or dtype_of(ccfg.dtype)
+    act = dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
     layers = [
         init_layer_cache(batch, _layer_cache_shapes(cfg, spec, seq_len,
@@ -229,6 +284,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
                                                     chunk_tokens),
                          ccfg.page_size, cfg.num_kv_heads, hd, dt,
                          track_stats=track_stats, device=device)
+        if spec.mixer == "attn" else
+        recurrent_init_state(cfg, spec, batch, act, device)
         for spec in cfg.layer_specs()]
     return ModelCache(layers=layers,
                       cur_pos=torch.zeros((batch,), dtype=torch.int32,
@@ -238,6 +295,61 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
 # ---------------------------------------------------------------------------
 # unified mixed-batch step
 # ---------------------------------------------------------------------------
+
+def _scan_recurrent(step_fn, state, init_state, h_seq, n_tok, reset_mask,
+                    n_host):
+    """Run a one-token step over a (B, T, D) chunk, token by token, as the
+    JAX package's ``_scan_recurrent``: rows past their ``n_tok`` freeze
+    their state and emit zeros; ``reset_mask`` rows (None: no row) start
+    from ``init_state`` (a slot handed to a new request; an xLSTM state is
+    not all zero: its stabilizer m starts at -inf; unused without
+    ``reset_mask``). ``state`` is updated in place, like the pools. Returns
+    the outputs (B, T, D).
+
+    ``n_host``, a host copy of ``n_tok``, spares the tokens past the
+    longest row (every row frozen, zero outputs): they are not run."""
+    B, T = h_seq.shape[:2]
+    n_run = int(n_host.max())
+
+    def rows(mask, a):
+        return mask.reshape((B,) + (1,) * (a.ndim - 1))
+
+    def select(mask, new, old):
+        return type(old)(**{f.name: torch.where(
+            rows(mask, getattr(old, f.name)), getattr(new, f.name),
+            getattr(old, f.name)) for f in fields(old)})
+
+    st = state
+    if reset_mask is not None:
+        st = select(reset_mask, type(init_state)(**{
+            f.name: getattr(init_state, f.name).to(getattr(st, f.name).dtype)
+            for f in fields(st)}), st)
+    act = torch.arange(T, device=h_seq.device)[:, None] < n_tok[None, :]
+    outs = []
+    for t, h_t in enumerate(h_seq.unbind(1)[:n_run]):
+        out, new = step_fn(h_t, st)
+        st = select(act[t], new, st)
+        outs.append(torch.where(act[t][:, None], out, 0.0))
+    if n_run < T:
+        outs += [torch.zeros_like(h_seq[:, 0])] * (T - n_run)
+    _assign(state, st)
+    return torch.stack(outs, 1)
+
+
+def _step_recurrent(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, state,
+                    n_tok, reset_mask, n_host):
+    """One recurrent layer (mamba, mLSTM or sLSTM) + its MLP, if any, of
+    the unified step; ``state`` updated in place. ``n_host``: the host
+    copy of ``n_tok``."""
+    h = apply_norm(lp["norm1"], x)
+    step = RECURRENT_STEP[spec.mixer]
+    init = None if reset_mask is None else recurrent_init_state(
+        cfg, spec, x.shape[0], x.dtype, x.device)
+    m = _scan_recurrent(
+        lambda h_t, st: step(lp[spec.mixer], cfg, h_t, st), state, init, h,
+        n_tok, reset_mask, n_host)
+    return mlp_block(lp, cfg, spec, x + m, dense_combine=True)[0]
+
 
 def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
                 positions, n_tok, policy: EvictionPolicy, ccfg: CacheConfig,
@@ -296,10 +408,12 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
     run the kernels' plain versions on the card (a test switch).
 
     Updates ``cache`` in place and returns (logits (B, vocab) f32 at each
-    row's last live token, cache). One host read per step: the layers'
-    write heads and the masks, from which each layer's page-boundary plan
-    for ``append_chunk`` is computed. ``want_taps`` (obs/regret.py) also
-    returns the taps {"layers": [per-layer tap of :func:`_step_layer`],
+    row's last live token, cache). One host read per step: the attention
+    layers' write heads and the masks, from which each attention layer's
+    page-boundary plan for ``append_chunk`` is computed. A recurrent layer
+    runs its one-token step over the chunk (:func:`_scan_recurrent`).
+    ``want_taps`` (obs/regret.py) also returns the taps {"layers":
+    [per-layer tap of :func:`_step_layer`, None for a recurrent layer],
     "positions": (B, T)} as a third value; False runs exactly the ops of a
     step without it."""
     x = embed_tokens(params, cfg, tokens)
@@ -320,20 +434,27 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
     t = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
     positions = torch.where(t < n_tok[:, None], cur_pos[:, None] + t, -1)
 
-    # the one host read: per-layer heads and the step's masks
+    # the one host read: the attention layers' heads and the step's masks
+    pools = paged_layers(cache.layers)
     host = torch.cat([torch.stack([c.cur_off, c.head_mapped().int()])
-                      .reshape(-1) for c in cache.layers] +
+                      .reshape(-1) for c in pools] +
                      [n_tok.int(), decode_mask.int(), prefill_mask.int(),
                       reset_mask.int()]).cpu().numpy()
-    L = len(cache.layers)
-    heads = host[:2 * B * L].reshape(L, 2, B)
+    L = len(pools)
+    heads = iter(host[:2 * B * L].reshape(L, 2, B))
     n_h, dec_h, pre_h, reset_h = host[2 * B * L:].reshape(4, B)
     flags = dict(has_decode=bool(dec_h.any()), has_prefill=bool(pre_h.any()),
                  has_reset=bool(reset_h.any()))
     taps = []
-    for lp, spec, kvc, (off, mapped) in zip(params["layers"],
-                                            cfg.layer_specs(), cache.layers,
-                                            heads):
+    for lp, spec, kvc in zip(params["layers"], cfg.layer_specs(),
+                             cache.layers):
+        if spec.mixer != "attn":
+            x = _step_recurrent(lp, cfg, spec, x, kvc, n_tok,
+                                reset_mask if flags["has_reset"] else None,
+                                n_h)
+            taps.append(None)
+            continue
+        off, mapped = next(heads)
         # release / adopt park a reset row's head full: it rolls at t == 0
         off = np.where(reset_h > 0, page, off)
         times = append_plan(kvc, off, mapped, n_h, T)
@@ -358,9 +479,11 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
 
 
 def collect_step_stats(cache: ModelCache):
-    """Sum every layer's devstats vector -> (NSTATS,) int32, or None when the
-    caches do not track stats. Call after the step."""
-    vecs = [c.stats for c in cache.layers if c.stats is not None]
+    """Sum every attention layer's devstats vector -> (NSTATS,) int32, or
+    None when the caches do not track stats (or there is no attention
+    layer). Call after the step."""
+    vecs = [c.stats for c in paged_layers(cache.layers)
+            if c.stats is not None]
     if not vecs:
         return None
     return torch.stack(vecs).sum(0, dtype=torch.int32)
@@ -368,10 +491,14 @@ def collect_step_stats(cache: ModelCache):
 
 def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
     """() int32: leading full prompt pages of batch row ``row`` intact in
-    EVERY layer (min over layers): the device half of the prefix-sharing
-    admission probe."""
-    return torch.stack([row_intact_prefix_pages(c, row)
-                        for c in cache.layers]).min()
+    EVERY attention layer (min over them): the device half of the
+    prefix-sharing admission probe. 0 when no layer is attention (a
+    recurrent state cannot be adopted page-wise)."""
+    runs = [row_intact_prefix_pages(c, row)
+            for c in paged_layers(cache.layers)]
+    if not runs:
+        return torch.zeros((), dtype=torch.int32, device=cache.cur_pos.device)
+    return torch.stack(runs).min()
 
 
 # ---------------------------------------------------------------------------
@@ -380,21 +507,46 @@ def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                  plain_kernels: bool = False, train: bool = False):
-    """One attention + MLP layer over a contiguous sequence. Returns (x,
-    MoE aux loss or None, (k, v)) with k post-RoPE. ``train``: attention
-    by the training route (``attention_forward``'s), never a kernel."""
+                  plain_kernels: bool = False, train: bool = False,
+                  return_state: bool = False):
+    """One layer (mixer + MLP) over a contiguous sequence. Returns (x, MoE
+    aux loss or None, extras): extras is (k, v) with k post-RoPE for
+    attention, the final recurrent state of a recurrent mixer when
+    ``return_state`` (``mamba_prefill``, ``mlstm_chunkwise`` or
+    ``slstm_forward`` returning it; else ``mamba_forward`` and the others
+    without it, and None). ``train``: attention by the training route
+    (``attention_forward``'s), never a kernel."""
     h = apply_norm(lp["norm1"], x)
-    a, kv = attn_mod.attention_forward(lp["attn"], cfg, spec, h, positions,
-                                       plain=plain_kernels, train=train)
+    extras = None
+    if spec.mixer == "attn":
+        a, extras = attn_mod.attention_forward(lp["attn"], cfg, spec, h,
+                                               positions, plain=plain_kernels,
+                                               train=train)
+    elif spec.mixer == "mamba":
+        if return_state:
+            a, extras = mamba_mod.mamba_prefill(lp["mamba"], cfg, h)
+        else:
+            a = mamba_mod.mamba_forward(lp["mamba"], cfg, h)
+    else:
+        fwd = (xlstm_mod.mlstm_chunkwise if spec.mixer == "mlstm" else
+               xlstm_mod.slstm_forward)
+        a = fwd(lp[spec.mixer], cfg, h, return_state=return_state)
+        if return_state:
+            a, extras = a
     x, aux = mlp_block(lp, cfg, spec, x + a, dense_combine=False)
-    return x, aux, kv
+    return x, aux, extras
 
 
 def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
                    valid, policy: EvictionPolicy, ccfg: CacheConfig,
                    seq_len_hint: int, plain_kernels: bool):
-    """Layer forward that also builds its decode cache (Alg.2)."""
+    """Layer forward that also builds its decode cache: Alg.2 and paging
+    for attention, the final state for a recurrent mixer (which sees no
+    ``valid`` mask, as in the JAX package)."""
+    if spec.mixer != "attn":
+        x, _, state = layer_forward(lp, cfg, spec, x, positions,
+                                    return_state=True)
+        return x, state
     x, _, (k, v) = layer_forward(lp, cfg, spec, x, positions, plain_kernels)
     window = attn_mod.spec_window(cfg, spec)
     hint = seq_len_hint if not window else min(seq_len_hint,
@@ -417,8 +569,10 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens,
                     total_seq_hint: int | None = None,
                     plain_kernels: bool = False):
     """Process whole prompts, compress each layer's K/V by Alg.2 and page
-    it: tokens (B, S) int32; ``valid`` (B, S) bool marks right-padded
-    prompts' real tokens. ``total_seq_hint``: expected prompt + generation
+    it (a recurrent layer keeps its final state): tokens (B, S) int32;
+    ``valid`` (B, S) bool marks right-padded prompts' real tokens (the
+    attention layers' only: a recurrent mixer runs the padding too, as in
+    the JAX package). ``total_seq_hint``: expected prompt + generation
     length, which sizes the page slabs (default S). The caches live on
     ``tokens``' device. Returns (last valid token's logits (B, vocab) f32,
     ModelCache)."""
@@ -446,8 +600,13 @@ def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc,
                   cur_pos, policy: EvictionPolicy, ccfg: CacheConfig, active,
                   decode_splits: int, fused_scores: bool,
                   plain_kernels: bool):
-    """One layer, one token. x: (B, D)."""
+    """One layer, one token. x: (B, D). A recurrent layer steps every row,
+    ``active`` or not, as the JAX package's ``_decode_layer`` does."""
     h = apply_norm(lp["norm1"], x)
+    if spec.mixer != "attn":
+        m, new = RECURRENT_STEP[spec.mixer](lp[spec.mixer], cfg, h, kvc)
+        _assign(kvc, new)
+        return mlp_block(lp, cfg, spec, x + m, dense_combine=True)[0]
     q, k, v = attn_mod.decode_project_qkv(lp["attn"], cfg, h, cur_pos)
     if kvc.stats is not None:
         kvc.stats.zero_()

@@ -8,7 +8,11 @@ G-fold prefill kernels on the card), runs Alg.3 eviction on decode rows and
 Alg.2 compression on prefill rows, and samples. Decode-only iterations run
 the same step at T == 1. The policy is ``cache_cfg.policy``, any registered
 one: the paper's PagedEviction, FullCache, or its baselines StreamingLLM,
-InverseKeyL2 and KeyDiff (the kernels and their routes are the same).
+InverseKeyL2 and KeyDiff (the kernels and their routes are the same). A
+recurrent layer (jamba's mamba, xlstm's mLSTM and sLSTM) carries a state
+per slot instead of a page pool: the pool counts, the lineage ledger and
+the regret probes cover the attention layers only, and prefix sharing is
+off for such a model, as in the JAX engine.
 
 Telemetry (``repro_torch.obs``, the JAX engine's hooks): with metrics on
 (the default) the per-layer devstats vectors are summed on the device and
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import time
 import warnings
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,6 +50,7 @@ from repro_torch.models.transformer import (
     forward_step,
     init_decode_caches,
     intact_prefix_pages,
+    paged_layers,
 )
 from repro_torch.obs import EngineObs, ObsConfig
 from repro_torch.obs.lineage import StepPlanContext
@@ -54,6 +60,15 @@ from repro_torch.obs.trace import TRACE_SCHEMA_VERSION, annotation
 from repro_torch.serving.request import Request, RequestStatus, SamplingParams
 from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving.scheduler import Scheduler
+
+
+def _weak_hook(method):
+    """``method`` (an Engine's) as a scheduler callback that holds its
+    engine weakly: the engine owns the scheduler, and a bound method back
+    would make a cycle that keeps a dropped engine's weights and pools
+    alive until the cycle collector runs."""
+    ref = weakref.WeakMethod(method)
+    return lambda *args: ref()(*args)
 
 
 @dataclass
@@ -91,7 +106,11 @@ class Engine:
         ``plain_kernels``: run the kernels' plain versions on the card, to
         hold the kernels against them (a test switch, never a fallback).
         ``obs``: what to instrument (default ``ObsConfig()``: metrics
-        only)."""
+        only). ``prefix_sharing`` takes effect only when every layer keeps
+        its prompt in pages (no recurrent layer, no cross-attention), as
+        the JAX engine's ``_sharing_ok``; the lineage ledger needs an
+        attention layer (the JAX engine fails at its first step without
+        one; the port refuses here)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -107,16 +126,27 @@ class Engine:
                              else fused_scores)
         self.plain_kernels = plain_kernels
         self.chunk_size = min(chunk_size, max_prompt_len)
+        # prefix sharing needs every layer's prompt state in paged KV: a
+        # recurrent state (mamba, xLSTM) cannot be adopted page-wise
+        self._sharing_ok = (prefix_sharing
+                            and all(s.mixer == "attn"
+                                    for s in cfg.layer_pattern())
+                            and not cfg.cross_attention)
         self.scheduler = Scheduler(
             max_batch, chunk_size=self.chunk_size, token_budget=token_budget,
-            page_size=cache_cfg.page_size if prefix_sharing else None,
-            prefix_probe=self._prefix_probe if prefix_sharing else None)
+            page_size=cache_cfg.page_size if self._sharing_ok else None,
+            prefix_probe=(_weak_hook(self._prefix_probe) if self._sharing_ok
+                          else None))
         self.stats = EngineStats()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._next_id = 0
         self.last_stats: np.ndarray | None = None  # last step's devstats
 
         self.obs = EngineObs(obs if obs is not None else ObsConfig())
+        if self.obs.ledger is not None and cfg.num_attn_layers() == 0:
+            raise ValueError(f"{cfg.name}: the lineage ledger follows an "
+                             f"attention layer's page pool, and this model "
+                             f"has none")
         self._t_start = time.perf_counter()
         self._step_shapes: set[int] = set()   # token dims T run so far
         self._warned_compile = False
@@ -125,7 +155,7 @@ class Engine:
         self.last_hook_s = 0.0      # host seconds in the obs blocks, last step
         self.last_tap_bytes = 0     # regret taps read to the host, last step
         if self.obs.timeline is not None:
-            self.scheduler.on_admit = self._on_admit
+            self.scheduler.on_admit = _weak_hook(self._on_admit)
 
         self.cache: ModelCache = init_decode_caches(
             cfg, max_batch, self.total_len, self.policy, self.ccfg,
@@ -133,11 +163,11 @@ class Engine:
             device=self.device)
         self.cur_tokens = np.zeros((max_batch,), np.int32)
         # running free-page count, kept from the devstats deltas
-        # (Δfree == freed - allocated); each layer starts with `batch`
-        # pre-mapped working pages
-        self._pool_pages_total = sum(c.pool_pages for c in self.cache.layers)
-        self._free_pages_est = self._pool_pages_total - \
-            max_batch * len(self.cache.layers)
+        # (Δfree == freed - allocated); each attention layer starts with
+        # `batch` pre-mapped working pages
+        pools = paged_layers(self.cache.layers)
+        self._pool_pages_total = sum(c.pool_pages for c in pools)
+        self._free_pages_est = self._pool_pages_total - max_batch * len(pools)
 
     def _prefix_probe(self, slot: int) -> int:
         """Device half of prefix-sharing admission (scheduler callback)."""
@@ -331,10 +361,10 @@ class Engine:
         step_no = self.stats.steps
         lin_events = []
         if self.obs.ledger is not None:
-            # the first layer, as the JAX engine's first attention layer:
-            # a local (windowed) one on gemma3, whose block table is
-            # narrower than the global layers'
-            snap = lineage_snapshot_host(self.cache.layers[0])
+            # the first attention layer, as the JAX engine's: a local
+            # (windowed) one on gemma3, whose block table is narrower than
+            # the global layers'
+            snap = lineage_snapshot_host(paged_layers(self.cache.layers)[0])
             ctx = StepPlanContext(
                 reset_slots=frozenset(plan.reset),
                 adopt={slot: (src, n_pages)
@@ -425,7 +455,10 @@ class Engine:
         decode rows."""
         layers = [{name: (t.cpu().numpy() if name == "live_pos"
                           else t.float().cpu().numpy())
-                   for name, t in tap.items()} for tap in taps["layers"]]
+                   for name, t in tap.items()} for tap in taps["layers"]
+                  if tap is not None]           # recurrent layers: no tap
+        if not layers:
+            return
         positions = taps["positions"].cpu().numpy()
         self.last_tap_bytes = positions.nbytes + sum(
             a.nbytes for tap in layers for a in tap.values())
@@ -508,11 +541,11 @@ class Engine:
         return self.obs.timeline.export(path)
 
     def pool_stats(self) -> dict:
-        """Fleet-level page-pool occupancy over every layer: pages, free
-        pages, utilisation, pages mapped by more than one block table and
-        the physical pages sharing saves (sum of ref_count - 1)."""
+        """Fleet-level page-pool occupancy over the attention layers: pages,
+        free pages, utilisation, pages mapped by more than one block table
+        and the physical pages sharing saves (sum of ref_count - 1)."""
         total = free = shared = extra = 0
-        for c in self.cache.layers:
+        for c in paged_layers(self.cache.layers):
             ref = c.ref_count.cpu().numpy()
             total += ref.size
             free += int((ref == 0).sum())
@@ -523,10 +556,10 @@ class Engine:
                 "shared_pages": shared, "pages_saved_by_sharing": extra}
 
     def pool_bytes(self) -> dict:
-        """Device bytes of the page-pool payload (K/V and the int8 scales,
-        trash row included) and of the pool metadata."""
+        """Device bytes of the attention layers' page-pool payload (K/V and
+        the int8 scales, trash row included) and of the pool metadata."""
         payload = meta = 0
-        for c in self.cache.layers:
+        for c in paged_layers(self.cache.layers):
             for t in (c.k_buf, c.v_buf, c.k_scale_buf, c.v_scale_buf):
                 if t is not None:
                     payload += t.numel() * t.element_size()

@@ -201,6 +201,38 @@ def test_serve_cli_takes_the_five_policies(monkeypatch, capsys):
     assert "invalid choice: 'h2o'" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("sharing", [True, False])
+def test_dropped_engine_frees_its_cache_without_gc(sharing, tmp_path):
+    """The scheduler's hooks (the prefix probe, the timeline's admission
+    hook) hold their engine weakly: an engine with every obs hook on,
+    dropped with the cycle collector off, frees its pools at once, and a
+    live one still serves through both hooks."""
+    import gc
+    import weakref
+
+    from repro_torch.models.transformer import init_model
+    from repro_torch.obs import ObsConfig
+    _, tcfg = _configs("kv2")
+    params = init_model(tcfg, seed=0, device="cpu")
+    eng = Engine(tcfg, params, cache_cfg=CacheConfig(
+        page_size=8, cache_budget=32, dtype="float32"), device="cpu",
+        max_batch=3, max_prompt_len=48, max_new_tokens=8, chunk_size=16,
+        prefix_sharing=sharing, obs=ObsConfig(
+            trace_path=str(tmp_path / "trace.jsonl"), timeline=True,
+            lineage=True, regret_every=2))
+    for p in _prompts(tcfg.vocab_size):
+        eng.submit(p)
+    assert len(eng.run()) == 4
+    assert (eng.stats.shared_prefix_hits > 0) == sharing
+    pool = weakref.ref(eng.cache.layers[0].k_buf)
+    gc.disable()
+    try:
+        del eng
+        assert pool() is None
+    finally:
+        gc.enable()
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.convert, repro_torch.kernels.ops, "

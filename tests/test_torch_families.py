@@ -29,6 +29,10 @@ that each one matters) and handed to the port by ``params_from_jax``.
 - units: LayerNorm, qk-norm, tanh-GELU, soft-capped logits, the MoE
   dispatch (top-k with exact ties, rank, keep and slot bit for bit, tokens
   dropped) and its outputs, and the dense all-expert combine.
+
+The config, init-layout and full-cache-decode tests also cover the
+recurrent families (jamba-1.5-large, xlstm-1.3b), which
+tests/test_torch_recurrent.py holds to the JAX package otherwise.
 """
 import dataclasses
 import functools
@@ -63,6 +67,7 @@ from repro_torch.training.tree import key_of, leaves, leaves_with_path
 
 ARCHS = ["stablelm-3b", "gemma3-27b", "chameleon-34b", "mixtral-8x7b",
          "mixtral-8x22b"]
+ALL_ARCHS = ARCHS + ["jamba-1.5-large-398b", "xlstm-1.3b"]
 BUDGETS = [32, 128]          # below and above the reduced window of 64
 B, CHUNK, PAGE = 2, 64, 8
 LENS = (150, 97)
@@ -140,32 +145,34 @@ def _compare(jlogits, jcache, tlogits, tcache, period, ctx, live=None,
 
 
 def test_configs_resolve_as_in_jax():
-    for name in ARCHS:
+    for name in ALL_ARCHS:
         cfg = get_arch(name)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jget_arch(name)), name
         ttf.check_supported(cfg)
         ttf.check_supported(cfg.reduced())
-    for name in ("jamba-1.5-large-398b", "xlstm-1.3b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError, match="JAX package only"):
-            get_arch(name)
-    with pytest.raises(NotImplementedError, match="non-attention mixers"):
-        ttf.check_supported(ModelConfig(
-            **dataclasses.asdict(jget_arch("jamba-1.5-large-398b"))))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
+    with pytest.raises(NotImplementedError, match="JAX package only"):
+        get_arch("musicgen-medium")
+    with pytest.raises(NotImplementedError,
+                       match="cross-attention, codebooks"):
         ttf.check_supported(ModelConfig(
             **dataclasses.asdict(jget_arch("musicgen-medium"))))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_model_matches_jax_layout(arch):
     """The port's seeded init has the JAX tree's leaves, shapes and dtypes
-    at bf16 (the MoE router f32), and ``params_from_jax``'s bf16 cast keeps
-    the router f32."""
+    at bf16 (the leaves the JAX tree holds in f32, such as the MoE router,
+    mamba's A_log or the xLSTM gates, f32), and ``params_from_jax``'s bf16
+    cast keeps those f32."""
     jcfg = dataclasses.replace(jget_arch(arch).reduced(), dtype="bfloat16")
     tcfg = ModelConfig(**dataclasses.asdict(jcfg))
     tree = jax.eval_shape(lambda: jtf.init_model(jax.random.PRNGKey(0),
                                                  jcfg))
+    jf32 = {path[-1].key for path, s in
+            jax.tree_util.tree_leaves_with_path(tree)
+            if s.dtype == jnp.float32}
+    assert ("router" in jf32) == bool(jcfg.num_experts)
     shapes = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), tree)
     want = params_from_jax(shapes, tcfg, device="cpu", dtype=torch.bfloat16)
     got = ttf.init_model(tcfg, seed=3, device="cpu")
@@ -174,17 +181,21 @@ def test_init_model_matches_jax_layout(arch):
     gl = {key_of(p): t for p, t in leaves_with_path(got)}
     assert gl.keys() == wl.keys()
     for k, t in gl.items():
-        want_dt = torch.float32 if k.endswith("router") else torch.bfloat16
+        want_dt = torch.float32 if k.split("/")[-1] in jf32 else \
+            torch.bfloat16
         assert t.shape == wl[k].shape and t.dtype == wl[k].dtype == want_dt, k
     for a, b in zip(leaves(got), leaves(again)):
         assert torch.equal(a, b)
     specs = jcfg.layer_specs()
     assert [("moe" in lp) for lp in got["layers"]] == \
         [s.mlp == "moe" for s in specs]
+    assert [(s.mixer in lp, "mlp" in lp) for lp, s in
+            zip(got["layers"], specs)] == \
+        [(True, s.mlp == "dense") for s in specs]
     assert all(("bias" in lp["norm1"]) == (jcfg.norm == "layernorm")
                for lp in got["layers"])
     assert all(("q_norm" in lp["attn"]) == jcfg.qk_norm
-               for lp in got["layers"])
+               for lp in got["layers"] if "attn" in lp)
 
 
 # ---------------------------------------------------------------------------
@@ -281,11 +292,14 @@ def test_oneshot_matches_jax(arch, budget):
                  f"{ctx} decode step {step}", stats=False)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_full_cache_decode_matches_contiguous(arch):
     """Teacher-forced decode over a cache that evicts nothing gives the
     contiguous training forward's logits (MoE layers at drop-free
-    capacity: the decode combine drops no token)."""
+    capacity: the decode combine drops no token; a recurrent layer's
+    decode steps continue its prefill's state, the training forward scans
+    the whole sequence: mamba in windows of 1, mLSTM in one chunk of
+    38)."""
     _, tcfg, _, _, tparams = _model(arch)
     if tcfg.num_experts:
         tcfg = dataclasses.replace(tcfg,
