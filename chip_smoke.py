@@ -24,7 +24,9 @@ Phases (any failure exits non-zero; none is skipped):
               of phase 10 that the kernels had not met: chameleon-34b's G 8
               (G * T = 2048 prefill rows), mixtral-8x22b's G 6 and
               gemma3-27b's 32 / 16 heads at its window 1024 (on its local
-              slab of 65 pages), bf16 pools, windows 0 and > 0. f32
+              slab of 65 pages), bf16 pools, windows 0 and > 0, and
+              musicgen-medium's 24 / 24 heads (G 1, hd 64; it has no
+              window), window 0. f32
               cases within 1e-4; the tensor-core routes (bf16 prefill over a bf16
               pool, bf16 flash) within the derived bound 1e-5 + 2**-7 |plain|
               + 2**-8 (P |V|) / l; each case names its route. Then each one's
@@ -36,7 +38,7 @@ Phases (any failure exits non-zero; none is skipped):
               (scaled_dot_product_attention, a yardstick only, also in both
               clocks); and each one's device_ms and bound at those three
               head dims, at their models' dtypes (TINY f32, the others bf16),
-              and at the three family shapes (bf16, window 0)
+              and at the four family shapes (bf16, window 0)
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions, under
               paged_eviction and each of the paper's baselines: the engine on
@@ -63,9 +65,14 @@ Phases (any failure exits non-zero; none is skipped):
               mLSTM, 1 sLSTM; no attention layer, so no kernel and no
               lineage ledger): no prefix adoption (sharing is off for
               them), and each run's recurrent states within 1e-3 of their
-              magnitude of the other's (printed)
+              magnitude of the other's (printed). Then the reduced f32
+              musicgen (cross-attention, 4 codebooks), which the engine
+              refuses: forward_step with cross caches from
+              make_cross_cache over mixed and decode-only steps (greedy
+              tokens per codebook, devstats, pool state equal, logits
+              within 1e-4), one-shot and 2 AdamW steps, the same way
   4. serve    llama-3.2-1b at full width (bf16, random weights from a seed;
-              4 of its 16 layers, a depth cut for the run time):
+              1 of its 16 layers, a depth cut for the run time):
               16 requests of 1024-2048 prompt tokens (half share a 256-token
               prefix), 32 greedy tokens each, under paged_eviction (page 16,
               budget 512, max batch 8, chunk 256, decode splits 4). Checks
@@ -80,19 +87,20 @@ Phases (any failure exits non-zero; none is skipped):
               track per request, TTFT and ITL histograms count every first
               and later token; prints the hooks' median host ms per step
               and its share of the step.
-  5. one-shot llama-3.2-1b at full width, the paper's own experiment: 4
+  5. one-shot llama-3.2-1b at full width (4 of its 16 layers, a depth cut
+              for the run time), the paper's own experiment: 4
               prompts of up to 4096 tokens prefilled through the flash
-              kernel (all 16 launches on the tensor-core route), compressed
+              kernel (all 4 launches on the tensor-core route), compressed
               to budget 512 by Alg. 2, then 32 greedy tokens under Alg. 3,
               once on a bf16 and once on an int8 pool
-  6. int8     phase 4's workload (4 requests) served on an int8 pool at 4
+  6. int8     phase 4's workload (4 requests) served on an int8 pool at 1
               of the 16 layers (full width; depth cut for the run time;
               every prefill launch on the CUDA-core route: a bf16 query
               over the dequantized f32 pool)
   7. baselines the paper's comparison: streaming_llm, inverse_key_l2 and
               keydiff each serve 4 of phase 4's requests (16 greedy tokens)
               and run phase 5's prompts one-shot (bf16, 16 decode steps),
-              at 2 of the model's 16 layers (full width; depth cut for the
+              at 1 of the model's 16 layers (full width; depth cut for the
               run time).
               Checks after every step the budget (budget + page, plus the
               shared prefix for rows that share one: copy-on-write sheds it
@@ -100,7 +108,7 @@ Phases (any failure exits non-zero; none is skipped):
               forced a rollover), that tokens were evicted, F1-F4 and the
               kernels' routes; prints tok/s, step times, live tokens per
               mapped page, forced evictions and prefix adoptions.
-  8. regret   eviction-regret shadow probes at full width, 8 of the 16
+  8. regret   eviction-regret shadow probes at full width, 2 of the 16
               layers: 2 of phase 4's requests, 16 greedy tokens, probes
               every 4 decode steps, under paged_eviction at budget 512;
               every probe's divergence finite, its evicted attention mass
@@ -114,7 +122,7 @@ Phases (any failure exits non-zero; none is skipped):
               layer's wq/wk/wv gradient nonzero, no kernel launched; a
               params + AdamW-state checkpoint restored bit for bit.
               9b: llama-3.2-1b at full width (bf16, random weights from a
-              seed; 8 of its 16 layers, a depth cut for the run time)
+              seed; 2 of its 16 layers, a depth cut for the run time)
               trains 6 steps at B 2 x S 4096 (warmup 2): losses
               finite and falling, every layer's attention weights with a
               gradient at step 1, no kernel launched; prints the median
@@ -130,9 +138,9 @@ Phases (any failure exits non-zero; none is skipped):
               the f32 CUDA-core route, K1): full at budget 32 must answer
               >= 0.60; paged_eviction and streaming_llm at budgets 16 and 8
               are printed. Prints phase 9's seconds.
- 10. families stablelm-3b (8 of 32 layers), gemma3-27b (6 of 62: one period
-              of 5 local layers and 1 global), chameleon-34b (4 of 48) and
-              mixtral-8x7b (4 of 32) at full width (bf16, random weights
+ 10. families stablelm-3b (4 of 32 layers), gemma3-27b (6 of 62: one period
+              of 5 local layers and 1 global), chameleon-34b (2 of 48) and
+              mixtral-8x7b (2 of 32) at full width (bf16, random weights
               from a seed; depth cut for the run time): each serves 4
               requests of 1024-3072 prompt tokens (2 share a 256-token
               prefix), 16 greedy tokens, page 16, max batch 4, chunk 256
@@ -163,6 +171,21 @@ Phases (any failure exits non-zero; none is skipped):
               step; xlstm: no kernel launched. Prints tok/s, step times,
               one-shot times and the recurrent layers' share of the mixed
               steps (host-clocked, synchronized around each layer).
+ 12. musicgen musicgen-medium at full width (bf16, random weights from a
+              seed, all 48 layers, 2.29 B parameters; a random
+              conditioning of (4, 64, 1536)): 4 prompts of 4 codebooks x
+              2048 tokens one-shot under paged_eviction (page 16, budget
+              512), 16 greedy decode steps, once on a bf16 pool (K5 on the
+              tensor cores, K1) and once on int8 (K5, K2), each beside the
+              plain-kernel run of the same inputs for its first 4 steps
+              (greedy tokens equal are printed); then at 8 of the 48 layers
+              (the same weights) three forward_step calls with cross
+              caches (prompt chunks of 256, a mixed step, a decode-only
+              step: K3 on the tensor cores, K1) and 2 AdamW steps at B 2 x
+              4 x S 1024: every layer's self- and cross-attention wq / wk /
+              wv with a gradient, no kernel launched. Checks the launches,
+              evictions, the budget, F1-F4; prints prefill and decode-step
+              ms, peak memory and the step and training times.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
@@ -417,6 +440,7 @@ FAMILY_SHAPES = {
     "mixtral-8x22b (G 6)": ((8, 6, 128, 16), P, (0, 8 * 16)),
     "gemma3-27b (32/16 heads, window 1024)": ((16, 2, 128, 16), 65,
                                               (0, 1024)),
+    "musicgen-medium (G 1, 24/24 heads)": ((24, 1, 64, 16), P, (0,)),
 }
 
 
@@ -1220,15 +1244,17 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
 
 
 def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
-                decode_splits=1, on_step=None):
-    """forward_prefill, then ``steps`` greedy decode_steps (the kernels'
-    eviction ranking, fused_scores, on both). The caches get devstats
-    vectors after the prefill (a wholesale reset, it emits none), so every
-    decode step's events are read; ``on_step(layers)``, when given, after
+                decode_splits=1, on_step=None, cond=None):
+    """forward_prefill (of ``tokens`` (B, S), or (B, K, S) with codebooks,
+    under the conditioning ``cond`` when given), then ``steps`` greedy
+    decode_steps (the kernels' eviction ranking, fused_scores, on both).
+    The caches get devstats vectors after the prefill (a wholesale reset,
+    it emits none), so every decode step's events are read; ``on_step(layers)``, when given, after
     each step (its time counts). Returns (tokens (B, steps), layer caches,
     live tokens per attention layer and row after prefill, per-step
     devstats (steps, NSTATS; zeros without an attention layer), prefill
-    seconds, decode seconds)."""
+    seconds, decode seconds); with codebooks the tokens are (B, steps,
+    K)."""
     from repro_torch.core import devstats
     from repro_torch.core.policies import get_policy
     from repro_torch.models.transformer import (collect_step_stats,
@@ -1239,8 +1265,8 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
     t0 = time.perf_counter()
     logits, cache = forward_prefill(params, cfg, tokens, pol, ccfg,
                                     valid=valid,
-                                    total_seq_hint=tokens.shape[1] + steps,
-                                    plain_kernels=plain)
+                                    total_seq_hint=tokens.shape[-1] + steps,
+                                    plain_kernels=plain, cond=cond)
     tok = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1274,16 +1300,22 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction",
                    arch=None, budget=32):
     """The reduced config's one-shot path (forward_prefill + 8 decode
     steps) through the kernels and through their plain versions; ``arch``:
-    that arch's reduced config instead."""
+    that arch's reduced config instead (musicgen: (B, K, S) codebook
+    tokens and a random conditioning)."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
+    from repro_torch.models.multimodal import token_shape
     from repro_torch.models.transformer import init_model
     cfg = _reduced(get_arch) if arch is None else get_arch(arch).reduced()
     params = init_model(cfg, seed=1, device="cuda")
     rng = np.random.default_rng(1)
     Bp = 3
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (Bp, S))
-                              .astype(np.int32)).cuda()
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, token_shape(cfg, Bp, S)).astype(np.int32)).cuda()
+    cond = None
+    if cfg.cross_attention:
+        cond = torch.from_numpy(rng.standard_normal(
+            (Bp, cfg.cond_len, cfg.d_model)).astype(np.float32)).cuda()
     valid = torch.arange(S, device="cuda")[None, :] < \
         torch.tensor([[S], [S - 5], [S - 19]], device="cuda")
     ccfg = CacheConfig(page_size=8, cache_budget=budget, policy=policy,
@@ -1294,7 +1326,7 @@ def oneshot_parity(torch, np, kv_dtype, S=128, policy="paged_eviction",
         seen, undo = record_quantize()
         try:
             runs.append(oneshot_run(torch, params, cfg, ccfg, tokens, valid,
-                                    8, plain, decode_splits=2))
+                                    8, plain, decode_splits=2, cond=cond))
         finally:
             undo()
         inputs.append(seen)
@@ -1460,7 +1492,8 @@ def oneshot_full_width(torch, np):
     from repro_torch.core import devstats
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_model
-    cfg = get_arch("llama-3.2-1b")
+    cfg = dataclasses.replace(get_arch("llama-3.2-1b"),
+                              num_layers=ONESHOT_LAYERS)
     params = init_model(cfg, seed=0, device="cuda")
     tokens, valid = oneshot_prompts(torch, np, cfg.vocab_size)
     budget, page, steps = 512, 16, 32
@@ -1582,15 +1615,16 @@ def baseline_checks(torch, devstats, policy, limit, n_sinks, seen,
 
 
 # depth cuts for the run time (of llama-3.2-1b's 16 layers, full width):
-# phase 4, phase 6, phase 7 (served and one-shot), phase 8 and 9b; 4, 6, 7
-# and 9b at half their earlier depth, so that the run with phase 3's
-# recurrent runs and phase 11 takes no longer than it did without them
-# (PERF.md section 4 gives what each cut saves)
-SERVE_LAYERS = 4
-INT8_SERVE_LAYERS = 4
-BASELINE_LAYERS = 2
-REGRET_LAYERS = 8
-TRAIN_LAYERS = 8
+# phase 4, phase 5, phase 6, phase 7 (served and one-shot), phase 8 and
+# 9b, so that the run with phase 3's recurrent and musicgen runs and
+# phases 11 and 12 takes no longer than it did without them (PERF.md
+# section 4 gives what each cut saves)
+SERVE_LAYERS = 1
+ONESHOT_LAYERS = 4
+INT8_SERVE_LAYERS = 1
+BASELINE_LAYERS = 1
+REGRET_LAYERS = 2
+TRAIN_LAYERS = 2
 
 
 def baselines_full_width(torch, np):
@@ -1783,10 +1817,10 @@ def regret_full_width(torch, np):
 # gemma3 runs one whole period (5 local layers, 1 global) at a budget above
 # its local window, so that the window, not the budget, bounds those layers
 FAMILIES = {
-    "stablelm-3b": (8, 512),
+    "stablelm-3b": (4, 512),
     "gemma3-27b": (6, 2048),
-    "chameleon-34b": (4, 512),
-    "mixtral-8x7b": (4, 512),
+    "chameleon-34b": (2, 512),
+    "mixtral-8x7b": (2, 512),
 }
 FAMILY_NEW_TOKENS = 16
 
@@ -2155,6 +2189,262 @@ def recurrent_full_width(torch, np, arch, num_layers, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: musicgen (cross-attention to static conditioning, codebooks)
+# ---------------------------------------------------------------------------
+
+MUSICGEN = "musicgen-medium"
+MUSICGEN_PROMPT = 2048       # one-shot prompt tokens per codebook
+MUSICGEN_STEPS = 16          # one-shot greedy decode steps at full width
+MUSICGEN_PLAIN_STEPS = 4     # of them, run beside the plain-kernel run
+# depth of phase 12's forward_step calls and training steps (of 48 layers)
+MUSICGEN_CUT_LAYERS = 8
+
+
+def step_run(torch, params, cfg, ccfg, tokens, lens, cond, chunk,
+             decode_steps, plain, feed=None):
+    """The unified step (forward_step) over (B, K, S) codebook prompts of
+    ``lens`` tokens, each layer's cross cache made from ``cond`` by
+    make_cross_cache: ceil(max(lens) / chunk) steps of prompt chunks (a row
+    whose prompt is done decodes beside the others: a mixed step), then
+    ``decode_steps`` decode-only steps (T 1). A decoding row is fed its
+    greedy tokens, or those of ``feed`` (another run's, so that two runs
+    see the same inputs). Returns (per-step greedy tokens (B, K), logits,
+    devstats, the fed tokens, the cache, per-step seconds)."""
+    from repro_torch.core.policies import get_policy
+    from repro_torch.models.attention import make_cross_cache
+    from repro_torch.models.transformer import (collect_step_stats,
+                                                forward_step,
+                                                init_decode_caches)
+    pol = get_policy(ccfg.policy)
+    B, K, S = tokens.shape
+    dev = tokens.device
+    lens_t = torch.tensor(lens, device=dev)
+    cache = init_decode_caches(cfg, B, S + decode_steps, pol, ccfg,
+                               chunk_tokens=chunk, track_stats=True,
+                               device=dev)
+    cache.cross = [make_cross_cache(lp["xattn"], cfg, cond)
+                   for lp in params["layers"]]
+    done = torch.zeros(B, dtype=torch.long, device=dev)
+    last = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    n_prefill = -(-max(lens) // chunk)
+    out = {"greedy": [], "logits": [], "stats": [], "fed": [], "s": []}
+    for t in range(n_prefill + decode_steps):
+        T = chunk if t < n_prefill else 1
+        dec = done >= lens_t
+        n_tok = torch.where(dec, 1, (lens_t - done).clamp(max=chunk)).to(
+            torch.int32)
+        idx = (done[:, None] + torch.arange(T, device=dev)).clamp(max=S - 1)
+        tok = tokens.gather(2, idx[:, None, :].expand(B, K, T)).clone()
+        fed = last if feed is None else feed[t]
+        tok[:, :, 0] = torch.where(dec[:, None], fed, tok[:, :, 0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = forward_step(
+            params, cfg, tok, n_tok, cache, pol, ccfg, decode_mask=dec,
+            reset_mask=torch.full((B,), t == 0, device=dev),
+            decode_splits=4, fused_scores=True, plain_kernels=plain)
+        torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        done = done + n_tok.long()
+        last = logits.argmax(-1).to(torch.int32)
+        for key, val in (("greedy", last), ("logits", logits), ("fed", fed),
+                         ("stats", collect_step_stats(cache))):
+            out[key].append(val)
+    if not all(bool(torch.isfinite(x).all()) for x in out["logits"]):
+        fail(f"{cfg.name} forward_step: non-finite logits")
+    return out, cache
+
+
+def musicgen_step_parity(torch, np):
+    """The reduced f32 musicgen through forward_step with cross caches from
+    make_cross_cache, through the kernels and through their plain versions
+    fed the same tokens: 3 prompts of 150 / 97 / 64 tokens in chunks of 32
+    (mixed steps once a prompt is done), then 4 decode-only steps, under
+    paged_eviction at budget 48 (page 8): greedy tokens per codebook,
+    per-step devstats and the integer pool state equal, logits within
+    1e-4, pages evicted, K1 and K3 (CUDA cores) launched."""
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.core import devstats
+    from repro_torch.models.multimodal import make_inputs
+    from repro_torch.models.transformer import init_model
+    cfg = get_arch(MUSICGEN).reduced()
+    params = init_model(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lens = [150, 97, 64]
+    inp = make_inputs(gen, cfg, len(lens), max(lens), "cuda")
+    ccfg = CacheConfig(page_size=8, cache_budget=48,
+                       policy="paged_eviction", dtype="float32")
+    reset_launches()
+    run, cache = step_run(torch, params, cfg, ccfg, inp["tokens"], lens,
+                          inp["cond"], 32, 4, plain=False)
+    launches = read_launches()
+    ref, ref_cache = step_run(torch, params, cfg, ccfg, inp["tokens"], lens,
+                              inp["cond"], 32, 4, plain=True,
+                              feed=run["fed"])
+    what = "musicgen forward_step parity (reduced, f32, budget 48)"
+    for name in ("greedy", "stats"):
+        if any(not torch.equal(a, b) for a, b in zip(run[name], ref[name])):
+            fail(f"{what}: {name} differ between kernels and plain")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(run["logits"], ref["logits"]))
+    if err > TOL["float32"][0]:
+        fail(f"{what}: logits {err:.3g} apart")
+    ik, _ = pool_state(np, cache.layers)
+    ip, _ = pool_state(np, ref_cache.layers)
+    if any(not np.array_equal(a, b) for a, b in zip(ik, ip)):
+        fail(f"{what}: integer pool state differs")
+    check_invariants(np, cache.layers)
+    evicted = int(sum(int(st[devstats.PAGES_EVICTED])
+                      for st in run["stats"]))
+    if not evicted or not launches["paged_decode"] or \
+            launches["paged_prefill/cuda_core"] != launches["paged_prefill"] \
+            or not launches["paged_prefill"]:
+        fail(f"{what}: {evicted} pages evicted, launches {launches}")
+    print(f"  forward_step {MUSICGEN} (reduced, f32): {len(run['s'])} steps "
+          f"(mixed, then 4 decode-only), greedy tokens (B, K) per step, "
+          f"devstats and integer pool state equal; logits {err:.3g} apart "
+          f"(tol {TOL['float32'][0]}); {evicted} pages evicted; launches "
+          f"{launches}", flush=True)
+
+
+def musicgen_full_width(torch, np, card):
+    """musicgen-medium at full width (bf16, random weights from seed 0, all
+    48 layers, a random conditioning (4, 64, 1536)): 4 prompts of 4
+    codebooks x 2048 tokens one-shot under paged_eviction (page 16, budget
+    512), MUSICGEN_STEPS greedy decode steps, once on a bf16 pool (K5, K1)
+    and once on int8 (K5, K2), each beside the plain-kernel run of the same
+    inputs for its first MUSICGEN_PLAIN_STEPS steps (a cut for the run
+    time); then at MUSICGEN_CUT_LAYERS layers (the same weights) three
+    forward_step calls (prompt chunks of 256, a mixed step, a decode-only
+    step; K3, K1) and 2 AdamW steps at B 2 x 4 x S 1024, every layer's
+    self- and cross-attention wq / wk / wv with a gradient, no kernel
+    launched. Returns the launches of each run."""
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.core import devstats
+    from repro_torch.models.multimodal import make_inputs
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import AdamWConfig, DataConfig, lm_batch
+    from repro_torch.training.tree import map_leaves
+    cfg = get_arch(MUSICGEN)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    gib = sum(nbytes(p) for p in _leaves(params)) / 2 ** 30
+    print(f"  {MUSICGEN}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters ({gib:.2f} GiB), initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Bm, S = 4, MUSICGEN_PROMPT
+    inp = make_inputs(gen, cfg, Bm, S, "cuda")
+    valid = torch.ones((Bm, S), dtype=torch.bool, device="cuda")
+    budget, page, L = 512, 16, cfg.num_layers
+    out = {}
+    for kv_dtype in ("bfloat16", "int8"):
+        ccfg = CacheConfig(page_size=page, cache_budget=budget,
+                           policy="paged_eviction", dtype=kv_dtype)
+        runs = {}
+        for plain, steps in ((False, MUSICGEN_STEPS),
+                             (True, MUSICGEN_PLAIN_STEPS)):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            runs[plain] = oneshot_run(torch, params, cfg, ccfg,
+                                      inp["tokens"], valid, steps, plain,
+                                      decode_splits=4, cond=inp["cond"])
+            runs[plain] += (read_launches(),
+                            torch.cuda.max_memory_allocated())
+        toks, layers, live, stats, t_pre, t_dec, one, peak = runs[False]
+        dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
+        other = "paged_decode" if kv_dtype == "int8" else "paged_decode_int8"
+        evicted = int(stats[:, devstats.PAGES_EVICTED].sum())
+        if one["flash_attention"] != L or \
+                one["flash_attention/tensor_core"] != L or not one[dec] or \
+                one[other] or not evicted or int(live.max()) > budget + page:
+            fail(f"{MUSICGEN} one-shot {kv_dtype}: not {L} flash launches on "
+                 f"the tensor cores, {dec} launches, evictions and the "
+                 f"budget: {one}, {evicted} pages evicted, "
+                 f"{int(live.max())} live tokens")
+        if any(runs[True][-2].values()):
+            fail(f"{MUSICGEN} one-shot {kv_dtype}: the plain run launched "
+                 f"{runs[True][-2]}")
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or \
+                toks.shape != (Bm, MUSICGEN_STEPS, cfg.num_codebooks):
+            fail(f"{MUSICGEN} one-shot {kv_dtype}: tokens {toks.shape} "
+                 f"outside the vocabulary or of the wrong shape")
+        check_invariants(np, layers)
+        plain_toks = runs[True][0]
+        same = int((toks[:, :MUSICGEN_PLAIN_STEPS] == plain_toks).sum())
+        print(f"  {MUSICGEN} one-shot {kv_dtype:8s} {Bm} x {cfg.num_codebooks}"
+              f" x {S}: prefill {1e3 * t_pre:.1f} ms (plain "
+              f"{1e3 * runs[True][4]:.1f}), mean decode step "
+              f"{1e3 * t_dec / MUSICGEN_STEPS:.2f} ms (plain "
+              f"{1e3 * runs[True][5] / MUSICGEN_PLAIN_STEPS:.2f}); peak "
+              f"{peak / 2 ** 30:.2f} GiB; {evicted} pages evicted; greedy "
+              f"tokens of the first {MUSICGEN_PLAIN_STEPS} steps equal to "
+              f"the plain run's {same} of {plain_toks.size}; "
+              f"launches {one}; {card}", flush=True)
+        out[kv_dtype] = one
+        del layers, runs
+        torch.cuda.empty_cache()
+
+    # forward_step and training at cut depth, on the same weights
+    Lc = MUSICGEN_CUT_LAYERS
+    cut = dataclasses.replace(cfg, num_layers=Lc)
+    pc = {**params, "layers": params["layers"][:Lc]}
+    ccfg = CacheConfig(page_size=page, cache_budget=budget,
+                       policy="paged_eviction", dtype="bfloat16")
+    reset_launches()
+    run, cache = step_run(torch, pc, cut, ccfg, inp["tokens"][..., :512],
+                          [256, 512, 256, 512], inp["cond"], 256, 1,
+                          plain=False)
+    step = read_launches()
+    check_invariants(np, cache.layers)
+    if not step["paged_decode"] or not step["paged_prefill"] or \
+            step["paged_prefill/tensor_core"] != step["paged_prefill"] or \
+            run["logits"][-1].shape != (Bm, cfg.num_codebooks,
+                                        cfg.vocab_size):
+        fail(f"{MUSICGEN} forward_step: K1 / K3 (tensor cores) not launched "
+             f"or logits {run['logits'][-1].shape}: {step}")
+    print(f"  {MUSICGEN} forward_step, {Lc} of {L} layers: prompt chunks, "
+          f"mixed, decode-only {[f'{1e3 * x:.2f}' for x in run['s']]} ms; "
+          f"logits {tuple(run['logits'][-1].shape)}; launches {step}; "
+          f"{card}", flush=True)
+    out["step"] = step
+    del cache, run
+    train = _require_grad(map_leaves(lambda t: t.detach().clone(), pc))
+    del params, pc
+    torch.cuda.empty_cache()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, batch_size=2,
+                      seed=0)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, losses, grads, walls, _ = train_run(
+        torch, cut, train, AdamWConfig(lr_peak=1e-4, warmup_steps=1,
+                                       total_steps=2),
+        [lm_batch(dcfg, i, num_codebooks=cfg.num_codebooks)
+         for i in range(2)], "cuda", cond=inp["cond"][:2])
+    peak = torch.cuda.max_memory_allocated()
+    _no_kernel_launched(f"{MUSICGEN} training")
+    if not all(np.isfinite(losses)):
+        fail(f"{MUSICGEN} training: losses {losses}")
+    for i, lp in enumerate(grads["layers"]):
+        for block in ("attn", "xattn"):
+            for name in ("wq", "wk", "wv"):
+                if not float(lp[block][name].abs().max()) > 0:
+                    fail(f"{MUSICGEN} training: layer {i} {block} {name} "
+                         f"has no gradient at step 1")
+    print(f"  {MUSICGEN} training, {Lc} of {L} layers, B 2 x "
+          f"{cfg.num_codebooks} x S 1024: losses "
+          f"{[f'{x:.4f}' for x in losses]}; step times "
+          f"{[f'{1e3 * w:.1f}' for w in walls]} ms; peak {peak / 2 ** 30:.2f}"
+          f" GiB; every layer's attn and xattn wq / wk / wv with a gradient; "
+          f"no kernel launched; {card}", flush=True)
+    del train, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: training, and the trained weights handed to serving and one-shot
 # ---------------------------------------------------------------------------
 
@@ -2216,9 +2506,10 @@ def _checkpoint_round_trip(torch, tree, what):
     return back, size, t1 - t0, t2 - t1
 
 
-def train_run(torch, cfg, params, opt_cfg, batches, device):
+def train_run(torch, cfg, params, opt_cfg, batches, device, cond=None):
     """Train from ``params`` (leaves that require grad) on the numpy
-    ``batches``, the first step by ``value_and_grad`` then
+    ``batches`` (under the conditioning ``cond`` when given), the first
+    step by ``value_and_grad`` then
     ``adamw_update`` (the body of ``train_step``, so that its gradient is
     kept), the rest by ``make_train_step``. Returns (params, opt state,
     losses, step-1 gradients, wall seconds of each step, aux losses)."""
@@ -2234,11 +2525,12 @@ def train_run(torch, cfg, params, opt_cfg, batches, device):
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 0:
-            (loss, parts), grads = value_and_grad(params, cfg, batch)
+            (loss, parts), grads = value_and_grad(params, cfg, batch,
+                                                  cond=cond)
             params, opt, _ = adamw_update(params, grads, opt, opt_cfg)
             _require_grad(params)
         else:
-            params, opt, parts = step(params, opt, batch)
+            params, opt, parts = step(params, opt, batch, cond=cond)
             loss = parts["loss"]
         losses.append(float(loss))
         auxes.append(float(parts["aux"]))
@@ -2251,7 +2543,10 @@ def train_parity(torch, np, arch="llama-3.2-1b", steps=4, seq=3072):
     CPU, ``steps`` AdamW steps of lm_batch (B 1, S ``seq``; 3072 takes the
     blocked attention route) on each by :func:`train_run`; TF32 off
     (PyTorch's default for matmuls). The losses hold the MoE layers' aux
-    term (0.01 aux), and the aux losses are held alike."""
+    term (0.01 aux), and the aux losses are held alike. A codebook model
+    trains on (B, K, S) batches, a cross-attention one under one random
+    conditioning, and its cross-attention weights must get a gradient
+    too."""
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import init_model
     from repro_torch.training import AdamWConfig, DataConfig, lm_batch
@@ -2264,12 +2559,18 @@ def train_parity(torch, np, arch="llama-3.2-1b", steps=4, seq=3072):
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=1,
                       seed=0)
     opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=steps)
+    cond = None
+    if cfg.cross_attention:
+        cond = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, cfg.cond_len, cfg.d_model)).astype(np.float32))
     out = {}
     for dev, params in (("cuda", card), ("cpu", host)):
         reset_launches()
-        batches = [lm_batch(dcfg, i) for i in range(steps)]
+        batches = [lm_batch(dcfg, i, num_codebooks=cfg.num_codebooks)
+                   for i in range(steps)]
         params, opt, losses, grads, _, aux = train_run(
-            torch, cfg, params, opt_cfg, batches, dev)
+            torch, cfg, params, opt_cfg, batches, dev,
+            cond=None if cond is None else cond.to(dev))
         if dev == "cuda":
             _no_kernel_launched("9a")
         out[dev] = (losses, grads, params, opt, aux)
@@ -2291,10 +2592,11 @@ def train_parity(torch, np, arch="llama-3.2-1b", steps=4, seq=3072):
             fail(f"9a: step-1 gradient {path} beyond atol {atol} + rtol "
                  f"{rtol}: {float(err):.3g} of the tolerance")
     for i, (lp, spec) in enumerate(zip(gk["layers"], cfg.layer_specs())):
-        for name in MIXER_WEIGHTS[spec.mixer]:
-            if not float(lp[spec.mixer][name].abs().max()) > 0:
-                fail(f"9a: layer {i} {spec.mixer} {name} has no gradient on "
-                     f"the card")
+        for block in (spec.mixer, "xattn"):
+            for name in MIXER_WEIGHTS[spec.mixer] if block in lp else ():
+                if not float(lp[block][name].abs().max()) > 0:
+                    fail(f"9a: layer {i} {block} {name} has no gradient "
+                         f"on the card")
     _, size, _, _ = _checkpoint_round_trip(torch, {"params": pk, "opt": ok},
                                            "9a")
     print(f"  9a reduced {arch} f32, B 1 x S {seq}, TF32 off: losses card "
@@ -2302,7 +2604,8 @@ def train_parity(torch, np, arch="llama-3.2-1b", steps=4, seq=3072):
           f"({rel:.3g} relative, tol {TRAIN_RTOL}); aux {ak} ({rel_aux:.3g} "
           f"relative); step-1 gradients within {worst:.3g} of atol "
           f"{atol} + rtol {rtol}, every mixer's weights "
-          f"({', '.join(sorted({s.mixer for s in cfg.layer_specs()}))}) "
+          f"({', '.join(sorted({s.mixer for s in cfg.layer_specs()}))}"
+          f"{', xattn' if cfg.cross_attention else ''}) "
           f"nonzero in every layer; no kernel "
           f"launched; params + AdamW checkpoint ({size} bytes) restored bit "
           f"for bit", flush=True)
@@ -2475,7 +2778,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/11] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/12] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -2485,7 +2788,7 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/11] kernels against their plain versions")
+    phase("[2/12] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
@@ -2495,7 +2798,7 @@ def main() -> None:
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
 
-    phase("[3/11] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/12] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
@@ -2516,34 +2819,39 @@ def main() -> None:
         engine_parity(torch, np, "float32", arch=arch, budget=budget)
         oneshot_parity(torch, np, "float32", arch=arch, budget=budget)
         train_parity(torch, np, arch=arch, steps=2, seq=1024)
+    # musicgen, which the engine refuses (codebooks): forward_step with
+    # cross caches, one-shot, training
+    musicgen_step_parity(torch, np)
+    oneshot_parity(torch, np, "float32", arch=MUSICGEN, budget=48)
+    train_parity(torch, np, arch=MUSICGEN, steps=2, seq=1024)
 
-    phase(f"[4/11] llama-3.2-1b at full width: serving, bf16 pool, with "
+    phase(f"[4/12] llama-3.2-1b at full width: serving, bf16 pool, with "
           f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
           f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/11] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/12] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[6/11] llama-3.2-1b at full width: serving, int8 pool "
+    phase(f"[6/12] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
     serve8 = serve_full_width(torch, np, "int8", 4,
                               num_layers=INT8_SERVE_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    phase(f"[7/11] llama-3.2-1b at full width: the paper's baselines "
+    phase(f"[7/12] llama-3.2-1b at full width: the paper's baselines "
           f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[8/11] llama-3.2-1b at full width: eviction-regret probes "
+    phase(f"[8/12] llama-3.2-1b at full width: eviction-regret probes "
           f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[9/11] training: card against CPU, llama-3.2-1b at full width "
+    phase("[9/12] training: card against CPU, llama-3.2-1b at full width "
           "then served from its checkpoint, TINY trained and scored")
     t9 = time.perf_counter()
     train_parity(torch, np)
@@ -2553,7 +2861,7 @@ def main() -> None:
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    phase("[10/11] the attention-only families at full width: "
+    phase("[10/12] the attention-only families at full width: "
           + ", ".join(f"{a} ({n} layers, budget {b})"
                       for a, (n, b) in FAMILIES.items()))
     t10 = time.perf_counter()
@@ -2567,7 +2875,7 @@ def main() -> None:
               for a, r in families.items()), flush=True)
     torch.cuda.empty_cache()
 
-    phase("[11/11] the recurrent families at full width: "
+    phase("[11/12] the recurrent families at full width: "
           + ", ".join(f"{a} ({n} layers)" for a, n in RECURRENT.items()))
     t11 = time.perf_counter()
     recurrent = {arch: recurrent_full_width(torch, np, arch, n, card)
@@ -2578,6 +2886,19 @@ def main() -> None:
           f"{jamba['serving']['paged_prefill']}, K5 / K1 one-shot "
           f"{jamba['one_shot']['flash_attention']} / "
           f"{jamba['one_shot']['paged_decode']}; {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    phase(f"[12/12] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
+          f"int8 pools), forward_step and training ({MUSICGEN_CUT_LAYERS} "
+          f"layers)")
+    t12 = time.perf_counter()
+    music = musicgen_full_width(torch, np, card)
+    print(f"  phase 12: {time.perf_counter() - t12:.1f} s; one-shot K5 / K1 "
+          f"/ K2 {music['bfloat16']['flash_attention']} / "
+          f"{music['bfloat16']['paged_decode']} / "
+          f"{music['int8']['paged_decode_int8']}, forward_step K3 / K1 "
+          f"{music['step']['paged_prefill']} / "
+          f"{music['step']['paged_decode']}; {card}", flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4
     # and 6), flash attention from the one-shot prefill (phase 5); the

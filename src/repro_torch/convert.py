@@ -11,7 +11,10 @@ repetitions, the port holds a plain list of layers in depth order (layer
 cross with their int8 values and scales when quantized; a JAX cache from
 ``forward_prefill`` or ``init_decode_caches`` converts alike, a recurrent
 layer's state (``LayerCaches(mamba=|mlstm=|slstm=)``) as the port's
-``MambaState``, ``MLSTMState`` or ``SLSTMState``.
+``MambaState``, ``MLSTMState`` or ``SLSTMState``, and a cross-attention
+layer's conditioning K/V (``LayerCaches.xattn``, beside its ``kv``) as a
+``StaticKVCache`` in ``ModelCache.cross``. musicgen's (K, V, D) embed and
+lm_head live outside ``pattern`` and cross as they are.
 
 AdamW state crosses alike (``adamw_state_from_jax``: the moments
 unstacked as the weights are), and so does a checkpoint directory that the
@@ -34,6 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import StaticKVCache
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import ModelCache, init_layer
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
@@ -195,8 +199,8 @@ def state_from_jax(st, device=None):
 def layer_cache_to_numpy(c) -> dict:
     """A layer cache -> {field: ndarray}: over CACHE_FIELDS for a page pool
     (stats and the scales None when off), over its own fields for a
-    recurrent state. Accepts the port's cache or a JAX one with numpy-able
-    fields."""
+    recurrent state or a ``StaticKVCache``. Accepts the port's cache or a
+    JAX one with numpy-able fields."""
     out = {}
     names = CACHE_FIELDS if hasattr(c, "block_table") else _state_fields(c)
     for f in names:
@@ -218,31 +222,49 @@ def _layer_state(lc):
                 if getattr(lc, f) is not None)
 
 
+def _depth_order(mc, period: int, pick) -> list:
+    """``pick(lc)`` (a NamedTuple of numpy leaves, or None) of every JAX
+    ``LayerCaches`` of a JAX ``ModelCache`` in depth order, pattern slots
+    unstacked."""
+    reps = np.asarray(_layer_state(mc.pattern[0])[0]).shape[0] \
+        if mc.pattern else 0
+    unstack = lambda c, r: None if c is None else type(c)(  # noqa: E731
+        *[None if a is None else np.asarray(a)[r] for a in c])
+    return [unstack(pick(mc.pattern[p]), r) for r in range(reps)
+            for p in range(period)] + [pick(lc) for lc in mc.tail]
+
+
 def jax_cache_layers(mc, period: int) -> list:
     """A JAX ``ModelCache`` (numpy leaves) -> per-layer JAX layer caches
     (``PagedLayerCache``, or a recurrent layer's state) in depth order
     (pattern slots unstacked)."""
-    layers = []
-    pattern = [_layer_state(lc) for lc in mc.pattern]
-    reps = np.asarray(pattern[0][0]).shape[0] if pattern else 0
-    for r in range(reps):
-        for p in range(period):
-            c = pattern[p]
-            layers.append(type(c)(*[None if a is None else np.asarray(a)[r]
-                                    for a in c]))
-    return layers + [_layer_state(lc) for lc in mc.tail]
+    return _depth_order(mc, period, _layer_state)
+
+
+def jax_cache_cross(mc, period: int) -> list:
+    """A JAX ``ModelCache`` -> per layer in depth order, its
+    cross-attention ``StaticKVCache`` (``LayerCaches.xattn``) or None."""
+    return _depth_order(mc, period, lambda lc: lc.xattn)
 
 
 def cache_from_jax(mc, cfg: ModelConfig, device=None) -> ModelCache:
-    """A JAX ``ModelCache`` (numpy leaves) -> the port's ``ModelCache``."""
+    """A JAX ``ModelCache`` (numpy leaves) -> the port's ``ModelCache``,
+    the cross-attention layers' conditioning K/V in ``cross``."""
     device = resolve_device(device)
     layers = [layer_cache_from_jax(c, device) if hasattr(c, "block_table")
               else state_from_jax(c, device)
               for c in jax_cache_layers(mc, cfg.pattern_period)]
-    return ModelCache(layers=layers, cur_pos=_tensor(mc.cur_pos, device))
+    cross = [None if x is None else
+             StaticKVCache(k=_tensor(x.k, device), v=_tensor(x.v, device))
+             for x in jax_cache_cross(mc, cfg.pattern_period)]
+    return ModelCache(layers=layers, cur_pos=_tensor(mc.cur_pos, device),
+                      cross=cross)
 
 
 def cache_to_numpy(cache: ModelCache) -> dict:
-    """The port's ``ModelCache`` -> {"layers": [field dicts], "cur_pos"}."""
+    """The port's ``ModelCache`` -> {"layers": [field dicts], "cross":
+    [{"k", "v"} of a cross-attention layer, else None], "cur_pos"}."""
     return {"layers": [layer_cache_to_numpy(c) for c in cache.layers],
+            "cross": [None if c is None else layer_cache_to_numpy(c)
+                      for c in cache.cross],
             "cur_pos": cache.cur_pos.cpu().numpy()}

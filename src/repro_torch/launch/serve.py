@@ -7,7 +7,8 @@ policy, on the GPU by default.
 
 ``--policy`` takes any registered policy (paged_eviction, full, and the
 paper's baselines streaming_llm, inverse_key_l2 and keydiff) and refuses
-other names. ``--reduced`` serves the family's tiny CPU-sized variant;
+other names, and a codebook model (musicgen), as the JAX package's
+driver does. ``--reduced`` serves the family's tiny CPU-sized variant;
 ``--device cpu`` runs the kernels' plain torch versions on the CPU.
 ``--profile START:COUNT`` (repeatable) traces steps START .. START+COUNT-1
 with ``torch.profiler`` and prints each window's device time by kernel and
@@ -149,6 +150,10 @@ def main() -> None:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.num_codebooks > 1:
+        raise SystemExit("serve driver targets text archs; run a codebook "
+                         "model one-shot (transformer.forward_prefill, "
+                         "decode_step) or through forward_step")
     params = init_model(cfg, seed=args.seed, device=device)
     ccfg = CacheConfig(page_size=args.page, cache_budget=args.budget,
                        policy=args.policy,

@@ -7,7 +7,10 @@ Trains on the synthetic LM stream (``training.data.lm_batch``) with AdamW
 (linear warmup over ``--warmup`` steps, cosine decay to the last step),
 logging step, loss, ce, lr, grad norm and elapsed seconds about every tenth
 step, as the JAX package's ``launch/train.py``. ``--ckpt-dir`` with
-``--ckpt-every N`` saves {"params", "opt"} every N steps. Attention takes
+``--ckpt-every N`` saves {"params", "opt"} every N steps. A codebook model
+(musicgen) trains on (B, K, S) tokens, and a cross-attention model on one
+random conditioning (B, cond_len, D) drawn from seed 1 for the whole run,
+as the JAX launcher does. Attention takes
 the training route (plain autograd, never a kernel) on every device. The
 JAX launcher's ``--mesh`` (a sharded production mesh) is not ported.
 """
@@ -16,8 +19,11 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch
+
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
+from repro_torch.models.multimodal import make_inputs
 from repro_torch.models.transformer import init_model
 from repro_torch.training import (
     AdamWConfig,
@@ -62,10 +68,16 @@ def main(argv=None) -> None:
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       batch_size=args.batch, seed=args.seed)
 
+    cond = None
+    if cfg.cross_attention:
+        gen = torch.Generator(device=device).manual_seed(1)
+        cond = make_inputs(gen, cfg, args.batch, 4, device)["cond"]
+
     t0 = time.perf_counter()
     for i in range(args.steps):
-        batch = batch_to_device(lm_batch(dcfg, i), device)
-        params, opt, m = step_fn(params, opt, batch)
+        batch = batch_to_device(
+            lm_batch(dcfg, i, num_codebooks=cfg.num_codebooks), device)
+        params, opt, m = step_fn(params, opt, batch, cond=cond)
         if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
             print(f"step {i:5d} loss={float(m['loss']):.4f} "
                   f"ce={float(m['ce']):.4f} lr={float(m['lr']):.2e} "

@@ -10,10 +10,15 @@ Pallas kernel's tile), the position-masked full causal attention otherwise.
 Kernels go through ``kernels.ops`` (CUDA kernel on the card, plain torch on
 the CPU). With ``train=True`` (``forward_train``) it takes plain autograd
 attention (``common.causal_attention``) on every device, as the JAX
-package's ``use_pallas=False``: no kernel has a backward pass."""
+package's ``use_pallas=False``: no kernel has a backward pass.
+
+Cross-attention to a static conditioning cache (musicgen:
+``make_cross_cache``, ``cross_attention_forward``) is plain torch, as the
+JAX package's plain jnp: no Pallas kernel computes it there."""
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -25,7 +30,19 @@ from repro_torch.models.common import (apply_rope, causal_attention,
                                        full_causal_attention, rms_head_norm)
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+@dataclass
+class StaticKVCache:
+    """K/V over the conditioning (cross-attention): written once, never
+    evicted, O(cond_len) per row and read by every step."""
+    k: torch.Tensor  # (B, Sc, KV, hd)
+    v: torch.Tensor  # (B, Sc, KV, hd)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> dict:
+    """wq / wk / wv / wo, the qkv bias (``cfg.qkv_bias``, never on a
+    cross-attention block) and qk-norm scales (``cfg.qk_norm``; a
+    cross-attention block carries them unused, as in the JAX package)."""
     hd = cfg.resolved_head_dim
     D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dt = dtype_of(cfg.dtype)
@@ -35,7 +52,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "wv": dense_init(gen, D, KV * hd, dt),
         "wo": dense_init(gen, H * hd, D, dt, scale=1.0 / math.sqrt(H * hd)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = torch.zeros((width,), dtype=dt, device=gen.device)
     if cfg.qk_norm:
@@ -99,6 +116,30 @@ def attention_forward(params: dict, cfg: ModelConfig, spec: LayerSpec, x,
         out = full_causal_attention(q, k, v, q_positions=positions,
                                     kv_positions=positions, window=window)
     return out.reshape(B, S, -1) @ params["wo"], (k, v)
+
+
+def cross_attention_forward(params: dict, cfg: ModelConfig, x,
+                            cache: StaticKVCache) -> torch.Tensor:
+    """Attention of x (B, S, D) to the static conditioning K/V: no
+    causality, no RoPE, no bias, no qk-norm. Scores, softmax and P V in
+    f32, cast back to x's dtype before ``wo``, as in the JAX package."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q = (x @ params["wq"]).reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(),
+                     cache.k.float()) * (1.0 / math.sqrt(hd))
+    o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1),
+                     cache.v.float())
+    return o.reshape(B, S, H * hd).to(x.dtype) @ params["wo"]
+
+
+def make_cross_cache(params: dict, cfg: ModelConfig, cond) -> StaticKVCache:
+    """cond (B, Sc, D) conditioning embeddings -> its static K/V."""
+    B, Sc, _ = cond.shape
+    shape = (B, Sc, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return StaticKVCache(k=(cond @ params["wk"]).reshape(shape),
+                         v=(cond @ params["wv"]).reshape(shape))
 
 
 def decode_project_qkv(params: dict, cfg: ModelConfig, x, cur_pos):

@@ -38,7 +38,12 @@ layer, logit soft-capping. An MoE layer takes the capacity dispatch
 prefill) and the dense all-expert combine (``moe_forward_decode``) in the
 serving step and one-shot decode, each where the JAX package takes it, so a
 MoE model's served and one-shot logits differ as they do there.
-``check_supported`` rejects cross-attention and codebooks.
+Cross-attention (musicgen): each attention layer's self-attention is
+followed by a cross-attention block (``norm_x``, ``xattn``) over the static
+K/V of the conditioning (``attention.StaticKVCache``, never evicted),
+built from ``cond`` by ``forward_prefill`` and ``forward_train``, carried
+in ``ModelCache.cross`` beside the layer caches; codebooks take (B, K, S)
+tokens, sum the K embeddings and give (..., K, vocab) logits.
 
 As in the JAX package, ``forward_prefill`` gives a recurrent mixer no mask:
 a right-padded prompt runs its padding through the recurrence, and the
@@ -75,19 +80,6 @@ from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward, moe_forward_decode
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of a config the port does not serve yet."""
-    cfg.validate()
-    missing = []
-    if cfg.cross_attention:
-        missing.append("cross-attention")
-    if cfg.num_codebooks > 1:
-        missing.append("codebooks")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: the torch port does not "
-                                  f"serve {', '.join(missing)} yet")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -98,13 +90,17 @@ MIXER_INIT = {"attn": attn_mod.init_attention, "mamba": mamba_mod.init_mamba,
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device) -> dict:
-    """{"norm1", mixer ("attn" | "mamba" | "mlstm" | "slstm")[, "norm2",
-    "mlp" | "moe"]} by the layer's spec, as the JAX package's
-    ``init_layer`` (an xLSTM layer has no MLP); norms follow
-    ``cfg.norm``."""
+    """{"norm1", mixer ("attn" | "mamba" | "mlstm" | "slstm")[, "xattn",
+    "norm_x"][, "norm2", "mlp" | "moe"]} by the layer's spec, as the JAX
+    package's ``init_layer`` (an xLSTM layer has no MLP; an attention
+    layer of a cross-attention model has the cross-attention block); norms
+    follow ``cfg.norm``."""
     dt = dtype_of(cfg.dtype)
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, dt, device),
          spec.mixer: MIXER_INIT[spec.mixer](gen, cfg)}
+    if spec.mixer == "attn" and cfg.cross_attention:
+        p["xattn"] = attn_mod.init_attention(gen, cfg, cross=True)
+        p["norm_x"] = init_norm(cfg.norm, cfg.d_model, dt, device)
     if spec.mlp != "none":
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dt, device)
         if spec.mlp == "moe":
@@ -117,18 +113,27 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default CUDA; raises without a card): {"embed", "layers": [...],
-    "final_norm"[, "lm_head"]}. The draws differ from the JAX package's
-    (tests hand its tree over with ``convert.params_from_jax`` instead)."""
-    check_supported(cfg)
+    "final_norm"[, "lm_head"]}, embed and lm_head (K, V, D) with K > 1
+    codebooks. The draws differ from the JAX package's (tests hand its
+    tree over with ``convert.params_from_jax`` instead)."""
+    cfg.validate()
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = dtype_of(cfg.dtype)
-    params: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt)}
+
+    def table():
+        if cfg.num_codebooks > 1:
+            return torch.stack([embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                           dt)
+                                for _ in range(cfg.num_codebooks)])
+        return embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+
+    params: dict = {"embed": table()}
     params["layers"] = [init_layer(gen, cfg, spec, device)
                         for spec in cfg.layer_specs()]
     params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dt, device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+        params["lm_head"] = table()
     return params
 
 
@@ -138,17 +143,38 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, D)."""
+    """tokens (B, [S]) -> (B, [S,] D). With K codebooks (embed (K, V, D)),
+    tokens (B, K, [S]) -> the sum over k of codebook k's embedding of
+    tokens[:, k], as the JAX package's per-codebook ``vmap``."""
+    if cfg.num_codebooks > 1:
+        idx = tokens.long().movedim(1, 0)                    # (K, B[, S])
+        book = torch.arange(idx.shape[0], device=idx.device)
+        return params["embed"][book.view(-1, *[1] * (idx.dim() - 1)),
+                               idx].sum(0)
     return params["embed"][tokens.long()]
 
 
 def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
-    """x: (B, [S,] D) -> f32 logits (B, [S,] vocab), soft-capped by
-    ``cfg.logit_soft_cap`` when it is set."""
+    """x: (B, [S,] D) -> f32 logits (B, [S,] vocab), or (B, [S,] K, vocab)
+    with K codebooks, soft-capped by ``cfg.logit_soft_cap`` when it is
+    set."""
     x = apply_norm(params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return soft_cap((x @ head.T).float(), cfg.logit_soft_cap)
+    if cfg.num_codebooks > 1:
+        out = (x @ head.flatten(0, 1).T).unflatten(-1, head.shape[:2])
+    else:
+        out = x @ head.T
+    return soft_cap(out.float(), cfg.logit_soft_cap)
+
+
+def cross_block(lp: dict, cfg: ModelConfig, x, xc):
+    """x (B, S, D) + the cross-attention of norm_x(x) to the conditioning
+    K/V ``xc`` (a ``StaticKVCache``); x itself when ``xc`` is None."""
+    if xc is None:
+        return x
+    return x + attn_mod.cross_attention_forward(
+        lp["xattn"], cfg, apply_norm(lp["norm_x"], x), xc)
 
 
 def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
@@ -177,20 +203,22 @@ def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
 
 def forward_train(params: dict, cfg: ModelConfig, tokens, cond=None,
                   ac=None, remat: bool = True):
-    """tokens (B, S) -> (logits (B, S, vocab) f32, aux () f32), as the JAX
-    package's ``forward_train`` with ``use_pallas=False``: attention by
+    """tokens (B, S) [or (B, K, S) with codebooks] -> (logits (B, S,
+    [K,] vocab) f32, aux () f32), as the JAX package's ``forward_train``
+    with ``use_pallas=False``: attention by
     :func:`~repro_torch.models.common.causal_attention` on every device.
+    ``cond`` (B, cond_len, D): the conditioning of the cross-attention
+    layers (None skips those blocks, as in the JAX package).
     ``remat``: recompute each layer in the backward pass
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
     the scanned layer), so that autograd keeps one (B, S, D) input per
     layer. ``aux`` is the sum of the MoE layers' load-balance losses (0
-    without MoE layers). ``cond`` (cross-attention) and ``ac`` (activation
-    sharding) are not ported and raise when given."""
-    if cond is not None or ac is not None:
-        raise NotImplementedError("the torch port trains without "
-                                  "cross-attention and without sharding: "
-                                  "cond and ac are not ported")
-    check_supported(cfg)
+    without MoE layers). ``ac`` (activation sharding) is not ported and
+    raises when given."""
+    if ac is not None:
+        raise NotImplementedError("the torch port trains without sharding: "
+                                  "ac is not ported")
+    cfg.validate()
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
@@ -198,7 +226,10 @@ def forward_train(params: dict, cfg: ModelConfig, tokens, cond=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, spec in zip(params["layers"], cfg.layer_specs()):
         def layer(x, lp=lp, spec=spec):
-            x, a, _ = layer_forward(lp, cfg, spec, x, positions, train=True)
+            xc = None if cond is None or "xattn" not in lp else \
+                attn_mod.make_cross_cache(lp["xattn"], cfg, cond)
+            x, a, _ = layer_forward(lp, cfg, spec, x, positions, cross=xc,
+                                    train=True)
             return (x,) if a is None else (x, a)
         out = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
         x = out[0]
@@ -216,6 +247,13 @@ class ModelCache:
     layers: list          # per layer, in depth order: its PagedLayerCache
     #                       or MambaState / MLSTMState / SLSTMState
     cur_pos: torch.Tensor  # (B,) int32: next token position per request
+    cross: list | None = None  # per layer: the StaticKVCache over the
+    #                            conditioning of a cross-attention layer,
+    #                            else None (given as None: no layer has one)
+
+    def __post_init__(self):
+        if self.cross is None:
+            self.cross = [None] * len(self.layers)
 
 
 def paged_layers(layers: list) -> list[PagedLayerCache]:
@@ -269,11 +307,15 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
     """Empty per-layer caches on ``device`` (default CUDA; raises without a
     card): a page pool (N = batch * P pages) per attention layer,
     ``ccfg.dtype`` "int8" making quantized pools, and an empty state per
-    recurrent layer. A recurrent state takes the model's dtype, never the
-    pools': its one-token steps return the conv window in the activations'
-    dtype, which an int8 state would truncate (the JAX package's carries
-    the pools' dtype and runs only where that is the activations')."""
-    check_supported(cfg)
+    recurrent layer; with cross-attention, each attention layer's
+    conditioning K/V, zero (B, cond_len, KV, hd), in ``cache.cross``. A
+    recurrent state and the conditioning K/V take the model's dtype, never
+    the pools': a recurrent one-token step returns the conv window in the
+    activations' dtype, which an int8 state would truncate, and
+    ``make_cross_cache`` gives the activations' dtype (the JAX package's
+    carry the pools' dtype and run only where that is the
+    activations')."""
+    cfg.validate()
     device = resolve_device(device)
     dt = dtype or dtype_of(ccfg.dtype)
     act = dtype_of(cfg.dtype)
@@ -287,9 +329,18 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
         if spec.mixer == "attn" else
         recurrent_init_state(cfg, spec, batch, act, device)
         for spec in cfg.layer_specs()]
+    cross = None
+    if cfg.cross_attention:
+        zeros = lambda: torch.zeros(  # noqa: E731
+            (batch, cfg.cond_len, cfg.num_kv_heads, hd), dtype=act,
+            device=device)
+        cross = [attn_mod.StaticKVCache(k=zeros(), v=zeros())
+                 if spec.mixer == "attn" else None
+                 for spec in cfg.layer_specs()]
     return ModelCache(layers=layers,
                       cur_pos=torch.zeros((batch,), dtype=torch.int32,
-                                          device=device))
+                                          device=device),
+                      cross=cross)
 
 
 # ---------------------------------------------------------------------------
@@ -351,13 +402,14 @@ def _step_recurrent(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, state,
     return mlp_block(lp, cfg, spec, x + m, dense_combine=True)[0]
 
 
-def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
+def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc, *,
                 positions, n_tok, policy: EvictionPolicy, ccfg: CacheConfig,
                 decode_mask, prefill_mask, reset_mask, share_src, share_pages,
                 times: list[int], has_decode: bool, has_prefill: bool,
                 has_reset: bool, decode_splits: int, fused_scores: bool,
                 plain_kernels: bool, want_taps: bool = False):
-    """One attention + MLP layer of the unified step. x: (B, T, D);
+    """One attention (+ cross-attention to ``xc`` when not None) + MLP
+    layer of the unified step. x: (B, T, D);
     positions: (B, T) int32 with -1 past each row's ``n_tok``. The
     ``has_*`` flags come from host copies of the masks and skip hooks that
     would be identities (the JAX package skips them under ``lax.cond``).
@@ -389,7 +441,7 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, *,
     if has_prefill:
         policy.chunk_prefill_evict(kvc, ccfg, active=prefill_mask,
                                    window=window, page_scores=pscores)
-    x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
+    x = cross_block(lp, cfg, x + o.reshape(B, T, -1) @ lp["attn"]["wo"], xc)
     return mlp_block(lp, cfg, spec, x, dense_combine=True)[0], tap
 
 
@@ -402,13 +454,15 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
                  want_taps: bool = False):
     """Unified mixed-batch step, as ``transformer.forward_step`` of the JAX
     package. tokens (B, T) int32 (row b's live tokens are tokens[b,
-    :n_tok[b]]); n_tok (B,); the masks (B,) bool; share_src / share_pages
-    (B,) int32 prefix-sharing adoptions on reset rows. ``fused_scores``:
+    :n_tok[b]]), or (B, K, T) with K codebooks; n_tok (B,); the masks
+    (B,) bool; share_src / share_pages (B,) int32 prefix-sharing
+    adoptions on reset rows. ``fused_scores``:
     rank page eviction by the kernels' norm epilogue. ``plain_kernels``:
     run the kernels' plain versions on the card (a test switch).
 
-    Updates ``cache`` in place and returns (logits (B, vocab) f32 at each
-    row's last live token, cache). One host read per step: the attention
+    Updates ``cache`` in place and returns (logits (B, [K,] vocab) f32 at
+    each row's last live token, cache); a cross-attention layer attends to
+    its ``cache.cross`` K/V. One host read per step: the attention
     layers' write heads and the masks, from which each attention layer's
     page-boundary plan for ``append_chunk`` is computed. A recurrent layer
     runs its one-token step over the chunk (:func:`_scan_recurrent`).
@@ -446,8 +500,8 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
     flags = dict(has_decode=bool(dec_h.any()), has_prefill=bool(pre_h.any()),
                  has_reset=bool(reset_h.any()))
     taps = []
-    for lp, spec, kvc in zip(params["layers"], cfg.layer_specs(),
-                             cache.layers):
+    for lp, spec, kvc, xc in zip(params["layers"], cfg.layer_specs(),
+                                 cache.layers, cache.cross):
         if spec.mixer != "attn":
             x = _step_recurrent(lp, cfg, spec, x, kvc, n_tok,
                                 reset_mask if flags["has_reset"] else None,
@@ -458,7 +512,7 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
         # release / adopt park a reset row's head full: it rolls at t == 0
         off = np.where(reset_h > 0, page, off)
         times = append_plan(kvc, off, mapped, n_h, T)
-        x, tap = _step_layer(lp, cfg, spec, x, kvc, positions=positions,
+        x, tap = _step_layer(lp, cfg, spec, x, kvc, xc, positions=positions,
                              n_tok=n_tok, policy=policy, ccfg=ccfg,
                              decode_mask=decode_mask,
                              prefill_mask=prefill_mask,
@@ -508,11 +562,12 @@ def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
 
 def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   plain_kernels: bool = False, train: bool = False,
-                  return_state: bool = False):
-    """One layer (mixer + MLP) over a contiguous sequence. Returns (x, MoE
-    aux loss or None, extras): extras is (k, v) with k post-RoPE for
-    attention, the final recurrent state of a recurrent mixer when
-    ``return_state`` (``mamba_prefill``, ``mlstm_chunkwise`` or
+                  return_state: bool = False, cross=None):
+    """One layer (mixer [+ cross-attention to ``cross``, a
+    ``StaticKVCache``, when given] + MLP) over a contiguous sequence.
+    Returns (x, MoE aux loss or None, extras): extras is (k, v) with k
+    post-RoPE for attention, the final recurrent state of a recurrent
+    mixer when ``return_state`` (``mamba_prefill``, ``mlstm_chunkwise`` or
     ``slstm_forward`` returning it; else ``mamba_forward`` and the others
     without it, and None). ``train``: attention by the training route
     (``attention_forward``'s), never a kernel."""
@@ -533,21 +588,26 @@ def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
         a = fwd(lp[spec.mixer], cfg, h, return_state=return_state)
         if return_state:
             a, extras = a
-    x, aux = mlp_block(lp, cfg, spec, x + a, dense_combine=False)
+    x = cross_block(lp, cfg, x + a, cross)
+    x, aux = mlp_block(lp, cfg, spec, x, dense_combine=False)
     return x, aux, extras
 
 
 def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                   valid, policy: EvictionPolicy, ccfg: CacheConfig,
+                   valid, cond, policy: EvictionPolicy, ccfg: CacheConfig,
                    seq_len_hint: int, plain_kernels: bool):
     """Layer forward that also builds its decode cache: Alg.2 and paging
     for attention, the final state for a recurrent mixer (which sees no
-    ``valid`` mask, as in the JAX package)."""
+    ``valid`` mask, as in the JAX package). Returns (x, the layer's cache,
+    its conditioning K/V from ``cond`` or None)."""
     if spec.mixer != "attn":
         x, _, state = layer_forward(lp, cfg, spec, x, positions,
                                     return_state=True)
-        return x, state
-    x, _, (k, v) = layer_forward(lp, cfg, spec, x, positions, plain_kernels)
+        return x, state, None
+    xc = None if cond is None or "xattn" not in lp else \
+        attn_mod.make_cross_cache(lp["xattn"], cfg, cond)
+    x, _, (k, v) = layer_forward(lp, cfg, spec, x, positions, plain_kernels,
+                                 cross=xc)
     window = attn_mod.spec_window(cfg, spec)
     hint = seq_len_hint if not window else min(seq_len_hint,
                                                window + ccfg.page_size)
@@ -560,23 +620,26 @@ def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
     cache = compress_and_page(k, v, positions, kv_valid, policy, ccfg,
                               seq_len_hint=hint,
                               cache_dtype=dtype_of(ccfg.dtype))
-    return x, cache
+    return x, cache, xc
 
 
 @torch.no_grad()
 def forward_prefill(params: dict, cfg: ModelConfig, tokens,
                     policy: EvictionPolicy, ccfg: CacheConfig, valid=None,
                     total_seq_hint: int | None = None,
-                    plain_kernels: bool = False):
+                    plain_kernels: bool = False, cond=None):
     """Process whole prompts, compress each layer's K/V by Alg.2 and page
-    it (a recurrent layer keeps its final state): tokens (B, S) int32;
-    ``valid`` (B, S) bool marks right-padded prompts' real tokens (the
-    attention layers' only: a recurrent mixer runs the padding too, as in
-    the JAX package). ``total_seq_hint``: expected prompt + generation
-    length, which sizes the page slabs (default S). The caches live on
-    ``tokens``' device. Returns (last valid token's logits (B, vocab) f32,
-    ModelCache)."""
-    check_supported(cfg)
+    it (a recurrent layer keeps its final state): tokens (B, S) int32, or
+    (B, K, S) with K codebooks; ``cond`` (B, cond_len, D): the
+    conditioning, whose K/V each cross-attention layer builds and keeps in
+    ``cache.cross`` (None: those blocks are skipped, as in the JAX
+    package); ``valid`` (B, S) bool marks right-padded prompts' real
+    tokens (the attention layers' only: a recurrent mixer runs the padding
+    too, as in the JAX package). ``total_seq_hint``: expected prompt +
+    generation length, which sizes the page slabs (default S). The caches
+    live on ``tokens``' device. Returns (last valid token's logits (B,
+    vocab) f32, or (B, K, vocab) with codebooks, and the ModelCache)."""
+    cfg.validate()
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     dev = x.device
@@ -585,23 +648,26 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens,
         valid = torch.ones((B, S), dtype=torch.bool, device=dev)
     positions = torch.where(valid, positions, -1)
     hint = total_seq_hint or S
-    layers = []
+    layers, cross = [], []
     for lp, spec in zip(params["layers"], cfg.layer_specs()):
-        x, c = _prefill_layer(lp, cfg, spec, x, positions, valid, policy,
-                              ccfg, hint, plain_kernels)
+        x, c, xc = _prefill_layer(lp, cfg, spec, x, positions, valid, cond,
+                                  policy, ccfg, hint, plain_kernels)
         layers.append(c)
+        cross.append(xc)
     n_valid = valid.sum(-1, dtype=torch.int32)
     last = (n_valid.long() - 1).clamp_min(0)
     logits = lm_logits(params, cfg, x[torch.arange(B, device=dev), last])
-    return logits, ModelCache(layers=layers, cur_pos=n_valid)
+    return logits, ModelCache(layers=layers, cur_pos=n_valid, cross=cross)
 
 
-def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc,
+def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc,
                   cur_pos, policy: EvictionPolicy, ccfg: CacheConfig, active,
                   decode_splits: int, fused_scores: bool,
                   plain_kernels: bool):
     """One layer, one token. x: (B, D). A recurrent layer steps every row,
-    ``active`` or not, as the JAX package's ``_decode_layer`` does."""
+    ``active`` or not, as the JAX package's ``_decode_layer`` does; an
+    attention layer with conditioning K/V ``xc`` attends to it after its
+    self-attention."""
     h = apply_norm(lp["norm1"], x)
     if spec.mixer != "attn":
         m, new = RECURRENT_STEP[spec.mixer](lp[spec.mixer], cfg, h, kvc)
@@ -623,6 +689,7 @@ def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc,
     decode_append(kvc, k, v, cur_pos, policy, ccfg, active=active,
                   attend=attend)
     x = x + out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
+    x = cross_block(lp, cfg, x[:, None], xc)[:, 0]
     return mlp_block(lp, cfg, spec, x, dense_combine=True)[0]
 
 
@@ -631,18 +698,18 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: ModelCache,
                 policy: EvictionPolicy, ccfg: CacheConfig, active=None,
                 decode_splits: int = 1, fused_scores: bool = False,
                 plain_kernels: bool = False):
-    """One decode step of every request: tokens (B,) -> (logits (B, vocab)
-    f32, cache), the cache updated in place. ``active`` (B,) bool: rows
-    that take a token. ``decode_splits`` / ``fused_scores`` /
-    ``plain_kernels``: see :func:`forward_step`."""
-    x = params["embed"][tokens.long()]
+    """One decode step of every request: tokens (B,) [or (B, K) with K
+    codebooks] -> (logits (B, [K,] vocab) f32, cache), the cache updated in
+    place. ``active`` (B,) bool: rows that take a token. ``decode_splits``
+    / ``fused_scores`` / ``plain_kernels``: see :func:`forward_step`."""
+    x = embed_tokens(params, cfg, tokens)
     B = x.shape[0]
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=x.device)
     cur_pos = cache.cur_pos
-    for lp, spec, kvc in zip(params["layers"], cfg.layer_specs(),
-                             cache.layers):
-        x = _decode_layer(lp, cfg, spec, x, kvc, cur_pos, policy, ccfg,
+    for lp, spec, kvc, xc in zip(params["layers"], cfg.layer_specs(),
+                                 cache.layers, cache.cross):
+        x = _decode_layer(lp, cfg, spec, x, kvc, xc, cur_pos, policy, ccfg,
                           active, decode_splits, fused_scores, plain_kernels)
     logits = lm_logits(params, cfg, x)
     cache.cur_pos = torch.where(active, cur_pos + 1, cur_pos)

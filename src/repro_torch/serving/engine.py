@@ -110,7 +110,15 @@ class Engine:
         its prompt in pages (no recurrent layer, no cross-attention), as
         the JAX engine's ``_sharing_ok``; the lineage ledger needs an
         attention layer (the JAX engine fails at its first step without
-        one; the port refuses here)."""
+        one; the port refuses here). A codebook model (musicgen) is
+        refused: requests carry 1-D prompts, and the JAX engine fails on
+        it too, at its first step."""
+        if cfg.num_codebooks > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves 1-D token prompts, not "
+                f"{cfg.num_codebooks} codebooks; run it one-shot "
+                f"(transformer.forward_prefill, decode_step) or through "
+                f"transformer.forward_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -127,7 +135,8 @@ class Engine:
         self.plain_kernels = plain_kernels
         self.chunk_size = min(chunk_size, max_prompt_len)
         # prefix sharing needs every layer's prompt state in paged KV: a
-        # recurrent state (mamba, xLSTM) cannot be adopted page-wise
+        # recurrent state (mamba, xLSTM) or a row's conditioning K/V
+        # (cross-attention) cannot be adopted page-wise
         self._sharing_ok = (prefix_sharing
                             and all(s.mixer == "attn"
                                     for s in cfg.layer_pattern())

@@ -32,7 +32,9 @@ that each one matters) and handed to the port by ``params_from_jax``.
 
 The config, init-layout and full-cache-decode tests also cover the
 recurrent families (jamba-1.5-large, xlstm-1.3b), which
-tests/test_torch_recurrent.py holds to the JAX package otherwise.
+tests/test_torch_recurrent.py holds to the JAX package otherwise; the
+config and init-layout tests musicgen-medium too (cross-attention,
+codebooks), which tests/test_torch_multimodal.py holds to it otherwise.
 """
 import dataclasses
 import functools
@@ -68,6 +70,8 @@ from repro_torch.training.tree import key_of, leaves, leaves_with_path
 ARCHS = ["stablelm-3b", "gemma3-27b", "chameleon-34b", "mixtral-8x7b",
          "mixtral-8x22b"]
 ALL_ARCHS = ARCHS + ["jamba-1.5-large-398b", "xlstm-1.3b"]
+# every family of the JAX package: the config and init-layout tests
+LAYOUT_ARCHS = ALL_ARCHS + ["musicgen-medium"]
 BUDGETS = [32, 128]          # below and above the reduced window of 64
 B, CHUNK, PAGE = 2, 64, 8
 LENS = (150, 97)
@@ -145,21 +149,22 @@ def _compare(jlogits, jcache, tlogits, tcache, period, ctx, live=None,
 
 
 def test_configs_resolve_as_in_jax():
-    for name in ALL_ARCHS:
+    for name in LAYOUT_ARCHS:
         cfg = get_arch(name)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jget_arch(name)), name
-        ttf.check_supported(cfg)
-        ttf.check_supported(cfg.reduced())
-    with pytest.raises(NotImplementedError, match="JAX package only"):
-        get_arch("musicgen-medium")
-    with pytest.raises(NotImplementedError,
-                       match="cross-attention, codebooks"):
-        ttf.check_supported(ModelConfig(
-            **dataclasses.asdict(jget_arch("musicgen-medium"))))
+        cfg.validate()
+        cfg.reduced().validate()
+    # musicgen resolves as in JAX, with what the slice ported
+    cfg = get_arch("musicgen-medium")
+    assert cfg.cross_attention and cfg.num_codebooks == 4
+    assert cfg.reduced().cond_len == 8 and cfg.reduced().num_kv_heads == \
+        cfg.reduced().num_heads
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("musicgen-large")
 
 
-@pytest.mark.parametrize("arch", ALL_ARCHS)
+@pytest.mark.parametrize("arch", LAYOUT_ARCHS)
 def test_init_model_matches_jax_layout(arch):
     """The port's seeded init has the JAX tree's leaves, shapes and dtypes
     at bf16 (the leaves the JAX tree holds in f32, such as the MoE router,

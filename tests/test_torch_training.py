@@ -381,13 +381,20 @@ def test_forward_train_and_grads_match_jax(arch, remat):
 
 
 def test_forward_train_refuses_what_is_not_ported():
+    """``ac`` (activation sharding) is not ported and raises; ``cond`` is
+    (cross-attention, held to JAX in tests/test_torch_multimodal.py): a
+    model without cross-attention layers takes it and ignores it, as the
+    JAX package's ``forward_train`` does."""
     _, tcfg = _configs("llama-3.2-1b")
     tp = _port(jax.device_get(jtf.init_model(jax.random.PRNGKey(0),
                                              _configs("llama-3.2-1b")[0])),
                tcfg)
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        ttf.forward_train(tp, tcfg, tokens, cond=torch.zeros((1, 2, 8)))
+    with torch.no_grad():
+        want, _ = ttf.forward_train(tp, tcfg, tokens)
+        got, _ = ttf.forward_train(tp, tcfg, tokens,
+                                   cond=torch.zeros((1, 2, tcfg.d_model)))
+    assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="sharding"):
         ttf.forward_train(tp, tcfg, tokens, ac=lambda x: x)
 
