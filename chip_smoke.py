@@ -186,6 +186,29 @@ Phases (any failure exits non-zero; none is skipped):
               wv with a gradient, no kernel launched. Checks the launches,
               evictions, the budget, F1-F4; prints prefill and decode-step
               ms, peak memory and the step and training times.
+ 13. tp       tensor-parallel serving at tp 2: two ranks spawned on the
+              one card (gloo; NCCL refuses two ranks on one device), each
+              with its half of the KV heads. (a) gemma3-27b and
+              mixtral-8x7b at reduced(tp=2) (per rank KV 1, G 2), phase
+              3's workload under paged_eviction on f32 and int8 pools,
+              against tp 1 run here on the same weights: greedy tokens,
+              devstats, victims and integer pool state equal at every
+              step, scores within 1e-6 (int8: one quantization step
+              relative), the ranks' metadata equal after every step, each
+              rank's K/V its slice of the tp-1 pool (1e-5; int8 one
+              step). (b) llama-3.1-8b at full width (bf16, random weights
+              from a seed, 4 of 32 layers): 8 requests of 1024-2048
+              tokens, half sharing a 256-token prefix, 16 greedy tokens
+              (page 16, budget 512, max batch 8, chunk 256, splits 4).
+              Checks every request's token count, K1 and K3 (tensor
+              cores) launched on each rank at KV 4, pages evicted and
+              prefixes shared, F1-F4 and the devstats identities at every
+              step, the ranks' metadata equal at every step, each rank's
+              payload <= total / 2 + one page, every step's collectives
+              against launch.mesh.step_collectives (all-reduces only);
+              prints tok/s and step times (two ranks time-sharing one
+              card: no TP speed), the share of greedy tokens equal to tp
+              1's, peak memory per rank and the phase's seconds.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
@@ -380,6 +403,12 @@ SHAPES = {  # name: (KV, G, hd, page)
     "llama-3.2-3b": (8, 3, 128, 16),
     "llama-3.1-8b": (8, 4, 128, 16),
 }
+# each rank's heads in phase 13 (tp 2): (b) llama-3.1-8b's 32 / 8 heads,
+# (a) the reduced gemma3 / mixtral's 4 / 2 (f32 and int8 pools, page 8)
+TP_SHAPES = {
+    "llama-3.1-8b tp 2 (per rank)": (4, 4, 128, 16),
+    "reduced(tp=2) (per rank)": (1, 2, 64, 8),
+}
 B, P, T = 8, 49, 256     # the main path: max batch 8, 49 slots, chunk 256
 B1, S1 = 4, 4096         # the one-shot path: 4 prompts of 4096 tokens
 
@@ -538,8 +567,9 @@ def check_family_shapes(torch, worst):
 
 def check_decode(torch, worst):
     """The decode kernel (float and int8 pools) against its plain version:
-    every shape of DECODE_SHAPES, every q / pool dtype pair the wrapper
-    takes, window 0 and 8 pages, splits 1, 2, 4 and P (one page per split),
+    every shape of DECODE_SHAPES, NEW_HD_SHAPES and TP_SHAPES, every q /
+    pool dtype pair the wrapper takes, window 0 and 8 pages, splits 1, 2, 4
+    and P (one page per split),
     on churned pools whose row 1 has no mapped slot and row 2 sits at
     cur_pos -1 (both must give exact zeros). One line per (shape, pair)
     with the worst case over windows and splits."""
@@ -551,7 +581,8 @@ def check_decode(torch, worst):
     pairs = [(f32, f32), (f32, bf16), (bf16, f32), (bf16, bf16), (f32, i8),
              (bf16, i8)]
     shapes = {**DECODE_SHAPES,
-              **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()}}
+              **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()},
+              **TP_SHAPES}
     for n, (arch, (KV, G, hd, page)) in enumerate(shapes.items()):
         for qt, pt in pairs:
             if hd not in (64, 128) and pt not in (qt, i8):
@@ -605,7 +636,8 @@ def check_kernels(torch):
     check_family_shapes(torch, worst)
     seed = 0
     shapes = {**SHAPES,
-              **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()}}
+              **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()},
+              **TP_SHAPES}
     for arch, (KV, G, hd, page) in shapes.items():
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
@@ -1926,12 +1958,12 @@ def family_full_width(torch, np, arch, num_layers, budget):
 
     block = tf.mlp_block
 
-    def timed_block(lp, cfg_, spec, x, dense_combine):
+    def timed_block(lp, cfg_, spec, x, dense_combine, **kw):
         if spec.mlp != "moe":
-            return block(lp, cfg_, spec, x, dense_combine)
+            return block(lp, cfg_, spec, x, dense_combine, **kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = block(lp, cfg_, spec, x, dense_combine)
+        out = block(lp, cfg_, spec, x, dense_combine, **kw)
         torch.cuda.synchronize()
         seen["moe_s"] += time.perf_counter() - t
         return out
@@ -2445,6 +2477,349 @@ def musicgen_full_width(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: tensor-parallel serving, two ranks time-sharing the card
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_TIMEOUT_S = 180        # a collective that waits longer fails the run
+# (a): the reduced families of phase 3, at reduced(tp=2) (per rank KV 1,
+# G 2), served as phase 3 serves them; arch -> budget
+TP_REDUCED = {"gemma3-27b": 128, "mixtral-8x7b": 48}
+# (b): llama-3.1-8b at full width (32 / 8 heads, hd 128: KV 4, G 4 per
+# rank), bf16, 4 of its 32 layers for the run time
+TP_LLAMA = "llama-3.1-8b"
+TP_LLAMA_LAYERS = 4
+META = ("pos", "score", "block_table", "ref_count", "cur_page", "cur_off")
+INT_META = ("pos", "block_table", "ref_count", "cur_page", "cur_off")
+
+
+def tp_reduced_setup(np, arch):
+    """(config, engine arguments, prompts) of phase 13 (a): phase 3's
+    engine workload on ``arch``'s reduced(tp=2) config."""
+    from repro_torch.configs import CacheConfig, get_arch
+    cfg = get_arch(arch).reduced(tp=TP)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, 32)
+    prompts = [np.concatenate([shared if i % 2 else
+                               rng.integers(0, cfg.vocab_size, 32),
+                               rng.integers(0, cfg.vocab_size,
+                                            int(rng.integers(64, 128)))])
+               .astype(np.int32) for i in range(8)]
+    kw = lambda dt: dict(cache_cfg=CacheConfig(  # noqa: E731
+        page_size=8, cache_budget=TP_REDUCED[arch], policy="paged_eviction",
+        dtype=dt), max_batch=4, max_prompt_len=160, max_new_tokens=16,
+        chunk_size=32, decode_splits=2)
+    return cfg, kw, prompts
+
+
+def tp_llama_setup(np):
+    from repro_torch.configs import CacheConfig, get_arch
+    cfg = dataclasses.replace(get_arch(TP_LLAMA), num_layers=TP_LLAMA_LAYERS)
+    kw = dict(cache_cfg=CacheConfig(page_size=16, cache_budget=512,
+                                    policy="paged_eviction",
+                                    dtype="bfloat16"),
+              max_batch=8, max_prompt_len=2048, max_new_tokens=16,
+              chunk_size=256, decode_splits=4)
+    return cfg, kw, serving_prompts(np, cfg.vocab_size, 8, 2048)
+
+
+def tp_serve(torch, np, eng, prompts, new_tokens, group=None, kv=True):
+    """Serve ``prompts`` through ``run_engine`` (devstats identities every
+    step), recording after every step the pool metadata and, under TP, the
+    step's collectives and whether it ran decode / prefill rows; F1-F4
+    checked after every step. Returns the record, with the final pools'
+    K/V when ``kv``."""
+    from repro_torch.core import devstats
+    from repro_torch.models.transformer import paged_layers
+    from repro_torch.serving import engine as engine_mod
+    flags, steps = [], []
+    real = engine_mod.forward_step
+
+    def spy(*args, **kw):
+        flags.append((bool(kw["decode_mask"].any()),
+                      bool(kw["prefill_mask"].any())))
+        return real(*args, **kw)
+
+    prev = {"coll": dict(group.counts) if group else {}, "ran": 0}
+
+    def on_step(eng):
+        check_invariants(np, eng.cache.layers)
+        now = dict(group.counts) if group else {}
+        ran = flags[-1] if len(flags) > prev["ran"] else None
+        steps.append({
+            "meta": [{f: getattr(c, f).cpu().numpy() for f in META}
+                     for c in paged_layers(eng.cache.layers)],
+            "coll": {k: v - prev["coll"].get(k, 0) for k, v in now.items()
+                     if v - prev["coll"].get(k, 0)},
+            "ran": ran,
+            "stats": None if ran is None else eng.last_stats.copy()})
+        prev.update(coll=now, ran=len(flags))
+
+    engine_mod.forward_step = spy
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        tokens, _, wall, walls = run_engine(torch, np, devstats, eng,
+                                            prompts, new_tokens, on_step)
+    finally:
+        engine_mod.forward_step = real
+    s = eng.stats
+    return {"tokens": tokens, "steps": steps, "launches": read_launches(),
+            "wall": wall, "walls": walls, "tokens_generated":
+            s.tokens_generated, "decode_steps": s.decode_steps,
+            "prefill_s": s.prefill_s, "decode_s": s.decode_s,
+            "pages_evicted": s.pages_evicted,
+            "prefix_hits": s.shared_prefix_hits,
+            "pool_bytes": eng.pool_bytes(), "fused": eng.fused_scores,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "kv": [{f: getattr(c, f).float().cpu().numpy()
+                    if getattr(c, f).dtype == torch.bfloat16
+                    else getattr(c, f).cpu().numpy()
+                    for f in ("k", "v", "k_scale", "v_scale")
+                    if getattr(c, f) is not None}
+                   for c in paged_layers(eng.cache.layers)] if kv else None}
+
+
+def tp_rank(group, reduced_cases):
+    """One rank of phase 13: (a) every reduced case, then (b) llama; each
+    engine built from the full weights of seed 0, drawn on this rank's
+    device (tp 1's draws) and handed over on the host in (a), on the card
+    in (b): the engine moves only its slice. The kernels' KV heads are
+    recorded at every launch."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving import Engine
+    seen = {}
+    wrapped = {}
+    for name in ("paged_attention_cuda", "paged_attention_int8_cuda",
+                 "paged_prefill_cuda"):
+        real = getattr(ops, name)
+
+        def call(*args, _name=name, _real=real, **kw):
+            seen.setdefault(_name, set()).add(int(args[1].shape[2]))
+            return _real(*args, **kw)
+        wrapped[name] = real
+        setattr(ops, name, call)
+    out = {}
+    for arch, kv_dtype in reduced_cases:
+        cfg, kw, prompts = tp_reduced_setup(np, arch)
+        host = tree_map(lambda t: t.cpu(),
+                        init_model(cfg, seed=0, device=group.device))
+        eng = Engine(cfg, host, tp_group=group, **kw(kv_dtype))
+        if any(t.device != group.device for t in tree_leaves(eng.params)):
+            fail("the engine left weights off its rank's device")
+        out[(arch, kv_dtype)] = tp_serve(torch, np, eng, prompts, 16, group)
+        out[(arch, kv_dtype)]["kv_heads"] = {k: sorted(v)
+                                             for k, v in seen.items()}
+        seen.clear()
+        del eng
+    cfg, kw, prompts = tp_llama_setup(np)
+    params = init_model(cfg, seed=0, device=group.device)
+    eng = Engine(cfg, params, tp_group=group, **kw)
+    del params
+    torch.cuda.empty_cache()
+    out["llama"] = tp_serve(torch, np, eng, prompts, 16, group, kv=False)
+    out["llama"]["kv_heads"] = {k: sorted(v) for k, v in seen.items()}
+    out["backend"] = torch.distributed.get_backend()
+    for name, real in wrapped.items():
+        setattr(ops, name, real)
+    return out
+
+
+def tp_compare(np, got, want, what, kv_dtype, tp_rank_no=None):
+    """A tp run against the tp-1 run: tokens, per-step devstats and
+    integer pool state equal, scores within 1e-6 (f32) or one int8 step
+    relative (1/127: an element on a rounding boundary quantizes either
+    way under tp's other summation order, and the next layers move by a
+    fraction of that step); K/V, when ``tp_rank_no`` is given, within
+    1e-5 of that rank's slice (int8: one step, scales 1/127 relative)."""
+    if got["tokens"] != want["tokens"]:
+        fail(f"{what}: greedy tokens differ from tp 1")
+    if len(got["steps"]) != len(want["steps"]):
+        fail(f"{what}: {len(got['steps'])} steps against tp 1's "
+             f"{len(want['steps'])}")
+    rtol, atol = (1 / 127, 0) if kv_dtype == "int8" else (0, 1e-6)
+    for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        if (g["stats"] is None) != (w["stats"] is None) or (
+                g["stats"] is not None and
+                not np.array_equal(g["stats"], w["stats"])):
+            fail(f"{what}: devstats differ at step {i}")
+        for li, (gm, wm) in enumerate(zip(g["meta"], w["meta"])):
+            for f in INT_META:
+                if not np.array_equal(gm[f], wm[f]):
+                    fail(f"{what}: step {i} layer {li} {f} differs from "
+                         f"tp 1 (an eviction victim or the allocator)")
+            if not np.allclose(gm["score"], wm["score"], rtol=rtol,
+                               atol=atol):
+                d = np.abs(gm["score"] - wm["score"])
+                fail(f"{what}: step {i} layer {li} scores "
+                     f"{np.nanmax(np.where(np.isfinite(d), d, 0)):.3g} "
+                     f"apart")
+    if tp_rank_no is None:
+        return
+    for li, (kv, kv1) in enumerate(zip(got["kv"], want["kv"])):
+        for f, a in kv.items():
+            n = kv1[f].shape[2] // TP
+            ref = kv1[f][:, :, tp_rank_no * n:(tp_rank_no + 1) * n]
+            if kv_dtype == "int8" and f in ("k", "v"):
+                ok = np.abs(a.astype(np.int32) - ref.astype(np.int32)).max() \
+                    <= 1
+            elif kv_dtype == "int8":
+                ok = np.allclose(a, ref, rtol=1 / 127, atol=0)
+            else:
+                ok = np.allclose(a, ref, rtol=0, atol=1e-5)
+            if not ok:
+                fail(f"{what}: rank {tp_rank_no} layer {li} {f} is not its "
+                     f"slice of the tp-1 pool")
+
+
+def tp_check_ranks(np, ranks, key, what):
+    """The ranks' metadata equal after every step; returns rank 0's
+    record."""
+    r0 = ranks[0][key]
+    for rank, r in enumerate(ranks):
+        rec = r[key]
+        if len(rec["steps"]) != len(r0["steps"]):
+            fail(f"{what}: rank {rank} ran {len(rec['steps'])} steps, "
+                 f"rank 0 {len(r0['steps'])}")
+        for i, (g, w) in enumerate(zip(rec["steps"], r0["steps"])):
+            for li, (gm, wm) in enumerate(zip(g["meta"], w["meta"])):
+                for f in META:
+                    if not np.array_equal(gm[f], wm[f]):
+                        fail(f"{what}: rank {rank} step {i} layer {li} {f} "
+                             f"differs from rank 0's")
+    return r0
+
+
+def tp_inventory(np, cfg, rec, what):
+    """Each step's collectives against ``mesh.step_collectives``."""
+    from collections import Counter
+
+    from repro_torch.launch.mesh import step_collectives
+    total = Counter()
+    for i, s in enumerate(rec["steps"]):
+        want = Counter() if s["ran"] is None else step_collectives(
+            cfg, "paged_eviction", has_decode=s["ran"][0],
+            has_prefill=s["ran"][1], fused_scores=rec["fused"], metrics=True)
+        if Counter(s["coll"]) != want:
+            fail(f"{what}: step {i} issued {s['coll']}, the inventory says "
+                 f"{dict(want)}")
+        total.update(s["coll"])
+    return dict(total)
+
+
+def tp_full(torch, np, card):
+    """Phase 13: (a) the reduced gemma3 / mixtral at tp 2 against tp 1, f32
+    and int8 pools; (b) llama-3.1-8b (4 of 32 layers, bf16) at tp 2, its
+    greedy tokens beside a tp-1 run of the same weights. Both tp-1 runs
+    here, the two ranks spawned once (gloo over the one card)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving import Engine
+    from datetime import timedelta
+    cases = [(a, dt) for a in TP_REDUCED for dt in ("float32", "int8")]
+    ref = {}
+    for arch, kv_dtype in cases:
+        cfg, kw, prompts = tp_reduced_setup(np, arch)
+        eng = Engine(cfg, init_model(cfg, seed=0, device="cuda"),
+                     device="cuda", **kw(kv_dtype))
+        ref[(arch, kv_dtype)] = tp_serve(torch, np, eng, prompts, 16)
+        del eng
+    cfg8, kw8, prompts8 = tp_llama_setup(np)
+    eng = Engine(cfg8, init_model(cfg8, seed=0, device="cuda"),
+                 device="cuda", **kw8)
+    ref["llama"] = tp_serve(torch, np, eng, prompts8, 16, kv=False)
+    one = ref["llama"]
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, TP, cases, device="cuda",
+                      timeout=timedelta(seconds=TP_TIMEOUT_S))
+    spawn_s = time.perf_counter() - t0
+    if [r["backend"] for r in ranks] != ["gloo"] * TP:
+        fail(f"phase 13: two ranks on one card should take gloo, not "
+             f"{[r['backend'] for r in ranks]}")
+    for arch, kv_dtype in cases:
+        what = f"phase 13 (a) {arch} reduced(tp=2) {kv_dtype}"
+        r0 = tp_check_ranks(np, ranks, (arch, kv_dtype), what)
+        for rank, r in enumerate(ranks):
+            tp_compare(np, r[(arch, kv_dtype)], ref[(arch, kv_dtype)],
+                       f"{what} rank {rank}", kv_dtype, rank)
+        cfg = tp_reduced_setup(np, arch)[0]
+        coll = tp_inventory(np, cfg, r0, what)
+        dec = "paged_attention_int8_cuda" if kv_dtype == "int8" \
+            else "paged_attention_cuda"
+        heads = cfg.num_kv_heads // TP
+        if r0["kv_heads"].get(dec) != [heads] or \
+                r0["kv_heads"].get("paged_prefill_cuda") != [heads]:
+            fail(f"{what}: the kernels did not launch at KV {heads}: "
+                 f"{r0['kv_heads']}")
+        print(f"  (a) {arch} {kv_dtype:8s}: {len(r0['steps'])} steps, "
+              f"{r0['pages_evicted']} pages evicted, {r0['prefix_hits']} "
+              f"prefix adoptions: tokens, devstats, victims and integer "
+              f"pool state equal to tp 1 at every step, ranks' metadata "
+              f"equal, K/V each rank's slice; kernels at KV {heads} "
+              f"{r0['kv_heads']}; collectives {coll}", flush=True)
+    what = f"phase 13 (b) {TP_LLAMA} tp 2"
+    r0 = tp_check_ranks(np, ranks, "llama", what)
+    coll = tp_inventory(np, cfg8, r0, what)
+    heads = cfg8.num_kv_heads // TP
+    for rank, r in enumerate(ranks):
+        rec = r["llama"]
+        lc = rec["launches"]
+        if len(rec["tokens"]) != 8 or any(len(t) != 16 for t in
+                                          rec["tokens"].values()):
+            fail(f"{what}: rank {rank}: not every request finished with 16 "
+                 f"tokens")
+        if not lc["paged_decode"] or not lc["paged_prefill"] or \
+                lc["paged_prefill/tensor_core"] != lc["paged_prefill"] or \
+                rec["kv_heads"] != {"paged_attention_cuda": [heads],
+                                    "paged_prefill_cuda": [heads]}:
+            fail(f"{what}: rank {rank}: K1 / K3 (tensor cores) not launched "
+                 f"at KV {heads}: {lc}, {rec['kv_heads']}")
+        if not rec["pages_evicted"] or not rec["prefix_hits"]:
+            fail(f"{what}: rank {rank}: no eviction or no prefix sharing")
+        pb = rec["pool_bytes"]
+        page = 2 * 16 * cfg8.num_kv_heads * cfg8.resolved_head_dim * 2 * \
+            cfg8.num_layers
+        if pb["devices"] != TP or \
+                pb["per_device_max"] > pb["payload_total"] / TP + page:
+            fail(f"{what}: rank {rank} holds {pb}")
+    n_tok = sum(len(t) for t in one["tokens"].values())
+    same = sum(a == b for rid, t in r0["tokens"].items()
+               for a, b in zip(t, one["tokens"][rid]))
+    mixed = len(r0["steps"]) - r0["decode_steps"]
+    print(f"  (b) {TP_LLAMA} ({TP_LLAMA_LAYERS} of 32 layers, bf16), two "
+          f"ranks time-sharing one card over gloo ({card}): "
+          f"{r0['tokens_generated']} tokens in {r0['wall']:.2f} s "
+          f"({r0['tokens_generated'] / r0['wall']:.1f} tok/s), mixed "
+          f"{1e3 * r0['prefill_s'] / max(mixed, 1):.2f} ms, decode-only "
+          f"{1e3 * r0['decode_s'] / max(r0['decode_steps'], 1):.2f} ms per "
+          f"step ({mixed} / {r0['decode_steps']}); tp 1 on the card: "
+          f"{one['tokens_generated'] / one['wall']:.1f} tok/s, mixed "
+          f"{1e3 * one['prefill_s'] / max(len(one['steps']) - one['decode_steps'], 1):.2f} ms, "
+          f"decode-only "
+          f"{1e3 * one['decode_s'] / max(one['decode_steps'], 1):.2f} ms",
+          flush=True)
+    print(f"  (b) greedy tokens equal to tp 1: {same} of {n_tok} "
+          f"({same / n_tok:.4f}); pages evicted {r0['pages_evicted']}, "
+          f"prefix adoptions {r0['prefix_hits']}; payload per rank "
+          f"{r0['pool_bytes']['per_device_max'] / 2 ** 20:.1f} of "
+          f"{r0['pool_bytes']['payload_total'] / 2 ** 20:.1f} MiB; peak "
+          f"memory per rank "
+          f"{', '.join(f'{r['llama']['peak_gib']:.2f}' for r in ranks)} "
+          f"GiB (tp 1 {one['peak_gib']:.2f}); K1 / K3 launches per rank "
+          f"{r0['launches']['paged_decode']} / "
+          f"{r0['launches']['paged_prefill']} at KV {heads}; collectives "
+          f"{coll}; ranks spawned and run in {spawn_s:.1f} s", flush=True)
+    return {"ranks": ranks, "ref": ref}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: training, and the trained weights handed to serving and one-shot
 # ---------------------------------------------------------------------------
 
@@ -2778,7 +3153,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/12] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/13] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -2788,7 +3163,7 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/12] kernels against their plain versions")
+    phase("[2/13] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
@@ -2798,7 +3173,7 @@ def main() -> None:
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
 
-    phase("[3/12] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/13] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
@@ -2825,33 +3200,33 @@ def main() -> None:
     oneshot_parity(torch, np, "float32", arch=MUSICGEN, budget=48)
     train_parity(torch, np, arch=MUSICGEN, steps=2, seq=1024)
 
-    phase(f"[4/12] llama-3.2-1b at full width: serving, bf16 pool, with "
+    phase(f"[4/13] llama-3.2-1b at full width: serving, bf16 pool, with "
           f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
           f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/12] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/13] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[6/12] llama-3.2-1b at full width: serving, int8 pool "
+    phase(f"[6/13] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
     serve8 = serve_full_width(torch, np, "int8", 4,
                               num_layers=INT8_SERVE_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    phase(f"[7/12] llama-3.2-1b at full width: the paper's baselines "
+    phase(f"[7/13] llama-3.2-1b at full width: the paper's baselines "
           f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[8/12] llama-3.2-1b at full width: eviction-regret probes "
+    phase(f"[8/13] llama-3.2-1b at full width: eviction-regret probes "
           f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[9/12] training: card against CPU, llama-3.2-1b at full width "
+    phase("[9/13] training: card against CPU, llama-3.2-1b at full width "
           "then served from its checkpoint, TINY trained and scored")
     t9 = time.perf_counter()
     train_parity(torch, np)
@@ -2861,7 +3236,7 @@ def main() -> None:
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    phase("[10/12] the attention-only families at full width: "
+    phase("[10/13] the attention-only families at full width: "
           + ", ".join(f"{a} ({n} layers, budget {b})"
                       for a, (n, b) in FAMILIES.items()))
     t10 = time.perf_counter()
@@ -2875,7 +3250,7 @@ def main() -> None:
               for a, r in families.items()), flush=True)
     torch.cuda.empty_cache()
 
-    phase("[11/12] the recurrent families at full width: "
+    phase("[11/13] the recurrent families at full width: "
           + ", ".join(f"{a} ({n} layers)" for a, n in RECURRENT.items()))
     t11 = time.perf_counter()
     recurrent = {arch: recurrent_full_width(torch, np, arch, n, card)
@@ -2888,7 +3263,7 @@ def main() -> None:
           f"{jamba['one_shot']['paged_decode']}; {card}", flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[12/12] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
+    phase(f"[12/13] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
           f"int8 pools), forward_step and training ({MUSICGEN_CUT_LAYERS} "
           f"layers)")
     t12 = time.perf_counter()
@@ -2899,6 +3274,17 @@ def main() -> None:
           f"{music['int8']['paged_decode_int8']}, forward_step K3 / K1 "
           f"{music['step']['paged_prefill']} / "
           f"{music['step']['paged_decode']}; {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    phase(f"[13/13] tensor-parallel serving at tp {TP}, two ranks "
+          f"time-sharing the card over gloo: "
+          + ", ".join(f"{a} reduced(tp=2)" for a in TP_REDUCED)
+          + f" (f32, int8) against tp 1; {TP_LLAMA} ({TP_LLAMA_LAYERS} of 32 "
+          f"layers, bf16)")
+    t13 = time.perf_counter()
+    tp_full(torch, np, card)
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s; {card}",
+          flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4
     # and 6), flash attention from the one-shot prefill (phase 5); the

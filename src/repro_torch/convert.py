@@ -22,6 +22,10 @@ JAX package's ``save_checkpoint({"params", "opt"})`` wrote
 (``checkpoint_from_jax``, numpy only: bf16 leaves are read as their 2-byte
 payload).
 
+Tensor-parallel serving: ``shard_cache_from_jax`` gives rank r's slice of
+a JAX ``ModelCache`` (``sharding.rules``: the pools' KV heads split, the
+metadata whole), for holding a rank's state to the JAX package's.
+
 Functions that make tensors put them on ``device``: default CUDA, raising
 without a card (tests pass ``device="cpu"``).
 """
@@ -41,6 +45,7 @@ from repro_torch.models.attention import StaticKVCache
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import ModelCache, init_layer
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
+from repro_torch.sharding.rules import shard_cache
 from repro_torch.training.checkpoint import tensor_from_numpy
 from repro_torch.training.optimizer import AdamWState
 
@@ -259,6 +264,13 @@ def cache_from_jax(mc, cfg: ModelConfig, device=None) -> ModelCache:
              for x in jax_cache_cross(mc, cfg.pattern_period)]
     return ModelCache(layers=layers, cur_pos=_tensor(mc.cur_pos, device),
                       cross=cross)
+
+
+def shard_cache_from_jax(mc, cfg: ModelConfig, rank: int, tp: int,
+                         device=None) -> ModelCache:
+    """Rank ``rank``'s slice (of ``tp``) of a JAX ``ModelCache`` (numpy
+    leaves): its KV heads of every pool, the metadata whole."""
+    return shard_cache(cache_from_jax(mc, cfg, device), rank, tp)
 
 
 def cache_to_numpy(cache: ModelCache) -> dict:

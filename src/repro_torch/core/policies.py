@@ -25,6 +25,11 @@ masked (no host sync); the empty-page reclaim, the one part that is not an
 identity under an all-False mask, takes ``mask.any()`` as a device gate.
 Ranks and victims break ties as JAX does: stable sorts (the older token, the
 lower slot) and the first index of an argmin.
+
+Tensor parallelism: a policy built with ``tp_group`` (a
+``launch.mesh.TPGroup``; ``get_policy(name, tp_group=...)`` makes a fresh
+instance) averages its KV-head score means over the ranks, so every rank
+ranks by the global scores; the registry's instances keep them local.
 """
 from __future__ import annotations
 
@@ -83,6 +88,9 @@ class EvictionPolicy:
     # the paper's classification: False for the policies whose token-level
     # holes fragment pages (InverseKeyL2, KeyDiff)
     structured: bool = True
+
+    def __init__(self, tp_group=None):
+        self.tp_group = tp_group
 
     # --- slab sizing --------------------------------------------------------
     def _round_slab(self, cfg: CacheConfig, pages: int) -> int:
@@ -214,10 +222,10 @@ class PagedEviction(EvictionPolicy):
     name = "paged_eviction"
 
     def write_score(self, k_tok, v_tok, pos_tok):
-        return importance.vk_ratio_score(k_tok, v_tok)
+        return importance.vk_ratio_score(k_tok, v_tok, self.tp_group)
 
     def prefill_scores(self, k, v, positions):
-        return importance.vk_ratio_score(k, v)
+        return importance.vk_ratio_score(k, v, self.tp_group)
 
     def _chunk_evict_body(self, cache, cfg, active, window, page_scores,
                           gate):
@@ -338,10 +346,10 @@ class InverseKeyL2(_UnstructuredTokenPolicy):
     name = "inverse_key_l2"
 
     def write_score(self, k_tok, v_tok, pos_tok):
-        return importance.inverse_key_l2_score(k_tok)
+        return importance.inverse_key_l2_score(k_tok, self.tp_group)
 
     def prefill_scores(self, k, v, positions):
-        return importance.inverse_key_l2_score(k)
+        return importance.inverse_key_l2_score(k, self.tp_group)
 
 
 class KeyDiff(_UnstructuredTokenPolicy):
@@ -355,14 +363,16 @@ class KeyDiff(_UnstructuredTokenPolicy):
 
     def prefill_scores(self, k, v, positions):
         # the mean over every prompt slot, padding included, as in JAX
-        return importance.keydiff_score(k, k.float().mean(1, keepdim=True))
+        return importance.keydiff_score(k, k.float().mean(1, keepdim=True),
+                                        self.tp_group)
 
     def _evict_scores(self, cache, cfg):
         # per-KV-head mean key over the valid tokens of the gathered view
         kf = cache.k_view().float()
         w = cache.valid_mask()[..., None, None].float()
         mean = (kf * w).sum((1, 2)) / w.sum((1, 2)).clamp_min(1.0)
-        return importance.keydiff_score(kf, mean[:, None, None])
+        return importance.keydiff_score(kf, mean[:, None, None],
+                                        self.tp_group)
 
 
 POLICIES: dict[str, EvictionPolicy] = {
@@ -371,9 +381,12 @@ POLICIES: dict[str, EvictionPolicy] = {
 }
 
 
-def get_policy(name: str) -> EvictionPolicy:
+def get_policy(name: str, tp_group=None) -> EvictionPolicy:
+    """The registered policy ``name``; with ``tp_group``, a fresh instance
+    whose score means cross the group's ranks."""
     try:
-        return POLICIES[name]
+        pol = POLICIES[name]
     except KeyError:
         raise KeyError(f"unknown policy {name!r}; the torch port has "
                        f"{sorted(POLICIES)}") from None
+    return pol if tp_group is None else type(pol)(tp_group=tp_group)

@@ -11,7 +11,10 @@ fallback. The pool is read in its native (N, page, KV, hd) strides.
 
 ``return_scores`` adds the paper's Alg.1 page scores (B, P), reduced from
 the kernels' per-token ||K|| / ||V|| epilogue by ``page_scores_from_norms``
-(plain torch, as in the JAX package).
+(plain torch, as in the JAX package); under tensor parallelism ``group``
+(a ``launch.mesh.TPGroup``) averages its KV-head means over the ranks. The
+kernels themselves take ``KV`` and ``G`` from the local shapes: a rank's
+pool holds its KV/tp heads.
 
 int8 pools: decode reads them natively (the int8 kernel dequantizes in
 registers); chunked prefill and page scoring dequantize the pool in plain
@@ -35,17 +38,18 @@ from repro_torch.kernels.paged_attention import (combine_splits,
                                                  paged_attention_plain)
 
 
-def _scores(cache: PagedLayerCache, norms):
+def _scores(cache: PagedLayerCache, norms, group):
     if norms is None:
         return None
     kn, vn = norms
     return page_scores_from_norms(kn, vn, cache.pos_view(),
-                                  cache.mapped_mask())
+                                  cache.mapped_mask(), group)
 
 
 def paged_attention(q, cache: PagedLayerCache, *, cur_pos, window: int = 0,
                     scale: float | None = None, num_splits: int = 1,
-                    return_scores: bool = False, plain: bool = False):
+                    return_scores: bool = False, plain: bool = False,
+                    group=None):
     """Decode attention. q: (B, H, hd) current-token queries; cur_pos: (B,)
     -> ((B, H, hd), page_scores (B, P) or None). ``num_splits``: split-K
     factor of the page walk."""
@@ -63,12 +67,13 @@ def paged_attention(q, cache: PagedLayerCache, *, cur_pos, window: int = 0,
                           window=window, scale=scale, num_splits=num_splits,
                           return_scores=return_scores)
     out = combine_splits(acc, m, l).to(q.dtype).reshape(B, H, hd)
-    return out, _scores(cache, norms)
+    return out, _scores(cache, norms, group)
 
 
 def paged_prefill_attention(q, cache: PagedLayerCache, *, q_pos,
                             window: int = 0, scale: float | None = None,
-                            return_scores: bool = False, plain: bool = False):
+                            return_scores: bool = False, plain: bool = False,
+                            group=None):
     """Chunked-prefill attention (G-fold). q: (B, T, H, hd); q_pos: (B, T)
     int32, -1 == padding -> ((B, T, H, hd), page_scores (B, P) or None).
     The chunk's K/V must already be appended to the pool."""
@@ -76,7 +81,7 @@ def paged_prefill_attention(q, cache: PagedLayerCache, *, q_pos,
     out, norms = fn(q, cache.k_dequant(), cache.v_dequant(), cache.pos,
                     cache.block_table, q_pos, window=window, scale=scale,
                     return_scores=return_scores)
-    return out, _scores(cache, norms)
+    return out, _scores(cache, norms, group)
 
 
 def page_scores(cache: PagedLayerCache) -> torch.Tensor:

@@ -26,11 +26,25 @@ final metrics as JSON:
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \
         --device cpu --trace t.jsonl --timeline tl.json --lineage \
-        --regret-every 4 --snapshot s.json"""
+        --regret-every 4 --snapshot s.json
+
+Tensor parallelism (``--tp N``, as the JAX launcher's): N ranks, each serving
+its KV/N heads and weight slices with the same scheduler
+(``Engine(tp_group=)``);
+spawned here (``torch.multiprocessing``, a ``FileStore`` rendezvous), or
+joined under ``torchrun`` (``WORLD_SIZE`` set); over NCCL with one GPU
+per rank, else gloo (``launch.mesh.make_tp_group``). Each rank builds the
+weights on the host and moves its slice to its device. ``--reduced`` then
+serves ``cfg.reduced(tp=N)``. Rank 0 alone prints and writes files; it also
+prints the pool payload per device:
+
+    python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --tp 2 \
+        --device cpu"""
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -40,6 +54,7 @@ from repro_torch.configs import CacheConfig, get_arch
 from repro_torch.core.paged_cache import lineage_snapshot_host
 from repro_torch.core.policies import POLICIES
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_tp_group, run_ranks
 from repro_torch.models.transformer import init_model, paged_layers
 from repro_torch.obs import ObsConfig
 from repro_torch.serving import Engine, SamplingParams
@@ -144,17 +159,36 @@ def main() -> None:
                          "no stats vector and no per-step read of it")
     ap.add_argument("--profile-annotations", action="store_true",
                     help="wrap plan/step in torch.profiler.record_function")
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="tensor-parallel degree: N ranks, KV-head-sharded "
+                         "pools and kernels, replicated scheduler")
     args = ap.parse_args()
+    if args.tp == 1:
+        serve(None, args)
+    elif "WORLD_SIZE" in os.environ:          # under torchrun
+        serve(make_tp_group(args.tp, device=args.device), args)
+        torch.distributed.destroy_process_group()
+    else:
+        run_ranks(serve, args.tp, args, device=args.device)
 
-    device = resolve_device(args.device)
+
+def serve(group, args) -> None:
+    """Serve the synthetic requests of ``args`` (the parsed command line);
+    ``group``: this rank's ``TPGroup`` under ``--tp``, else None."""
+    rank0 = group is None or group.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    device = resolve_device(args.device) if group is None else group.device
     cfg = get_arch(args.arch)
     if args.reduced:
-        cfg = cfg.reduced()
+        cfg = cfg.reduced(tp=args.tp)
     if cfg.num_codebooks > 1:
         raise SystemExit("serve driver targets text archs; run a codebook "
                          "model one-shot (transformer.forward_prefill, "
                          "decode_step) or through forward_step")
-    params = init_model(cfg, seed=args.seed, device=device)
+    # under --tp the full weights stay on the host: the engine moves this
+    # rank's slice to its device
+    params = init_model(cfg, seed=args.seed,
+                        device=device if group is None else "cpu")
     ccfg = CacheConfig(page_size=args.page, cache_budget=args.budget,
                        policy=args.policy,
                        dtype="float32" if args.reduced else "bfloat16")
@@ -170,7 +204,8 @@ def main() -> None:
                                profiler_annotations=args.profile_annotations,
                                timeline=args.timeline is not None,
                                lineage=args.lineage,
-                               regret_every=args.regret_every))
+                               regret_every=args.regret_every),
+                 tp_group=group)
 
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
@@ -187,8 +222,14 @@ def main() -> None:
     step = 0
     with eng:                   # closing flushes the trace, on error too
         while True:
-            if step in windows:
+            if step in windows and rank0:
                 more = profile_steps(eng, step, windows[step])
+                step += windows[step]
+            elif step in windows:             # other ranks keep in step
+                for _ in range(windows[step]):
+                    more = eng.step()
+                    if not more:
+                        break
                 step += windows[step]
             else:
                 more = eng.step()
@@ -198,57 +239,62 @@ def main() -> None:
     done = eng.scheduler.finished
     dt = time.perf_counter() - t0
     s = eng.stats
-    print(f"device={device} policy={args.policy} budget={args.budget} "
-          f"page={args.page}")
-    print(f"finished {len(done)} requests, {s.tokens_generated} tokens "
-          f"in {dt:.2f}s ({s.tokens_generated / dt:.1f} tok/s)")
-    print(f"decode-only throughput: {s.decode_tok_per_s:.1f} tok/s; "
-          f"steps={s.steps}; programs={eng.num_compiled_programs()}")
-    print(f"evicted pages={s.pages_evicted} tokens={s.tokens_evicted} "
-          f"forced={s.forced_evictions}")
+    say(f"device={device} policy={args.policy} budget={args.budget} "
+        f"page={args.page}")
+    say(f"finished {len(done)} requests, {s.tokens_generated} tokens "
+        f"in {dt:.2f}s ({s.tokens_generated / dt:.1f} tok/s)")
+    say(f"decode-only throughput: {s.decode_tok_per_s:.1f} tok/s; "
+        f"steps={s.steps}; programs={eng.num_compiled_programs()}")
+    say(f"evicted pages={s.pages_evicted} tokens={s.tokens_evicted} "
+        f"forced={s.forced_evictions}")
+    if args.tp > 1:
+        pb = eng.pool_bytes()
+        say(f"tp={args.tp}: pool payload {pb['payload_total'] / 1e6:.2f} MB"
+            f" total, {pb['per_device_max'] / 1e6:.2f} MB max/device "
+            f"across {pb['devices']} devices")
     if s.shared_prefix_hits:
-        print(f"prefix sharing: {s.shared_prefix_hits} adoptions, "
-              f"{s.shared_prefix_tokens} prompt tokens skipped; "
-              f"pool={eng.pool_stats()}")
+        say(f"prefix sharing: {s.shared_prefix_hits} adoptions, "
+            f"{s.shared_prefix_tokens} prompt tokens skipped; "
+            f"pool={eng.pool_stats()}")
     ttfts = [r.ttft for r in done if r.ttft > 0]
     if ttfts:
-        print(f"ttft: mean={1e3 * np.mean(ttfts):.1f}ms "
-              f"max={1e3 * np.max(ttfts):.1f}ms (chunk={args.chunk})")
+        say(f"ttft: mean={1e3 * np.mean(ttfts):.1f}ms "
+            f"max={1e3 * np.max(ttfts):.1f}ms (chunk={args.chunk})")
     if args.timeline:
         n = eng.export_timeline(args.timeline)
-        print(f"wrote {args.timeline} ({n} timeline events)")
+        say(f"wrote {args.timeline} ({n} timeline events)")
     led = eng.obs.ledger
     if led is not None:
         errs = led.reconcile(lineage_snapshot_host(
             paged_layers(eng.cache.layers)[0]))
-        print(f"lineage: {led.counts()}; reconcile: "
-              f"{'ok' if not errs else errs}")
+        say(f"lineage: {led.counts()}; reconcile: "
+            f"{'ok' if not errs else errs}")
         for slot in range(args.max_batch):
             rep = led.request_loss_report(slot)
             if rep["pages_lost"]:
                 score = rep["mean_evict_score"]
-                print(f"  slot {slot}: lost {rep['pages_lost']} pages / "
-                      f"{rep['tokens_lost']} tokens at {rep['positions']} "
-                      f"(mean victim score "
-                      f"{'n/a' if score is None else format(score, '.3g')})")
+                say(f"  slot {slot}: lost {rep['pages_lost']} pages / "
+                    f"{rep['tokens_lost']} tokens at {rep['positions']} "
+                    f"(mean victim score "
+                    f"{'n/a' if score is None else format(score, '.3g')})")
     if args.regret_every:
         for req in done:
             summ = req.regret_summary()
             if summ:
-                print(f"  req {req.request_id}: {summ['probes']} probes, "
-                      f"divergence mean={summ['mean_divergence']:.3g} "
-                      f"max={summ['max_divergence']:.3g}, evicted mass "
-                      f"mean={summ['mean_evicted_mass']:.3g}")
-        print(f"regret shadow cache: {eng.shadow_nbytes()} bytes")
+                say(f"  req {req.request_id}: {summ['probes']} probes, "
+                    f"divergence mean={summ['mean_divergence']:.3g} "
+                    f"max={summ['max_divergence']:.3g}, evicted mass "
+                    f"mean={summ['mean_evicted_mass']:.3g}")
+        say(f"regret shadow cache: {eng.shadow_nbytes()} bytes")
     if not args.no_metrics:
-        print(eng.obs.registry.render())
-    if args.snapshot:
+        say(eng.obs.registry.render())
+    if args.snapshot and rank0:
         with open(args.snapshot, "w") as f:
             json.dump(eng.metrics_snapshot(), f, indent=1, sort_keys=True)
             f.write("\n")
-        print(f"wrote {args.snapshot}")
-    if args.trace:
-        print(f"wrote {args.trace} ({eng.obs.writer.events_written} events)")
+        say(f"wrote {args.snapshot}")
+    if args.trace and rank0:
+        say(f"wrote {args.trace} ({eng.obs.writer.events_written} events)")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,11 @@ step, as the JAX package's ``launch/train.py``. ``--ckpt-dir`` with
 (musicgen) trains on (B, K, S) tokens, and a cross-attention model on one
 random conditioning (B, cond_len, D) drawn from seed 1 for the whole run,
 as the JAX launcher does. Attention takes
-the training route (plain autograd, never a kernel) on every device. The
-JAX launcher's ``--mesh`` (a sharded production mesh) is not ported.
+the training route (plain autograd, never a kernel) on every device.
+Training runs on one device: the JAX launcher's ``--mesh`` (its GSPMD
+training rules, ZeRO-1 optimizer sharding, the ``ac`` activation
+constraints, expert parallelism) is not ported; tensor parallelism is, for
+serving (``launch/serve.py --tp``).
 """
 from __future__ import annotations
 

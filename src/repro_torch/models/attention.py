@@ -151,24 +151,29 @@ def decode_project_qkv(params: dict, cfg: ModelConfig, x, cur_pos):
 
 def decode_attention(q, cache: PagedLayerCache, *, cur_pos, window: int = 0,
                      num_splits: int = 1, want_scores: bool = False,
-                     plain: bool = False):
+                     plain: bool = False, group=None):
     """Single-token attention (float or int8 pool). q: (B, H, hd) ->
     (o, page_scores | None)."""
     return ops.paged_attention(q, cache, cur_pos=cur_pos, window=window,
                                num_splits=num_splits,
-                               return_scores=want_scores, plain=plain)
+                               return_scores=want_scores, plain=plain,
+                               group=group)
 
 
 def step_attention(q, cache: PagedLayerCache, *, q_pos, window: int = 0,
                    decode_splits: int = 1, want_scores: bool = False,
-                   plain: bool = False):
+                   plain: bool = False, group=None):
     """Unified-step attention. q: (B, T, H, hd), q_pos: (B, T) ->
-    (o (B, T, H, hd), page_scores (B, P) | None)."""
+    (o (B, T, H, hd), page_scores (B, P) | None). Under tensor parallelism
+    q and the pool hold this rank's heads; attention needs no collective
+    (each query group attends its own KV head), only the page scores'
+    head means cross ``group``'s ranks."""
     if q.shape[1] == 1:
         o, ps = decode_attention(q[:, 0], cache, cur_pos=q_pos[:, 0],
                                  window=window, num_splits=decode_splits,
-                                 want_scores=want_scores, plain=plain)
+                                 want_scores=want_scores, plain=plain,
+                                 group=group)
         return o[:, None], ps
     return ops.paged_prefill_attention(q, cache, q_pos=q_pos, window=window,
                                        return_scores=want_scores,
-                                       plain=plain)
+                                       plain=plain, group=group)

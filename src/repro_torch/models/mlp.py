@@ -16,7 +16,11 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def mlp_forward(params: dict, cfg: ModelConfig, x: torch.Tensor
-                ) -> torch.Tensor:
+def mlp_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """Gated MLP. Under tensor parallelism (``group``) ``d_ff`` is split
+    over the ranks (w_gate / w_up by column, w_down by row) and the partial
+    outputs are summed over them."""
     h = activation(cfg.act)(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return out if group is None else group.all_reduce_sum(out)

@@ -14,7 +14,10 @@ feeds two routines, each used where the JAX package uses it:
   every token and the top-k gates weigh them, so no token is dropped.
 
 Plain torch: the JAX package computes all of it in jnp, outside any
-kernel. Expert parallelism needs a mesh and is not ported.
+kernel. Under tensor-parallel serving the dense combine splits every
+expert's d_ff over the ranks (``group``). Expert parallelism (the JAX
+package's ``_moe_block_ep``, experts placed on an "expert" mesh axis with
+all-to-all dispatch) is not ported.
 """
 from __future__ import annotations
 
@@ -140,10 +143,15 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return _moe_block(params, cfg, x, cap)
 
 
-def moe_forward_decode(params: dict, cfg: ModelConfig, x: torch.Tensor
-                       ) -> torch.Tensor:
+def moe_forward_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                       group=None) -> torch.Tensor:
     """x (N, D) -> (N, D): the dense all-expert combine (every expert on
-    every token, weighed by the top-k gates)."""
+    every token, weighed by the top-k gates). Under tensor parallelism
+    (``group``) each rank holds every expert's slice of d_ff; the router
+    runs whole on every rank (f32), and the partial expert outputs are
+    summed over the ranks in f32 before the gate combine, as in the JAX
+    package (summing after the combine would move E times fewer bytes;
+    parity comes first)."""
     N = x.shape[0]
     _, top_p, top_e = route(params, cfg, x)
     gate = torch.zeros((N, cfg.num_experts), dtype=torch.float32,
@@ -156,4 +164,6 @@ def moe_forward_decode(params: dict, cfg: ModelConfig, x: torch.Tensor
     h = act(torch.matmul(x, params["w_gate"])) * \
         torch.matmul(x, params["w_up"])                    # (E, N, F)
     eout = torch.matmul(h, params["w_down"])               # (E, N, D)
+    if group is not None:
+        eout = group.all_reduce_sum(eout.float())
     return torch.einsum("ebd,be->bd", eout.float(), gate).to(x.dtype)

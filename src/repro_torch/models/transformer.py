@@ -178,20 +178,23 @@ def cross_block(lp: dict, cfg: ModelConfig, x, xc):
 
 
 def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
-              dense_combine: bool):
+              dense_combine: bool, group=None):
     """The layer's second half: x + MLP(norm2(x)) -> (x, MoE aux loss or
     None). An MoE layer takes the dense all-expert combine over every token
     of x when ``dense_combine`` (the serving step and one-shot decode), else
     the capacity dispatch per example of x (B, S, D) (the one-shot prefill
     and training), as the JAX package's call sites do. A layer without an
-    MLP (``spec.mlp == "none"``, xLSTM) passes x through."""
+    MLP (``spec.mlp == "none"``, xLSTM) passes x through. ``group``: the
+    tensor-parallel group of the serving step, whose ranks hold d_ff
+    slices (dense MLP or dense combine); their outputs are summed."""
     if spec.mlp == "none":
         return x, None
     h = apply_norm(lp["norm2"], x)
     if spec.mlp != "moe":
-        return x + mlp_forward(lp["mlp"], cfg, h), None
+        return x + mlp_forward(lp["mlp"], cfg, h, group), None
     if dense_combine:
-        out = moe_forward_decode(lp["moe"], cfg, h.reshape(-1, h.shape[-1]))
+        out = moe_forward_decode(lp["moe"], cfg, h.reshape(-1, h.shape[-1]),
+                                 group)
         return x + out.reshape(h.shape), None
     out, stats = moe_forward(lp["moe"], cfg, h)
     return x + out, stats.aux_loss
@@ -303,7 +306,7 @@ def _layer_cache_shapes(cfg: ModelConfig, spec: LayerSpec, seq_len: int,
 def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
                        policy: EvictionPolicy, ccfg: CacheConfig, dtype=None,
                        chunk_tokens: int = 0, track_stats: bool = False,
-                       device=None) -> ModelCache:
+                       device=None, tp: int = 1) -> ModelCache:
     """Empty per-layer caches on ``device`` (default CUDA; raises without a
     card): a page pool (N = batch * P pages) per attention layer,
     ``ccfg.dtype`` "int8" making quantized pools, and an empty state per
@@ -314,7 +317,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
     activations' dtype, which an int8 state would truncate, and
     ``make_cross_cache`` gives the activations' dtype (the JAX package's
     carry the pools' dtype and run only where that is the
-    activations')."""
+    activations'). ``tp``: the pools of one rank of tensor-parallel
+    serving, KV/tp heads each (the metadata whole)."""
     cfg.validate()
     device = resolve_device(device)
     dt = dtype or dtype_of(ccfg.dtype)
@@ -324,7 +328,7 @@ def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int,
         init_layer_cache(batch, _layer_cache_shapes(cfg, spec, seq_len,
                                                     policy, ccfg,
                                                     chunk_tokens),
-                         ccfg.page_size, cfg.num_kv_heads, hd, dt,
+                         ccfg.page_size, cfg.num_kv_heads // tp, hd, dt,
                          track_stats=track_stats, device=device)
         if spec.mixer == "attn" else
         recurrent_init_state(cfg, spec, batch, act, device)
@@ -407,7 +411,7 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc, *,
                 decode_mask, prefill_mask, reset_mask, share_src, share_pages,
                 times: list[int], has_decode: bool, has_prefill: bool,
                 has_reset: bool, decode_splits: int, fused_scores: bool,
-                plain_kernels: bool, want_taps: bool = False):
+                plain_kernels: bool, want_taps: bool = False, group=None):
     """One attention (+ cross-attention to ``xc`` when not None) + MLP
     layer of the unified step. x: (B, T, D);
     positions: (B, T) int32 with -1 past each row's ``n_tok``. The
@@ -417,7 +421,10 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc, *,
     obs/regret.py) tap holds this step's k and v, the q used, the attention
     output before the projection, and ``live_pos``, the cache's positions
     after the append and before the eviction (a gathered copy: the eviction
-    mutates the pool in place); else tap is None and nothing more runs."""
+    mutates the pool in place); else tap is None and nothing more runs.
+    ``group``: the tensor-parallel group (this rank's heads, pool and d_ff
+    slice); ``o @ wo`` is summed over its ranks before the residual, as the
+    MLP's output is."""
     B, T, _ = x.shape
     h = apply_norm(lp["norm1"], x)
     q, k, v = attn_mod.project_qkv(lp["attn"], cfg, h,
@@ -432,7 +439,7 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc, *,
     window = attn_mod.spec_window(cfg, spec)
     o, pscores = attn_mod.step_attention(
         q, kvc, q_pos=positions, window=window, decode_splits=decode_splits,
-        want_scores=fused_scores, plain=plain_kernels)
+        want_scores=fused_scores, plain=plain_kernels, group=group)
     tap = None
     if want_taps:
         tap = {"k": k, "v": v, "q": q, "o": o, "live_pos": kvc.pos_view()}
@@ -441,8 +448,12 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc, *,
     if has_prefill:
         policy.chunk_prefill_evict(kvc, ccfg, active=prefill_mask,
                                    window=window, page_scores=pscores)
-    x = cross_block(lp, cfg, x + o.reshape(B, T, -1) @ lp["attn"]["wo"], xc)
-    return mlp_block(lp, cfg, spec, x, dense_combine=True)[0], tap
+    o = o.reshape(B, T, -1) @ lp["attn"]["wo"]
+    if group is not None:
+        o = group.all_reduce_sum(o)
+    x = cross_block(lp, cfg, x + o, xc)
+    return mlp_block(lp, cfg, spec, x, dense_combine=True,
+                     group=group)[0], tap
 
 
 @torch.no_grad()
@@ -451,7 +462,7 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
                  decode_mask=None, prefill_mask=None, reset_mask=None,
                  share_src=None, share_pages=None, decode_splits: int = 1,
                  fused_scores: bool = False, plain_kernels: bool = False,
-                 want_taps: bool = False):
+                 want_taps: bool = False, group=None):
     """Unified mixed-batch step, as ``transformer.forward_step`` of the JAX
     package. tokens (B, T) int32 (row b's live tokens are tokens[b,
     :n_tok[b]]), or (B, K, T) with K codebooks; n_tok (B,); the masks
@@ -469,7 +480,14 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
     ``want_taps`` (obs/regret.py) also returns the taps {"layers":
     [per-layer tap of :func:`_step_layer`, None for a recurrent layer],
     "positions": (B, T)} as a third value; False runs exactly the ops of a
-    step without it."""
+    step without it.
+
+    ``group`` (a ``launch.mesh.TPGroup``): tensor-parallel serving, the
+    step of one rank; ``params`` and ``cache`` are its shards
+    (``sharding.rules``), every other input whole, and ``policy`` built
+    with the same group. Every rank must take the same branches, so that
+    they issue the same collectives in the same order: the ``has_*`` flags
+    and the page plans come from the replicated metadata and masks."""
     x = embed_tokens(params, cfg, tokens)
     B, T = x.shape[0], x.shape[1]
     dev = x.device
@@ -521,7 +539,7 @@ def forward_step(params: dict, cfg: ModelConfig, tokens, n_tok,
                              decode_splits=decode_splits,
                              fused_scores=fused_scores,
                              plain_kernels=plain_kernels,
-                             want_taps=want_taps, **flags)
+                             want_taps=want_taps, group=group, **flags)
         taps.append(tap)
     last = (n_tok.long() - 1).clamp_min(0)
     x_last = x[torch.arange(B, device=dev), last]

@@ -26,11 +26,20 @@ page-lineage ledger over the first layer (one snapshot read per step) and
 eviction-regret shadow probes (``forward_step(want_taps=True)``). PyTorch
 runs eagerly and compiles nothing: the program count of the trace records
 is the number of distinct step shapes run (T == chunk, T == 1), the count
-the JAX engine's compiled programs reach on the same schedule. Tensor
-parallelism is not ported yet.
+the JAX engine's compiled programs reach on the same schedule.
+
+Tensor parallelism (``Engine(tp_group=)`` with a group of size tp > 1,
+the JAX engine's ``Engine(tp=N)``): one engine per rank, each in its own
+process of a ``launch.mesh.TPGroup`` of world size ``tp``. Each rank holds
+its KV/tp heads of every pool and its slice of the weights
+(``sharding.rules``), and runs the same scheduler, allocator and eviction
+trajectory on replicated metadata, SPMD; the step all-reduces the
+attention and MLP outputs, the score means and the devstats vector.
+``tp == 1`` creates no group and issues no collective.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 import weakref
@@ -60,6 +69,7 @@ from repro_torch.obs.trace import TRACE_SCHEMA_VERSION, annotation
 from repro_torch.serving.request import Request, RequestStatus, SamplingParams
 from repro_torch.serving.sampler import sample_tokens
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.sharding.rules import shard_params, validate_tp
 
 
 def _weak_hook(method):
@@ -98,9 +108,14 @@ class Engine:
                  chunk_size: int = 64, token_budget: int | None = None,
                  prefix_sharing: bool = True, decode_splits: int = 1,
                  fused_scores: bool | None = None, device=None,
-                 plain_kernels: bool = False, obs: ObsConfig | None = None):
+                 plain_kernels: bool = False, obs: ObsConfig | None = None,
+                 tp_group=None):
         """``params`` must lie on ``device``: default CUDA (raises without a
-        card). ``fused_scores``: rank page evictions by the kernels' norm
+        card). ``tp_group``: this rank's ``launch.mesh.TPGroup`` for tensor
+        parallelism at its size (tp = 1 without one, or with one of size
+        1); the engine then runs on the group's device, and ``params`` are
+        the full weights, anywhere (the host too): the engine moves its
+        rank's slice there. ``fused_scores``: rank page evictions by the kernels' norm
         epilogue; defaults to True on CUDA, as the JAX engine turns it on
         with its kernels.
         ``plain_kernels``: run the kernels' plain versions on the card, to
@@ -119,11 +134,26 @@ class Engine:
                 f"{cfg.num_codebooks} codebooks; run it one-shot "
                 f"(transformer.forward_prefill, decode_step) or through "
                 f"transformer.forward_step")
+        obs = obs if obs is not None else ObsConfig()
+        tp = 1 if tp_group is None else tp_group.size
+        self.tp, self.tp_group = tp, None
+        if tp > 1:
+            validate_tp(cfg, tp)
+            if obs.regret_every > 0:
+                raise ValueError("regret shadow probes are not supported "
+                                 "under tensor parallelism (tp > 1): the "
+                                 "taps hold one rank's heads; probe at tp=1")
+            self.tp_group = tp_group
+            device = tp_group.device
+            params = shard_params(params, tp_group.rank, tp, device)
+            if tp_group.rank > 0:
+                obs = dataclasses.replace(obs, trace_path=None)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.ccfg = cache_cfg
-        self.policy: EvictionPolicy = get_policy(cache_cfg.policy)
+        self.policy: EvictionPolicy = get_policy(cache_cfg.policy,
+                                                 tp_group=self.tp_group)
         self.max_batch = max_batch
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
@@ -151,7 +181,7 @@ class Engine:
         self._next_id = 0
         self.last_stats: np.ndarray | None = None  # last step's devstats
 
-        self.obs = EngineObs(obs if obs is not None else ObsConfig())
+        self.obs = EngineObs(obs)
         if self.obs.ledger is not None and cfg.num_attn_layers() == 0:
             raise ValueError(f"{cfg.name}: the lineage ledger follows an "
                              f"attention layer's page pool, and this model "
@@ -169,7 +199,7 @@ class Engine:
         self.cache: ModelCache = init_decode_caches(
             cfg, max_batch, self.total_len, self.policy, self.ccfg,
             chunk_tokens=self.chunk_size, track_stats=self.obs.cfg.metrics,
-            device=self.device)
+            device=self.device, tp=tp)
         self.cur_tokens = np.zeros((max_batch,), np.int32)
         # running free-page count, kept from the devstats deltas
         # (Δfree == freed - allocated); each attention layer starts with
@@ -333,7 +363,8 @@ class Engine:
                 share_src=dev(share_src), share_pages=dev(share_pages),
                 decode_splits=self.decode_splits,
                 fused_scores=self.fused_scores,
-                plain_kernels=self.plain_kernels, want_taps=self._want_taps)
+                plain_kernels=self.plain_kernels, want_taps=self._want_taps,
+                group=self.tp_group)
             logits, self.cache = out[0], out[1]
             taps = out[2] if self._want_taps else None
             s = self.sampling
@@ -342,6 +373,13 @@ class Engine:
                                      top_p=s.top_p, greedy=s.greedy)
             # one device -> host read per step: sampled tokens (+ devstats)
             st_dev = collect_step_stats(self.cache)
+            if st_dev is not None and self.tp_group is not None:
+                # every rank counted the same pool events: sum rank 0's
+                # vector only, so that no event counts tp times (the JAX
+                # engine's psum of shard 0's)
+                if self.tp_group.rank > 0:
+                    st_dev.zero_()
+                st_dev = self.tp_group.all_reduce_sum(st_dev)
             host = (next_tok if st_dev is None else
                     torch.cat([next_tok, st_dev])).cpu().numpy()
         next_np = host[:B]
@@ -544,9 +582,12 @@ class Engine:
 
     def export_timeline(self, path: str) -> int:
         """Write the per-request Perfetto/Chrome-trace timeline; returns the
-        event count. Requires ``ObsConfig(timeline=True)``."""
+        event count. Requires ``ObsConfig(timeline=True)``. Under tensor
+        parallelism only rank 0 writes (the others return 0)."""
         if self.obs.timeline is None:
             raise ValueError("engine was not run with ObsConfig(timeline=True)")
+        if self.tp_group is not None and self.tp_group.rank > 0:
+            return 0
         return self.obs.timeline.export(path)
 
     def pool_stats(self) -> dict:
@@ -566,7 +607,13 @@ class Engine:
 
     def pool_bytes(self) -> dict:
         """Device bytes of the attention layers' page-pool payload (K/V and
-        the int8 scales, trash row included) and of the pool metadata."""
+        the int8 scales, trash row included) and of the pool metadata, with
+        the JAX engine's keys: ``payload_total`` over all ranks,
+        ``per_device_max`` the most one device holds, ``devices`` how many
+        hold a slice. Under tensor parallelism each rank counts its own
+        slice; every rank's is the same size (whole KV heads), so the total
+        is ``tp`` of them and no collective is needed. The metadata is
+        replicated and counted once."""
         payload = meta = 0
         for c in paged_layers(self.cache.layers):
             for t in (c.k_buf, c.v_buf, c.k_scale_buf, c.v_scale_buf):
@@ -576,4 +623,6 @@ class Engine:
                       c.cur_page, c.cur_off, c.stats):
                 if t is not None:
                     meta += t.numel() * t.element_size()
-        return {"payload_total": payload, "metadata_total": meta}
+        return {"payload_total": payload * self.tp,
+                "per_device_max": payload, "metadata_total": meta,
+                "devices": self.tp}
