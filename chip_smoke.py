@@ -209,6 +209,25 @@ Phases (any failure exits non-zero; none is skipped):
               prints tok/s and step times (two ranks time-sharing one
               card: no TP speed), the share of greedy tokens equal to tp
               1's, peak memory per rank and the phase's seconds.
+ 14. grid     training over a grid: four ranks spawned on the one card
+              (gloo, the functional collectives staged through the host),
+              each case first trained on one rank here. (a) the CPU
+              test's cases, reduced f32, B 4 x S 64, 2 AdamW steps (aux
+              weight 0: the MoE regions average aux per data shard, as
+              JAX's): llama-3.2-1b at (data 2, model 2) with ZeRO-1,
+              qwen2.5-3b reduced(tp=2) (KV heads split), mixtral-8x7b
+              model-split and expert-parallel (data 1, expert 2, tp 2),
+              jamba; losses within 1e-5 relative, parameters 1e-5,
+              moments 1e-4 of their largest. (b) llama-3.2-1b at full
+              width, 2 of 16 layers, bf16, B 4 x S 2048, (2, 2) with
+              ZeRO-1, 3 steps; (c) mixtral-8x7b at full width, 1 of 32
+              layers, bf16, B 2 x S 1024, expert-parallel, 2 steps, and
+              its MoE block alone against one rank's (load, dropped,
+              out); losses within 1e-2 relative, moment bytes per rank
+              at most 1.01 x total / 4, all-to-alls in every (c) step.
+              Prints per rank the parameter and moment bytes, peak
+              memory, collectives per step by kind (CommDebugMode) and
+              step ms (ranks time-slicing the card: no grid speed).
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
@@ -2820,6 +2839,391 @@ def tp_full(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training over a grid, four ranks time-sharing the card
+# ---------------------------------------------------------------------------
+
+GRID = 4                  # ranks
+GRID_TIMEOUT_S = 300      # a collective that waits longer fails the run
+GRID_2D = ((2, 2), ("data", "model"))
+GRID_EP = ((1, 2, 2), ("data", "expert", "tp"))
+# (a): tests/test_torch_grid.py's four cases and jamba, reduced f32, B 4 x
+# S 64, 2 AdamW steps; name -> (arch, reduced(tp=), grid, ZeRO-1). The
+# MoE block's regions average aux per data shard (as JAX's do), so every
+# case trains with aux weight 0 here: its step must then equal one rank's
+GRID_REDUCED = {
+    "llama-zero1": ("llama-3.2-1b", 1, GRID_2D, True),
+    "kv-split": ("qwen2.5-3b", 2, GRID_2D, False),
+    "mixtral-model": ("mixtral-8x7b", 1, GRID_2D, False),
+    "mixtral-ep": ("mixtral-8x7b", 1, GRID_EP, False),
+    "jamba": ("jamba-1.5-large-398b", 1, GRID_2D, False),
+}
+GRID_OPT = dict(lr_peak=1e-3, warmup_steps=0, total_steps=10, eps=1e-5)
+# (b), (c): a smaller step for random full-width weights (at 1e-3 every
+# weight moves by about 6% of its scale a step and the loss climbs)
+GRID_FULL_LR = 1e-4
+# the CPU test's tolerances: losses (relative), parameters (absolute),
+# moments (of their largest value)
+GRID_RTOL, GRID_ATOL, GRID_MOMENT_RTOL = 1e-5, 1e-5, 1e-4
+# (b), (c): full width, bf16, depth cut; (arch, layers, grid, B, S, steps,
+# ZeRO-1). A bf16 step sums in another order on the grid: losses within
+# GRID_BF16_RTOL of one rank's
+GRID_FULL = {
+    "b": ("llama-3.2-1b", 2, GRID_2D, 4, 2048, 3, True),
+    "c": ("mixtral-8x7b", 1, GRID_EP, 2, 1024, 2, False),
+}
+GRID_BF16_RTOL = 1e-2
+# (b), (c): Adam's update hardly sees the gradient's scale, so the
+# gradient itself is held to one rank's at full width, in f32 (where the
+# grid's equals one rank's to rounding): one step of the same model and
+# first batch, every leaf's gradient norm and an even stride of at most
+# GRID_SAMPLE elements of these leaves within GRID_F32_RTOL (relative,
+# L2). A missing sum over an axis, a gradient counted twice or half a
+# batch moves them by far more. In bf16 each step's grad norm is held
+# within GRID_BF16_GNORM_RTOL: the tied embedding's bf16 gradient is a
+# sum that mostly cancels at random init, its rounding noise some tens
+# of percent of it on either side (one rank and the grid alike), which
+# moves the total norm by about 1.5%
+GRID_SAMPLE_KEYS = {
+    "b": ("embed", "layers/0/attn/wq", "layers/1/mlp/w_down"),
+    "c": ("embed", "layers/0/attn/wq", "layers/0/moe/w_down", "lm_head"),
+}
+GRID_SAMPLE = 1 << 22
+GRID_F32_RTOL, GRID_BF16_GNORM_RTOL = 1e-4, 5e-2
+
+
+def grid_batches(cfg, B, S, steps):
+    from repro_torch.training import DataConfig, lm_batch
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                      seed=0)
+    return [lm_batch(dcfg, i) for i in range(steps)]
+
+
+def grid_sample(torch, t):
+    """An even stride of at most GRID_SAMPLE elements of a leaf's whole
+    value (a collective on a grid), as a host f32 array."""
+    from repro_torch.sharding import rules
+    flat = rules.full(t).detach().reshape(-1)
+    return flat[::-(-flat.numel() // GRID_SAMPLE)].float().cpu().numpy()
+
+
+def grid_grads(torch, cfg, params, batch, keys, grid=None):
+    """One f32 loss and gradient of ``params`` on ``batch`` (aux weight 0;
+    on ``grid`` placed by the rules, ``ac`` pinning the layers): the
+    loss, every leaf's gradient norm, and samples (:func:`grid_sample`)
+    of the leaves named in ``keys``."""
+    from repro_torch.sharding import rules
+    from repro_torch.training import batch_to_device
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import key_of, leaves, leaves_with_path
+    ac = None
+    if grid is not None:
+        params = rules.distribute(grid, params,
+                                  rules.param_shardings(grid, cfg, params))
+        ac = rules.activation_constraint(grid, batch["tokens"].shape[0])
+    for p in leaves(params):
+        p.requires_grad_(True)
+    (loss, _), g = value_and_grad(params, cfg,
+                                  batch_to_device(batch, "cuda", grid),
+                                  aux_weight=0.0, ac=ac)
+    named = [(key_of(p), t) for p, t in leaves_with_path(g)]
+    return {"loss": float(rules.full(loss)),
+            "norm": {k: float(rules.full(torch.linalg.vector_norm(t)))
+                     for k, t in named},
+            "sample": {k: grid_sample(torch, t) for k, t in named
+                       if k in keys}}
+
+
+def grid_train(torch, cfg, params, batches, *, grid=None, zero1=False,
+               keep=True, lr=GRID_OPT["lr_peak"]):
+    """AdamW steps (GRID_OPT, aux weight 0) of ``params`` (whole, on the
+    card) over ``batches``, on ``grid`` when given (ZeRO-1 moments with
+    ``zero1``; ``ac`` pinning the layers), each step timed and its
+    collectives counted by kind (``CommDebugMode``). Returns losses, grad
+    norms, step ms, collectives, this rank's parameter and moment bytes
+    and peak memory, and with ``keep`` the final parameters and moments
+    as host f32 arrays."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.sharding import rules
+    from repro_torch.training import (AdamWConfig, batch_to_device,
+                                      init_adamw, make_train_step)
+    from repro_torch.training.tree import key_of, leaves, leaves_with_path
+    ac = None
+    B = batches[0]["tokens"].shape[0]
+    if grid is not None:
+        # the parameters placed first (DTensor ones stay as they are), the
+        # moments made on their shards: no rank holds the whole f32 state
+        p_sh = rules.param_shardings(grid, cfg, params)
+        params = rules.distribute(grid, params, p_sh)
+        opt = init_adamw(params)
+        o_sh = rules.opt_shardings(grid, cfg, opt, p_sh, zero1=zero1)
+        opt = opt._replace(mu=rules.distribute(grid, opt.mu, o_sh.mu),
+                           nu=rules.distribute(grid, opt.nu, o_sh.nu))
+        ac = rules.activation_constraint(grid, B)
+    else:
+        opt = init_adamw(params)
+    torch.cuda.empty_cache()
+    for p in leaves(params):
+        p.requires_grad_(True)
+    step = make_train_step(cfg, AdamWConfig(**{**GRID_OPT, "lr_peak": lr}),
+                           aux_weight=0.0, ac=ac)
+    local = lambda t: t.to_local() if grid is not None else t  # noqa: E731
+    out = {"loss": [], "gnorm": [], "ms": [], "comm": [],
+           "param_bytes": sum(local(t).nbytes for t in leaves(params)),
+           "moment_bytes": sum(local(t).nbytes for t in
+                               leaves(opt.mu) + leaves(opt.nu))}
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        batch = batch_to_device(b, "cuda", grid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mode = CommDebugMode()
+        with mode:
+            params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["comm"].append({str(k).split(".")[-1]: v for k, v in
+                            mode.get_comm_counts().items()})
+        out["loss"].append(float(m["loss"]))
+        out["gnorm"].append(float(m["grad_norm"]))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if keep:
+        out.update({n: {key_of(p): rules.full(t).detach().float().cpu()
+                        .numpy() for p, t in leaves_with_path(tree)}
+                    for n, tree in (("params", params), ("mu", opt.mu),
+                                    ("nu", opt.nu))})
+    return out
+
+
+def grid_full_cfg(arch, layers, dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def grid_moe_check(torch, cfg, params, grid=None):
+    """The full-width MoE block alone on one (2, 1024, D) bf16 input from
+    seed 3: (out, load, dropped) as host arrays; on ``grid`` through the
+    expert-parallel region (``ac``)."""
+    from repro_torch.models.moe import moe_forward
+    from repro_torch.sharding import rules
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn((2, 1024, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    ac = None
+    if grid is not None:
+        ac = rules.activation_constraint(grid, 2)
+        h = ac(h)
+    with torch.no_grad():
+        out, st = moe_forward(params["layers"][0]["moe"], cfg, h, ac=ac)
+    return tuple(rules.full(t).float().cpu().numpy()
+                 for t in (out, st.load, st.dropped))
+
+
+def grid_rank(group):
+    """One rank of phase 14: (a) every reduced case, (b) llama, (c)
+    mixtral; rank 0 brings back (a)'s parameters and moments."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training.tree import map_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = {g: make_grid(*g, device=group.device) for g in (GRID_2D,
+                                                             GRID_EP)}
+    out = {"backend": torch.distributed.get_backend()}
+    t0 = time.perf_counter()
+
+    def progress(what):
+        if group.rank == 0:
+            print(f"    rank 0: {what} at {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    for name, (arch, tp, g, zero1) in GRID_REDUCED.items():
+        cfg = get_arch(arch).reduced(tp=tp)
+        # every rank gathers the whole values (a collective); rank 0
+        # brings them back
+        out[name] = grid_train(torch, cfg, init_model(cfg, seed=0,
+                                                      device="cuda"),
+                               grid_batches(cfg, 4, 64, 2), grid=grids[g],
+                               zero1=zero1)
+        progress(f"(a) {name}")
+    for key, (arch, layers, g, B, S, steps, zero1) in GRID_FULL.items():
+        cfg32 = grid_full_cfg(arch, layers, "float32")
+        out[key + "32"] = grid_grads(
+            torch, cfg32, init_model(cfg32, seed=0, device="cuda"),
+            grid_batches(cfg32, B, S, 1)[0], GRID_SAMPLE_KEYS[key],
+            grids[g])
+        torch.cuda.empty_cache()
+        cfg = grid_full_cfg(arch, layers)
+        # the one-rank draw, held on the host as train.py --mesh holds its
+        # own: each leaf is cut there and only this rank's shard goes to
+        # the card
+        params = map_leaves(lambda t: t.cpu(),
+                            init_model(cfg, seed=0, device="cuda"))
+        torch.cuda.empty_cache()
+        params = rules_distribute(grids[g], cfg, params)
+        if cfg.num_experts:
+            out["moe"] = grid_moe_check(torch, cfg, params, grids[g])
+        out[key] = grid_train(torch, cfg, params, grid_batches(cfg, B, S,
+                                                               steps),
+                              grid=grids[g], zero1=zero1, keep=False,
+                              lr=GRID_FULL_LR)
+        del params
+        torch.cuda.empty_cache()
+        progress(f"({key}) {arch}")
+    return out if group.rank == 0 else {
+        k: ({kk: vv for kk, vv in v.items()
+             if kk not in ("params", "mu", "nu", "sample")}
+            if isinstance(v, dict) else v) for k, v in out.items()}
+
+
+def rules_distribute(grid, cfg, params):
+    from repro_torch.sharding import rules
+    return rules.distribute(grid, params,
+                            rules.param_shardings(grid, cfg, params))
+
+
+def grid_full(torch, np, card):
+    """Phase 14: the one-rank references on the card, then four ranks
+    spawned once (gloo, sharing it) running (a)-(c)."""
+    from datetime import timedelta
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import init_model
+    ref = {}
+    t_ref = time.perf_counter()
+    for name, (arch, tp, _, _) in GRID_REDUCED.items():
+        cfg = get_arch(arch).reduced(tp=tp)
+        ref[name] = grid_train(torch, cfg, init_model(cfg, seed=0,
+                                                      device="cuda"),
+                               grid_batches(cfg, 4, 64, 2))
+    for key, (arch, layers, _, B, S, steps, _) in GRID_FULL.items():
+        cfg32 = grid_full_cfg(arch, layers, "float32")
+        ref[key + "32"] = grid_grads(
+            torch, cfg32, init_model(cfg32, seed=0, device="cuda"),
+            grid_batches(cfg32, B, S, 1)[0], GRID_SAMPLE_KEYS[key])
+        torch.cuda.empty_cache()
+        cfg = grid_full_cfg(arch, layers)
+        params = init_model(cfg, seed=0, device="cuda")
+        if cfg.num_experts:
+            ref["moe"] = grid_moe_check(torch, cfg, params)
+        ref[key] = grid_train(torch, cfg, params, grid_batches(
+            cfg, B, S, steps), keep=False, lr=GRID_FULL_LR)
+        del params
+        torch.cuda.empty_cache()
+    print(f"  one-rank references done ({time.perf_counter() - t_ref:.1f} "
+          f"s)", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(grid_rank, GRID, device="cuda",
+                      timeout=timedelta(seconds=GRID_TIMEOUT_S))
+    spawn_s = time.perf_counter() - t0
+    if [r["backend"] for r in ranks] != ["gloo"] * GRID:
+        fail(f"phase 14: four ranks on one card should take gloo, not "
+             f"{[r['backend'] for r in ranks]}")
+    for name in GRID_REDUCED:
+        what = f"phase 14 (a) {name}"
+        want = ref[name]
+        for rank, r in enumerate(ranks):
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(r[name]["loss"], want["loss"]))
+            if rel > GRID_RTOL:
+                fail(f"{what}: rank {rank} losses {r[name]['loss']}, one "
+                     f"rank {want['loss']}")
+        got = ranks[0][name]
+        worst = {}
+        for part in ("params", "mu", "nu"):
+            top = max(float(np.abs(v).max()) for v in want[part].values())
+            tol = GRID_ATOL if part == "params" else GRID_MOMENT_RTOL * top
+            worst[part] = max(float(np.abs(got[part][k] - v).max())
+                              for k, v in want[part].items())
+            if worst[part] > tol:
+                fail(f"{what}: {part} {worst[part]:.3g} from one rank's "
+                     f"(tol {tol:.3g})")
+        print(f"  (a) {name}: losses {[f'{x:.6f}' for x in got['loss']]} "
+              f"(one rank {[f'{x:.6f}' for x in want['loss']]}), params "
+              f"within {worst['params']:.3g}, mu {worst['mu']:.3g}, nu "
+              f"{worst['nu']:.3g}; collectives per step "
+              f"{got['comm'][-1]}", flush=True)
+    for key, (arch, layers, (shape, axes), B, S, steps, zero1) in \
+            GRID_FULL.items():
+        what = f"phase 14 ({key}) {arch}"
+        want = ref[key]
+        rel, grel = 0.0, 0.0
+        for rank, r in enumerate(ranks):
+            rel = max([rel] + [abs(a - b) / abs(b) for a, b in
+                               zip(r[key]["loss"], want["loss"])])
+            grel = max([grel] + [abs(a - b) / abs(b) for a, b in
+                                 zip(r[key]["gnorm"], want["gnorm"])])
+            if rel > GRID_BF16_RTOL or grel > GRID_BF16_GNORM_RTOL:
+                fail(f"{what}: rank {rank} losses {r[key]['loss']}, grad "
+                     f"norms {r[key]['gnorm']}; one rank {want['loss']}, "
+                     f"{want['gnorm']} ({rel:.3g}, {grel:.3g} relative)")
+        g1, g = ref[key + "32"], ranks[0][key + "32"]
+        f32 = {"loss": abs(g["loss"] - g1["loss"]) / abs(g1["loss"])}
+        f32["norm"] = max(abs(g["norm"][k] - v) / v
+                          for k, v in g1["norm"].items() if v > 0)
+        f32.update({k: float(np.linalg.norm(g["sample"][k] - v) /
+                             np.linalg.norm(v))
+                    for k, v in g1["sample"].items()})
+        if len(g["norm"]) != len(g1["norm"]) or \
+                max(f32.values()) > GRID_F32_RTOL:
+            fail(f"{what}: one f32 step's gradient against one rank's "
+                 f"(relative; loss, worst leaf norm, samples): {f32}")
+        mb = [r[key]["moment_bytes"] for r in ranks]
+        if max(mb) > want["moment_bytes"] / GRID * 1.01:
+            fail(f"{what}: moment bytes per rank {mb}, one rank "
+                 f"{want['moment_bytes']}")
+        r0 = ranks[0][key]
+        f32_txt = {k: f"{v:.3g}" for k, v in f32.items()}
+        print(f"  ({key}) {arch} ({layers} layers, bf16, B {B} x S {S}, "
+              f"grid {dict(zip(axes, shape))}{', ZeRO-1' if zero1 else ''}"
+              f", {steps} steps) on four ranks time-sharing the card over "
+              f"gloo ({card}): losses {[f'{x:.4f}' for x in r0['loss']]} "
+              f"(one rank {[f'{x:.4f}' for x in want['loss']]}, "
+              f"{rel:.3g} relative, tol {GRID_BF16_RTOL}); grad norms "
+              f"{[f'{x:.4f}' for x in r0['gnorm']]} (one rank "
+              f"{[f'{x:.4f}' for x in want['gnorm']]}, {grel:.3g} "
+              f"relative, tol {GRID_BF16_GNORM_RTOL}); one f32 step's "
+              f"gradient relative to one rank's {f32_txt} (tol "
+              f"{GRID_F32_RTOL}); step ms per rank "
+              f"{[[round(x, 1) for x in r[key]['ms']] for r in ranks]}"
+              f" (one rank {[round(x, 1) for x in want['ms']]}); "
+              f"parameter bytes per rank "
+              f"{[r[key]['param_bytes'] for r in ranks]} (one rank "
+              f"{want['param_bytes']}); moment bytes per rank {mb} "
+              f"(total / 4 {want['moment_bytes'] / GRID:.0f}); peak GiB "
+              f"per rank {[round(r[key]['peak_gib'], 2) for r in ranks]} "
+              f"(one rank {want['peak_gib']:.2f}); collectives per step "
+              f"{r0['comm']}", flush=True)
+    out, load, dropped = ranks[0]["moe"]
+    o1, l1, d1 = ref["moe"]
+    err = float(np.abs(out - o1).max())
+    # a near-tie in the f32 router may round the other way on a shard's
+    # rows: a few assignments of the 4096 (one is 1 / 4096 of the load)
+    slack = 4 / (2 * 1024 * 2)
+    dl, dd = float(np.abs(load - l1).max()), float(abs(dropped - d1))
+    if dl > slack or dd > slack or err > 2 ** -7 * float(np.abs(o1).max()):
+        fail(f"phase 14 (c): the expert-parallel block's load {load} / "
+             f"dropped {dropped} / out (max err {err:.3g}) against one "
+             f"rank's {l1} / {d1}")
+    a2a = [c.get("all_to_all_single", 0) for c in ranks[0]["c"]["comm"]]
+    if not all(a2a):
+        fail(f"phase 14 (c): no all-to-all in a step: {ranks[0]['c']['comm']}")
+    print(f"  (c) the MoE block alone, (2, 1024) tokens: load {load} "
+          f"(one rank {l1}, max diff {dl:.3g}), dropped {float(dropped):.6f}"
+          f" (one rank {float(d1):.6f}), out within {err:.3g}; all-to-alls "
+          f"per step {a2a}; ranks spawned and run in {spawn_s:.1f} s",
+          flush=True)
+    return {"ranks": ranks, "ref": ref}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: training, and the trained weights handed to serving and one-shot
 # ---------------------------------------------------------------------------
 
@@ -3153,7 +3557,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/13] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/14] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -3163,7 +3567,7 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/13] kernels against their plain versions")
+    phase("[2/14] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
@@ -3173,7 +3577,7 @@ def main() -> None:
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
 
-    phase("[3/13] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/14] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
@@ -3200,33 +3604,33 @@ def main() -> None:
     oneshot_parity(torch, np, "float32", arch=MUSICGEN, budget=48)
     train_parity(torch, np, arch=MUSICGEN, steps=2, seq=1024)
 
-    phase(f"[4/13] llama-3.2-1b at full width: serving, bf16 pool, with "
+    phase(f"[4/14] llama-3.2-1b at full width: serving, bf16 pool, with "
           f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
           f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/13] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/14] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[6/13] llama-3.2-1b at full width: serving, int8 pool "
+    phase(f"[6/14] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
     serve8 = serve_full_width(torch, np, "int8", 4,
                               num_layers=INT8_SERVE_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    phase(f"[7/13] llama-3.2-1b at full width: the paper's baselines "
+    phase(f"[7/14] llama-3.2-1b at full width: the paper's baselines "
           f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[8/13] llama-3.2-1b at full width: eviction-regret probes "
+    phase(f"[8/14] llama-3.2-1b at full width: eviction-regret probes "
           f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[9/13] training: card against CPU, llama-3.2-1b at full width "
+    phase("[9/14] training: card against CPU, llama-3.2-1b at full width "
           "then served from its checkpoint, TINY trained and scored")
     t9 = time.perf_counter()
     train_parity(torch, np)
@@ -3236,7 +3640,7 @@ def main() -> None:
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    phase("[10/13] the attention-only families at full width: "
+    phase("[10/14] the attention-only families at full width: "
           + ", ".join(f"{a} ({n} layers, budget {b})"
                       for a, (n, b) in FAMILIES.items()))
     t10 = time.perf_counter()
@@ -3250,7 +3654,7 @@ def main() -> None:
               for a, r in families.items()), flush=True)
     torch.cuda.empty_cache()
 
-    phase("[11/13] the recurrent families at full width: "
+    phase("[11/14] the recurrent families at full width: "
           + ", ".join(f"{a} ({n} layers)" for a, n in RECURRENT.items()))
     t11 = time.perf_counter()
     recurrent = {arch: recurrent_full_width(torch, np, arch, n, card)
@@ -3263,7 +3667,7 @@ def main() -> None:
           f"{jamba['one_shot']['paged_decode']}; {card}", flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[12/13] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
+    phase(f"[12/14] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
           f"int8 pools), forward_step and training ({MUSICGEN_CUT_LAYERS} "
           f"layers)")
     t12 = time.perf_counter()
@@ -3276,7 +3680,7 @@ def main() -> None:
           f"{music['step']['paged_decode']}; {card}", flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[13/13] tensor-parallel serving at tp {TP}, two ranks "
+    phase(f"[13/14] tensor-parallel serving at tp {TP}, two ranks "
           f"time-sharing the card over gloo: "
           + ", ".join(f"{a} reduced(tp=2)" for a in TP_REDUCED)
           + f" (f32, int8) against tp 1; {TP_LLAMA} ({TP_LLAMA_LAYERS} of 32 "
@@ -3284,6 +3688,17 @@ def main() -> None:
     t13 = time.perf_counter()
     tp_full(torch, np, card)
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s; {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    phase(f"[14/14] training over a grid, {GRID} gloo ranks time-sharing "
+          f"the card: (a) " + ", ".join(GRID_REDUCED) + " reduced f32 "
+          f"against one rank; (b) {GRID_FULL['b'][0]} at (data 2, model 2) "
+          f"with ZeRO-1, (c) {GRID_FULL['c'][0]} expert-parallel at (data "
+          f"1, expert 2, tp 2), full width, bf16")
+    t14 = time.perf_counter()
+    grid_full(torch, np, card)
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s; {card}",
           flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4

@@ -1,15 +1,24 @@
-"""The process group of tensor-parallel serving, as the JAX package's
-``make_tp_mesh`` (``repro.launch.mesh``): one process per rank over
-``torch.distributed``, where the JAX package runs one program over a
-(1, tp) device mesh.
+"""Process groups and grids of the torch port, as the JAX package's
+``repro.launch.mesh``: one process per rank over ``torch.distributed``,
+where the JAX package runs one program over a device mesh.
 
-:func:`make_tp_group` initialises the default process group of world size
-``tp`` (or checks the one already initialised, as under ``torchrun``) and
-gives this rank its device. Its :class:`TPGroup` is the only way the port
-issues a collective: sum and mean all-reduces over the group, each counted
-by kind (``TPGroup.counts``), so a step's collectives can be read off and
-held to :func:`step_collectives`, the inventory the JAX package's
+**Tensor-parallel serving.** :func:`make_tp_group` initialises the
+default process group of world size ``tp`` (or checks the one already
+initialised, as under ``torchrun``) and gives this rank its device. Its
+:class:`TPGroup` is the only way the serving step issues a collective:
+sum and mean all-reduces over the group, each counted by kind
+(``TPGroup.counts``), so a step's collectives can be read off and held to
+:func:`step_collectives`, the inventory the JAX package's
 ``inspect_collectives --serve-tp`` reads from the compiled step.
+
+**Training over a grid.** :func:`make_grid` joins (or checks) a process
+group of the grid's size and lays a named ``DeviceMesh`` over it, as
+``jax.make_mesh``: its :class:`Grid` carries the ordered axis sizes
+(``Grid.shape``, read by ``sharding.rules`` as the JAX rules read
+``Mesh.shape``) and the mesh the DTensors live on.
+:func:`make_debug_grid` and :func:`make_production_grid` are the
+counterparts of ``make_debug_mesh`` and ``make_production_mesh`` (both
+layouts); :func:`abstract_grid` is a grid of shapes only, for the rules.
 
 The backend follows from the device: NCCL for one GPU per rank, gloo on
 the CPU or when ranks share a GPU (fewer CUDA devices than ranks: NCCL
@@ -22,6 +31,7 @@ directory (no port to clash over).
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import tempfile
@@ -62,6 +72,45 @@ class TPGroup:
         return t.div_(self.size)
 
 
+def _join(world: int, what: str, *, rank, store, device,
+          timeout: timedelta) -> tuple[int, torch.device]:
+    """Initialise the default process group of world size ``world``, or
+    check the one already initialised; set this rank's device. Returns
+    (rank, device). ``what`` names the caller in the errors."""
+    dev = resolve_device(device)
+    backend = ("nccl" if dev.type == "cuda"
+               and torch.cuda.device_count() >= world else "gloo")
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise ValueError(
+                f"{what} needs a process group of world size {world}; the "
+                f"initialised one has world size {dist.get_world_size()}")
+    elif store is not None:
+        if rank is None:
+            raise ValueError(f"{what}: joining a store needs this "
+                             f"process's rank")
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world, timeout=timeout)
+    else:
+        missing = [v for v in _ENV if v not in os.environ]
+        if missing:
+            raise ValueError(
+                f"{what} needs a process group of world size {world}: pass "
+                f"rank= and store=, or run under torchrun (missing "
+                f"{', '.join(missing)})")
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise ValueError(f"{what} needs a process group of world size "
+                             f"{world}; WORLD_SIZE is "
+                             f"{os.environ['WORLD_SIZE']}")
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=timeout)
+    rank = dist.get_rank()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return rank, dev
+
+
 def make_tp_group(tp: int, *, rank: int | None = None, store=None,
                   device=None,
                   timeout: timedelta = timedelta(minutes=5)) -> TPGroup:
@@ -75,37 +124,111 @@ def make_tp_group(tp: int, *, rank: int | None = None, store=None,
     takes ``cuda:{r % device_count}`` and makes it the current device.
     Raises, naming what is missing, when no group of world size ``tp`` can
     be had."""
-    dev = resolve_device(device)
-    backend = ("nccl" if dev.type == "cuda"
-               and torch.cuda.device_count() >= tp else "gloo")
-    if dist.is_initialized():
-        if dist.get_world_size() != tp:
-            raise ValueError(
-                f"tp={tp} needs a process group of world size {tp}; the "
-                f"initialised one has world size {dist.get_world_size()}")
-    elif store is not None:
-        if rank is None:
-            raise ValueError(f"tp={tp}: joining a store needs this "
-                             f"process's rank")
-        dist.init_process_group(backend, store=store, rank=rank,
-                                world_size=tp, timeout=timeout)
-    else:
-        missing = [v for v in _ENV if v not in os.environ]
-        if missing:
-            raise ValueError(
-                f"tp={tp} needs a process group of world size {tp}: pass "
-                f"rank= and store=, or run under torchrun (missing "
-                f"{', '.join(missing)})")
-        if int(os.environ["WORLD_SIZE"]) != tp:
-            raise ValueError(f"tp={tp} needs a process group of world size "
-                             f"{tp}; WORLD_SIZE is {os.environ['WORLD_SIZE']}")
-        dist.init_process_group(backend, init_method="env://",
-                                timeout=timeout)
-    rank = dist.get_rank()
-    if dev.type == "cuda":
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
+    rank, dev = _join(tp, f"tp={tp}", rank=rank, store=store, device=device,
+                      timeout=timeout)
     return TPGroup(rank=rank, size=tp, device=dev)
+
+
+@dataclass
+class Grid:
+    """A named grid of ranks: ``shape`` {axis: size} in the grid's order
+    (the JAX ``Mesh.shape``), ``mesh`` the ``DeviceMesh`` over the ranks
+    (None for a grid of shapes only), ``device`` this rank's device."""
+    shape: dict
+    mesh: object = None
+    device: torch.device | None = None
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def abstract_grid(shape: tuple, axes: tuple) -> Grid:
+    """A grid of shapes only (no process group), for the sharding rules:
+    the counterpart of ``jax.sharding.AbstractMesh``."""
+    if len(shape) != len(axes):
+        raise ValueError(f"grid shape {shape} and axes {axes} differ in "
+                         f"length")
+    return Grid(shape=dict(zip(axes, shape)))
+
+
+def make_grid(shape: tuple, axes: tuple, *, rank: int | None = None,
+              store=None, device=None,
+              timeout: timedelta = timedelta(minutes=5)) -> Grid:
+    """A grid of ``shape`` over axes ``axes`` (``jax.make_mesh``): joins or
+    checks the default process group of world size prod(shape), as
+    :func:`make_tp_group` (which raises, naming the world size, when the
+    group has another), and lays a ``DeviceMesh`` with ``mesh_dim_names``
+    ``axes`` over its ranks in row-major order."""
+    from torch.distributed.device_mesh import init_device_mesh
+    grid = abstract_grid(tuple(shape), tuple(axes))
+    _, dev = _join(grid.size, f"grid {tuple(shape)} over {tuple(axes)}",
+                   rank=rank, store=store, device=device, timeout=timeout)
+    if dev.type == "cuda" and dist.get_backend() == "gloo":
+        _stage_functional_collectives()
+    grid.mesh = init_device_mesh(dev.type, tuple(shape),
+                                 mesh_dim_names=tuple(axes))
+    grid.device = dev
+    return grid
+
+
+# the functional collectives DTensor issues, each with the tensor it sends
+# first in its arguments
+_FUNCTIONAL = ("all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_reduce", "all_to_all_single", "broadcast")
+_STAGING: list = []
+
+
+def _stage_functional_collectives() -> None:
+    """Ranks sharing one card over gloo: the functional collectives DTensor
+    issues (``torch.ops._c10d_functional``) take a CUDA tensor through the
+    host, the same collective run on a host copy and its result copied
+    back (gloo's all-gather of CUDA tensors crashed the process, torch
+    2.11.0+cu128). Installed once per process, and only where the grid
+    is gloo over CUDA: NCCL grids never see it."""
+    if _STAGING:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name in _FUNCTIONAL:
+        op = getattr(torch.ops._c10d_functional, name).default
+
+        def staged(x, *args, _op=op):
+            out = _op(x.cpu(), *args)
+            out = torch.ops._c10d_functional.wait_tensor(out)
+            return out.to(x.device)
+        lib.impl(name, staged, "CUDA")
+    _STAGING.append(lib)
+
+
+def make_debug_grid(data: int = 1, model: int = 1, **kw) -> Grid:
+    """A (data, model) grid over data * model ranks (tests): the
+    counterpart of ``make_debug_mesh``. ``kw``: :func:`make_grid`'s."""
+    return make_grid((data, model), ("data", "model"), **kw)
+
+
+def production_grid_shape(multi_pod: bool = False,
+                          layout: str = "2d") -> tuple[tuple, tuple]:
+    """(shape, axes) of the production grids, as ``make_production_mesh``:
+    (16, 16) over (data, model), (2, 16, 16) with a pod axis; the
+    expert-parallel layout ``"ep"`` factors the same ranks as (16, 8, 2)
+    over (data, expert, tp), (2, 16, 8, 2) with pods."""
+    if layout == "ep":
+        if multi_pod:
+            return (2, 16, 8, 2), ("pod", "data", "expert", "tp")
+        return (16, 8, 2), ("data", "expert", "tp")
+    if layout != "2d":
+        raise ValueError(f"layout {layout!r}: '2d' or 'ep'")
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_grid(*, multi_pod: bool = False, layout: str = "2d",
+                         **kw) -> Grid:
+    """The production grid (:func:`production_grid_shape`) over a
+    process group of its size (256 or 512 ranks); raises, naming that
+    size, when the group has another. ``kw``: :func:`make_grid`'s."""
+    return make_grid(*production_grid_shape(multi_pod, layout), **kw)
 
 
 def _rank_main(rank: int, fn, tp: int, args: tuple, device,

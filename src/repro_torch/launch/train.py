@@ -12,10 +12,22 @@ step, as the JAX package's ``launch/train.py``. ``--ckpt-dir`` with
 random conditioning (B, cond_len, D) drawn from seed 1 for the whole run,
 as the JAX launcher does. Attention takes
 the training route (plain autograd, never a kernel) on every device.
-Training runs on one device: the JAX launcher's ``--mesh`` (its GSPMD
-training rules, ZeRO-1 optimizer sharding, the ``ac`` activation
-constraints, expert parallelism) is not ported; tensor parallelism is, for
-serving (``launch/serve.py --tp``).
+
+``--mesh single|multi`` trains over the production grid, as the JAX
+launcher's ``--mesh``: (16, 16) over (data, model), or (2, 16, 16) with a
+pod axis, one process per rank (under ``torchrun``, or any launcher that
+sets MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE; NCCL with a GPU per
+rank). The weights are drawn whole on each process's host and only
+each rank's slices, laid out by ``sharding.rules.param_shardings``, go
+to its card; the f32 moments are made on the placed parameters, so no
+card ever holds a whole model or a whole moment. The batch is placed by
+``data_shardings``; the step is the same, with no ZeRO-1 and no ``ac``
+(those are library options: ``make_train_step(..., ac=...)`` and
+moments placed by ``opt_shardings(..., zero1=True)``). A process group
+of another world size is refused, naming the one the grid needs;
+nothing falls back to one device. Under a grid ``--ckpt-dir`` gathers every leaf whole (every rank
+takes part) and rank 0 writes it: ``load_checkpoint`` on one device reads
+it. Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_production_grid
 from repro_torch.models.multimodal import make_inputs
 from repro_torch.models.transformer import init_model
 from repro_torch.training import (
@@ -37,7 +50,8 @@ from repro_torch.training import (
     make_train_step,
     save_checkpoint,
 )
-from repro_torch.training.tree import leaves
+from repro_torch.sharding import rules
+from repro_torch.training.tree import leaves, map_leaves
 
 
 def main(argv=None) -> None:
@@ -55,18 +69,35 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain torch throughout)")
+    ap.add_argument("--mesh", default=None, choices=("single", "multi"),
+                    help="the production grid (needs a process group of "
+                         "its size: 256 or 512 ranks)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    grid = None
+    if args.mesh:
+        grid = make_production_grid(multi_pod=args.mesh == "multi",
+                                    device=args.device)
+    device = grid.device if grid else resolve_device(args.device)
+    say = print if grid is None or torch.distributed.get_rank() == 0 \
+        else (lambda *a, **k: None)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     opt_cfg = AdamWConfig(lr_peak=args.lr, warmup_steps=args.warmup,
                           total_steps=args.steps)
-    params = init_model(cfg, seed=args.seed, device=device)
+    # under a grid the whole model is drawn on the host and each rank's
+    # card receives only its slices; the moments are then made on the
+    # placed parameters (no ZeRO-1: opt_shardings gives the parameters'
+    # own layout), so they are born split
+    params = init_model(cfg, seed=args.seed,
+                        device="cpu" if grid else device)
+    if grid:
+        params = rules.distribute(
+            grid, params, rules.param_shardings(grid, cfg, params))
+    opt = init_adamw(params)
     for p in leaves(params):
         p.requires_grad_(True)
-    opt = init_adamw(params)
     step_fn = make_train_step(cfg, opt_cfg)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       batch_size=args.batch, seed=args.seed)
@@ -75,23 +106,30 @@ def main(argv=None) -> None:
     if cfg.cross_attention:
         gen = torch.Generator(device=device).manual_seed(1)
         cond = make_inputs(gen, cfg, args.batch, 4, device)["cond"]
+        if grid:
+            cond = rules.place(grid, cond, rules.data_shardings(
+                grid, {"c": cond})["c"])
 
     t0 = time.perf_counter()
     for i in range(args.steps):
         batch = batch_to_device(
-            lm_batch(dcfg, i, num_codebooks=cfg.num_codebooks), device)
+            lm_batch(dcfg, i, num_codebooks=cfg.num_codebooks), device, grid)
         params, opt, m = step_fn(params, opt, batch, cond=cond)
         if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
-            print(f"step {i:5d} loss={float(m['loss']):.4f} "
+            say(f"step {i:5d} loss={float(m['loss']):.4f} "
                   f"ce={float(m['ce']):.4f} lr={float(m['lr']):.2e} "
                   f"gnorm={float(m['grad_norm']):.2f} "
                   f"({(time.perf_counter() - t0):.1f}s)", flush=True)
         if args.ckpt_dir and args.ckpt_every and \
                 (i + 1) % args.ckpt_every == 0:
-            path = save_checkpoint(args.ckpt_dir, i + 1,
-                                   {"params": params, "opt": opt})
-            print(f"  checkpoint -> {path}", flush=True)
-    print(f"done: {args.steps} steps in {time.perf_counter() - t0:.1f}s")
+            state = {"params": params, "opt": opt}
+            if grid:
+                # every rank gathers each leaf; rank 0 writes
+                state = map_leaves(rules.full, state)
+            if grid is None or torch.distributed.get_rank() == 0:
+                path = save_checkpoint(args.ckpt_dir, i + 1, state)
+                say(f"  checkpoint -> {path}", flush=True)
+    say(f"done: {args.steps} steps in {time.perf_counter() - t0:.1f}s")
 
 
 if __name__ == "__main__":

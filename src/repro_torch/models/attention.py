@@ -21,10 +21,12 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.kernels import ops
+from repro_torch.sharding import rules
 from repro_torch.models.common import (apply_rope, causal_attention,
                                        dense_init, dtype_of,
                                        full_causal_attention, rms_head_norm)
@@ -91,8 +93,41 @@ def spec_window(cfg: ModelConfig, spec: LayerSpec) -> int:
     return 0
 
 
+def _grid_attention(q, k, v, positions, window: int, ac):
+    """The training route's attention over a grid, on each rank's shards:
+    attention is independent per (example, query head), so q (B, S, H,
+    hd) splits its batch over the data axes and its heads over the model
+    axes when they divide H; K/V split the same way when the model axes
+    divide KV (each rank then holds whole groups), else stay whole there,
+    each rank taking the KV head of each of its query heads (their
+    gradients then partial over the model axes). ``ac``: the activation
+    constraint (default: the grid's own for this batch)."""
+    grid = ac.grid if ac is not None else q.device_mesh
+    B, _, H, _ = q.shape
+    KV = k.shape[2]
+    b = ac.batch_axes if ac is not None else rules.batch_axes(grid, B)
+    msz, MA = rules.model_size(grid), rules.model_axes(grid)
+    hq = MA if msz > 1 and H % msz == 0 else None
+    hk = MA if hq is not None and KV % msz == 0 else None
+    part = rules.axes_of(hq) if hk is None else ()
+    ql = rules.to_local(grid, q, (b, None, hq, None))
+    kl, vl = (rules.to_local(grid, t, (b, None, hk, None), part)
+              for t in (k, v))
+    if hq is not None and hk is None:
+        # this rank's query heads and the KV head of each
+        H_l, G = ql.shape[2], H // KV
+        h0 = rules.shard_offset(rules.place(grid, q, (b, None, hq, None)), 2)
+        kv = (h0 + torch.arange(H_l, device=ql.device)) // G
+        kl, vl = kl[:, :, kv], vl[:, :, kv]
+    pos = rules.place(grid, positions, (b, None)).to_local()
+    out = causal_attention(ql, kl, vl, q_positions=pos, kv_positions=pos,
+                           window=window)
+    return rules.from_local(grid, out, (b, None, hq, None))
+
+
 def attention_forward(params: dict, cfg: ModelConfig, spec: LayerSpec, x,
-                      positions, plain: bool = False, train: bool = False):
+                      positions, plain: bool = False, train: bool = False,
+                      ac=None):
     """Causal self-attention over a contiguous sequence. x: (B, S, D);
     positions: (B, S) (-1 on padding, RoPE'd as is, as in the JAX package)
     -> (out (B, S, D), (k, v) post-RoPE). ``plain``: the flash kernel's
@@ -103,11 +138,15 @@ def attention_forward(params: dict, cfg: ModelConfig, spec: LayerSpec, x,
     The flash kernel masks by index, so with right-padded prompts the valid
     queries never see padding; the position-masked route lets them see the
     padding keys (position -1), as the JAX package's plain route does. Only
-    the CPU takes that route, for parity with the JAX package at S % 128."""
+    the CPU takes that route, for parity with the JAX package at S % 128.
+    Over a grid (DTensor x) the training route runs on each rank's shards
+    (:func:`_grid_attention`, ``ac`` the activation constraint)."""
     q, k, v = project_qkv(params, cfg, x, positions)
     window = spec_window(cfg, spec)
     B, S = x.shape[:2]
-    if train:
+    if train and isinstance(q, DTensor):
+        out = _grid_attention(q, k, v, positions, window, ac)
+    elif train:
         out = causal_attention(q, k, v, q_positions=positions,
                                kv_positions=positions, window=window)
     elif q.is_cuda or (S % 128 == 0 and cfg.resolved_head_dim % 8 == 0):

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.rules import whole_like
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int8": torch.int8}
 
@@ -113,7 +115,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """x: (..., seq, heads, hd); positions broadcastable to x's seq axes.
     Rotates INTERLEAVED pairs (x[2i], x[2i+1]), as the JAX package does
     (not the rotate-half layout)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    freqs = whole_like(rope_freqs(x.shape[-1], theta, x.device), positions)
     angles = positions[..., None].float() * freqs
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

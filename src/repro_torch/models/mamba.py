@@ -29,10 +29,12 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, dtype_of
+from repro_torch.sharding import rules
 
 
 @dataclass
@@ -68,11 +70,14 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _ssm_inputs(params: dict, cfg: ModelConfig, xc: torch.Tensor):
+def _ssm_inputs(params: dict, cfg: ModelConfig, xc: torch.Tensor,
+                reduce=None):
     """xc: (..., di) post-conv activations -> dt (..., di), Bt, Ct (...,
-    ds), all f32."""
+    ds), all f32. ``reduce``: the sum over the ranks that hold xc's other
+    channels (a grid's model axes), applied to ``xc @ x_proj``."""
     dr, ds = cfg.resolved_dt_rank, cfg.mamba_d_state
-    proj = (xc @ params["x_proj"]).float()
+    proj = xc @ params["x_proj"]
+    proj = (proj if reduce is None else reduce(proj)).float()
     dt_in, Bt, Ct = proj.split([dr, ds, ds], dim=-1)
     # jax.nn.softplus: F.softplus returns x itself above its threshold of
     # 20, where log1p(exp(x)) - x < exp(-20) ~ 2e-9, below f32's resolution
@@ -122,17 +127,9 @@ def _mamba_out(params: dict, ys, xcf, z, dtype) -> torch.Tensor:
     return (y.to(dtype) * F.silu(z)) @ params["out_proj"]
 
 
-def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor
-                  ) -> torch.Tensor:
-    """Full-sequence selective scan, the training route. x: (B, S, D) ->
-    (B, S, D). Windows of W = 256 or 64 tokens (the largest dividing S; 1
-    otherwise, then one scan without recomputation), each recomputed in the
-    backward pass."""
-    B, S, _ = x.shape
-    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
-    _, z, xs, xcf = _scan_inputs(params, cfg, x)
-    A = -torch.exp(params["A_log"])                           # (di, ds)
-    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+def _scan_all(h, xs, A, S: int):
+    """The windowed scan of :func:`mamba_forward` over time-major inputs
+    -> ys (S, B, di)."""
     W = 256 if S % 256 == 0 else (64 if S % 64 == 0 else 1)
     ys = []
     if W > 1:
@@ -146,7 +143,75 @@ def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor
         for w in _windows(S, 256):
             h, y = _scan(h, *(a[w] for a in xs), A)
             ys.append(y)
-    return _mamba_out(params, torch.cat(ys), xcf, z, x.dtype)
+    return torch.cat(ys)
+
+
+# the mixer's weights, by the dims that hold d_inner (the model axes
+# split them when they divide d_inner)
+_DI_DIMS = {"conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1,
+            "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+
+
+def _grid_forward(params: dict, cfg: ModelConfig, x, ac):
+    """:func:`mamba_forward` over a grid (DTensor x). ``x @ in_proj`` and
+    its split into xin and z are DTensor operations, each half pinned by
+    ``pin_inner(ac)`` (the batch over the data axes, d_inner over the
+    model axes when they divide it), as the JAX package pins them. The
+    rest runs on each rank's shards, since the conv, the discretisation
+    and the scan are independent per (example, channel); their local
+    layouts are those the JAX package's ``pin_inner`` / ``pin_time`` give
+    them. Two sums over the model axes are all it needs: of ``xc @
+    x_proj`` (whose gradient each rank's channels give in part) and of
+    the output projection (left pending for the residual add). The
+    weights' gradients are partial over the batch axes (each rank its
+    examples)."""
+    grid, b = ac.grid, ac.batch_axes
+    di = cfg.mamba_d_inner
+    msz = rules.model_size(grid)
+    mdi = rules.model_axes(grid) if msz > 1 and di % msz == 0 else None
+    model, spec = rules.axes_of(mdi), (b, None, mdi)
+    xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    pi = rules.pin_inner(ac)
+    xin, z = (rules.to_local(grid, pi(t), spec) for t in (xin, z))
+    p = {}
+    for k, d in _DI_DIMS.items():
+        s = [None] * params[k].dim()
+        s[d] = mdi
+        p[k] = rules.to_local(grid, params[k], tuple(s), rules.axes_of(b))
+    xc = _conv_silu(p, xin, cfg.mamba_d_conv)
+    pspec = (b, None, None)
+
+    def reduce(t):
+        return rules.sum_over(grid, t, pspec, model).to_local(
+            grad_placements=rules.placements(grid, pspec, model))
+    dt, Bt, Ct = _ssm_inputs(p, cfg, xc, reduce if model else None)
+    xcf = xc.float()
+    xs = tuple(a.transpose(0, 1) for a in (dt, Bt, Ct, xcf))
+    h = torch.zeros((xin.shape[0], xin.shape[-1], cfg.mamba_d_state),
+                    dtype=torch.float32, device=xin.device)
+    ys = _scan_all(h, xs, -torch.exp(p["A_log"]), x.shape[1])
+    out = _mamba_out(p, ys, xcf, z, x.dtype)
+    return rules.from_local(grid, out, pspec, model)
+
+
+def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                  ac=None) -> torch.Tensor:
+    """Full-sequence selective scan, the training route. x: (B, S, D) ->
+    (B, S, D). Windows of W = 256 or 64 tokens (the largest dividing S; 1
+    otherwise, then one scan without recomputation), each recomputed in the
+    backward pass. Over a grid (DTensor x) it runs on each rank's shards
+    (:func:`_grid_forward`), pinned by ``ac`` (default: the grid's own
+    constraint for this batch)."""
+    B, S, _ = x.shape
+    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    if isinstance(x, DTensor):
+        if ac is None:
+            ac = rules.activation_constraint(x.device_mesh, B)
+        return _grid_forward(params, cfg, x, ac)
+    _, z, xs, xcf = _scan_inputs(params, cfg, x)
+    A = -torch.exp(params["A_log"])                           # (di, ds)
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    return _mamba_out(params, _scan_all(h, xs, A, S), xcf, z, x.dtype)
 
 
 def mamba_init_state(cfg: ModelConfig, batch: int, dtype, device

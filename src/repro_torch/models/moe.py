@@ -15,9 +15,19 @@ feeds two routines, each used where the JAX package uses it:
 
 Plain torch: the JAX package computes all of it in jnp, outside any
 kernel. Under tensor-parallel serving the dense combine splits every
-expert's d_ff over the ranks (``group``). Expert parallelism (the JAX
-package's ``_moe_block_ep``, experts placed on an "expert" mesh axis with
-all-to-all dispatch) is not ported.
+expert's d_ff over the ranks (``group``).
+
+Training over a grid (``ac`` from ``sharding.rules.activation_constraint``)
+runs the capacity dispatch on each rank's shards, as the JAX package's two
+``shard_map`` regions (moe.py:206-285): on the (data, model) grid each rank
+routes its data shard's tokens and computes every expert's d_ff shard,
+the f32 expert outputs summed over ``model``; on the expert-parallel grid
+(data, expert, tp) the batch splits over (data, expert) too, an
+all-to-all over ``expert`` delivers each expert's tokens to its owner,
+which computes its d_ff shard (summed over ``tp``), and the reverse
+all-to-all brings them home. ``load``, ``dropped`` and ``aux`` are
+averaged over the batch axes. Without a grid the block runs as on one
+device.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, dense_init, dtype_of
+from repro_torch.sharding import rules
 
 
 class MoEStats(NamedTuple):
@@ -82,10 +93,11 @@ def rank_in_expert(flat_e: torch.Tensor) -> torch.Tensor:
     B, A = flat_e.shape
     perm = torch.argsort(flat_e, dim=1, stable=True)
     sorted_e = flat_e.gather(1, perm)
-    iota = torch.arange(A, device=flat_e.device).expand(B, A)
-    start = torch.cat([torch.ones((B, 1), dtype=torch.bool,
-                                  device=flat_e.device),
-                       sorted_e[:, 1:] != sorted_e[:, :-1]], dim=1)
+    iota = rules.whole_like(
+        torch.arange(A, device=flat_e.device).expand(B, A), flat_e)
+    start = torch.cat([rules.whole_like(torch.ones(
+        (B, 1), dtype=torch.bool, device=flat_e.device), flat_e),
+        sorted_e[:, 1:] != sorted_e[:, :-1]], dim=1)
     run_base = torch.cummax(torch.where(start, iota, -1), dim=1).values
     return torch.zeros_like(perm).scatter(1, perm, iota - run_base)
 
@@ -100,46 +112,153 @@ def dispatch(flat_e: torch.Tensor, num_experts: int, cap: int):
     return rank, keep, dst
 
 
-def _moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor, cap: int):
-    """Dispatch -> experts -> combine. x: (B, S, D) -> (out, MoEStats)."""
+def _dispatch_buffer(params: dict, cfg: ModelConfig, x, x_disp, cap: int):
+    """Route x (B, S, D) and fill the (B, E, cap, D) dispatch buffer from
+    ``x_disp`` (x's value; the copy whose gradient the experts give) ->
+    (probs, gates, experts, keep, dst, buffer)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     A = S * K
     probs, top_p, top_e = route(params, cfg, x)
     _, keep, dst = dispatch(top_e.reshape(B, A), E, cap)
+    token_of = rules.whole_like(torch.arange(A, device=x.device) // K, x)
+    rows = rules.whole_like(torch.arange(B, device=x.device)[:, None], x)
+    buf = x_disp.new_zeros((B, E * cap + 1, D))
+    buf[rows, dst] = x_disp[:, token_of]
+    return probs, top_p, top_e, keep, dst, buf[:, :-1].reshape(B, E, cap, D)
 
-    token_of = torch.arange(A, device=x.device) // K
-    buf = x.new_zeros((B, E * cap + 1, D))
-    buf[torch.arange(B, device=x.device)[:, None], dst] = x[:, token_of]
-    buf = buf[:, :-1].reshape(B, E, cap, D)
 
-    act = activation(cfg.act)
-    h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) * \
-        torch.einsum("becd,edf->becf", buf, params["w_up"])
-    eout = torch.einsum("becf,efd->becd", h, params["w_down"])
-
+def _combine(cfg: ModelConfig, eout, keep, dst, top_p, probs, top_e, dtype):
+    """The experts' outputs eout (B, E, cap, D) gathered back to the
+    tokens and weighed by their gates -> (out (B, S, D), MoEStats)."""
+    B, E, cap, D = eout.shape
+    K = cfg.num_experts_per_tok
+    A = dst.shape[1]
     eflat = eout.reshape(B, E * cap, D)
     safe = dst.clamp_max(E * cap - 1)
     gathered = eflat.gather(1, safe[..., None].expand(B, A, D))
     gathered = torch.where(keep[..., None], gathered, 0.0)
-    weighted = gathered * top_p.reshape(B, A, 1).to(x.dtype)
-    out = weighted.reshape(B, S, K, D).sum(2).to(x.dtype)
-
+    weighted = gathered * top_p.reshape(B, A, 1).to(dtype)
+    out = weighted.reshape(B, A // K, K, D).sum(2).to(dtype)
     load = F.one_hot(top_e, E).float().mean((0, 1, 2))
     aux = E * (load * probs.mean((0, 1))).sum()
     dropped = 1.0 - keep.float().mean()
     return out, MoEStats(load, dropped, aux)
 
 
+def _moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor, cap: int,
+               x_disp=None, reduce=None):
+    """Dispatch -> experts -> combine. x: (B, S, D) -> (out, MoEStats).
+    ``reduce``: the sum over the ranks that hold the experts' other d_ff
+    shards, applied to their f32 outputs (the JAX package's ``psum_axis``);
+    ``x_disp``: the dispatch source (default x)."""
+    probs, top_p, top_e, keep, dst, buf = _dispatch_buffer(
+        params, cfg, x, x if x_disp is None else x_disp, cap)
+    act = activation(cfg.act)
+    h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) * \
+        torch.einsum("becd,edf->becf", buf, params["w_up"])
+    if reduce is None:
+        eout = torch.einsum("becf,efd->becd", h, params["w_down"])
+    else:
+        eout = reduce(torch.einsum("becf,efd->becd", h.float(),
+                                   params["w_down"].float())).to(x.dtype)
+    return _combine(cfg, eout, keep, dst, top_p, probs, top_e, x.dtype)
+
+
+def _moe_block_ep(params: dict, cfg: ModelConfig, x, x_disp, cap: int,
+                  ep: int, a2a, reduce):
+    """The expert-parallel block on one rank's shards (the JAX package's
+    ``_moe_block_ep``): x (B_loc, S, D); w_gate / w_up (E / ep, D,
+    F_loc), w_down (E / ep, F_loc, D); ``a2a`` the all-to-all over the
+    expert axis, ``reduce`` the sum over ``tp``."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    E_loc = E // ep
+    probs, top_p, top_e, keep, dst, buf = _dispatch_buffer(
+        params, cfg, x, x_disp, cap)
+    # forward all-to-all: each expert's slots to the rank that holds it
+    t = a2a(buf.movedim(1, 0).reshape(ep, E_loc, B, cap, D))
+    h_in = t.movedim(1, 0).reshape(E_loc, ep * B * cap, D)
+    act = activation(cfg.act)
+    h = act(torch.matmul(h_in, params["w_gate"])) * \
+        torch.matmul(h_in, params["w_up"])
+    eo = reduce(torch.matmul(h.float(), params["w_down"].float()))
+    eo = eo.to(x.dtype).reshape(E_loc, ep, B, cap, D).movedim(1, 0)
+    # reverse all-to-all: the outputs home
+    eout = a2a(eo).reshape(E, B, cap, D).movedim(1, 0)
+    return _combine(cfg, eout, keep, dst, top_p, probs, top_e, x.dtype)
+
+
+def _mean_stats(grid, stats: MoEStats, axes: tuple) -> MoEStats:
+    """Each statistic averaged over the grid axes ``axes`` (a sum, then
+    divided by their size: ``jax.lax.pmean``)."""
+    n = rules.axis_size(grid, *axes)
+    return MoEStats(*(rules.sum_over(grid, v, (None,) * v.dim(), axes) / n
+                      for v in stats))
+
+
+def _model_region(params: dict, cfg: ModelConfig, x, cap: int, grid, bax):
+    """The (data, model) region: each rank its data shard's tokens and
+    every expert's d_ff shard, the f32 outputs summed over ``model``. The
+    router's input keeps a whole gradient over ``model``; the experts'
+    input a partial one (each rank's d_ff shard), as each weight's over
+    the data axes (each its shard's tokens)."""
+    bx = rules.axes_of(bax)
+    xs = (bax, None, None)
+    p = {"router": rules.to_local(grid, params["router"], (None, None), bx)}
+    for k, spec in (("w_gate", (None, None, "model")),
+                    ("w_up", (None, None, "model")),
+                    ("w_down", (None, "model", None))):
+        p[k] = rules.to_local(grid, params[k], spec, bx)
+    out, stats = _moe_block(
+        p, cfg, rules.to_local(grid, x, xs), cap,
+        x_disp=rules.to_local(grid, x, xs, ("model",)),
+        reduce=lambda e: rules.sum_over(grid, e, (bax, None, None, None),
+                                        ("model",)).to_local())
+    return rules.from_local(grid, out, xs), _mean_stats(grid, stats, bx)
+
+
+def _expert_region(params: dict, cfg: ModelConfig, x, cap: int, grid, bax):
+    """The expert-parallel region: the batch split over (data..., expert),
+    each rank holding E / ep experts' d_ff shard over ``tp``."""
+    bx = rules.axes_of(bax)
+    bxe = bx + ("expert",)
+    xs = (bxe, None, None)
+    p = {"router": rules.to_local(grid, params["router"], (None, None), bxe)}
+    for k, spec in (("w_gate", ("expert", None, "tp")),
+                    ("w_up", ("expert", None, "tp")),
+                    ("w_down", ("expert", "tp", None))):
+        p[k] = rules.to_local(grid, params[k], spec, bx)
+    out, stats = _moe_block_ep(
+        p, cfg, rules.to_local(grid, x, xs),
+        rules.to_local(grid, x, xs, ("tp",)), cap,
+        rules.grid_shape(grid)["expert"],
+        a2a=lambda t: rules.all_to_all(grid, t, "expert"),
+        reduce=lambda e: rules.sum_over(grid, e, ("expert", bax, None),
+                                        ("tp",)).to_local())
+    return rules.from_local(grid, out, xs), _mean_stats(grid, stats, bxe)
+
+
 def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 capacity: int | None = None, ac=None):
     """x (B, S, D) -> (out (B, S, D), MoEStats), the capacity dispatch per
-    example (``capacity`` default :func:`moe_capacity` of S). ``ac`` (the
-    JAX package's activation sharding) is not ported and raises."""
-    if ac is not None:
-        raise NotImplementedError("the torch port runs the MoE block "
-                                  "without sharding: ac is not ported")
+    example (``capacity`` default :func:`moe_capacity` of S). With ``ac``
+    over a grid whose data axes split the batch: the expert-parallel region
+    when the grid has an ``expert`` axis that divides the experts (and
+    ``tp`` d_ff), else the (data, model) region when ``model`` divides
+    d_ff, as the JAX package chooses; otherwise the block as on one
+    device (over DTensors, their layouts propagated op by op)."""
     cap = capacity or moe_capacity(cfg, x.shape[1])
+    grid = getattr(ac, "grid", None)
+    bax = getattr(ac, "batch_axes", None)
+    if grid is not None and bax is not None:
+        Fd, E = params["w_gate"].shape[-1], cfg.num_experts
+        shape = rules.grid_shape(grid)
+        if "expert" in shape and E % shape["expert"] == 0 and \
+                Fd % shape["tp"] == 0:
+            return _expert_region(params, cfg, x, cap, grid, bax)
+        if "model" in shape and Fd % shape["model"] == 0:
+            return _model_region(params, cfg, x, cap, grid, bax)
     return _moe_block(params, cfg, x, cap)
 
 

@@ -55,6 +55,7 @@ from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import CacheConfig, LayerSpec, ModelConfig
@@ -78,6 +79,7 @@ from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm, soft_cap)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward, moe_forward_decode
+from repro_torch.sharding.rules import map_tree, vocab_embedding, whole_like
 
 
 # ---------------------------------------------------------------------------
@@ -112,12 +114,21 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (default CUDA; raises without a card): {"embed", "layers": [...],
+    (default CUDA; raises without a card; "meta" gives shapes only):
+    {"embed", "layers": [...],
     "final_norm"[, "lm_head"]}, embed and lm_head (K, V, D) with K > 1
     codebooks. The draws differ from the JAX package's (tests hand its
     tree over with ``convert.params_from_jax`` instead)."""
     cfg.validate()
     device = resolve_device(device)
+    if device.type == "meta":
+        # shapes and dtypes only, at any size: the same draws traced on
+        # fake tensors, then given as meta tensors
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            fake = init_model(cfg, seed, "cpu")
+        return map_tree(fake, lambda t, _: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"))
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = dtype_of(cfg.dtype)
 
@@ -146,6 +157,12 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor
     """tokens (B, [S]) -> (B, [S,] D). With K codebooks (embed (K, V, D)),
     tokens (B, K, [S]) -> the sum over k of codebook k's embedding of
     tokens[:, k], as the JAX package's per-codebook ``vmap``."""
+    if isinstance(params["embed"], DTensor):
+        # a table split over its vocab rows: the gather by rows, summed
+        if cfg.num_codebooks == 1:
+            return vocab_embedding(params["embed"], tokens)
+        return torch.stack([vocab_embedding(params["embed"][k], tokens[:, k])
+                            for k in range(cfg.num_codebooks)]).sum(0)
     if cfg.num_codebooks > 1:
         idx = tokens.long().movedim(1, 0)                    # (K, B[, S])
         book = torch.arange(idx.shape[0], device=idx.device)
@@ -178,7 +195,7 @@ def cross_block(lp: dict, cfg: ModelConfig, x, xc):
 
 
 def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
-              dense_combine: bool, group=None):
+              dense_combine: bool, group=None, ac=None):
     """The layer's second half: x + MLP(norm2(x)) -> (x, MoE aux loss or
     None). An MoE layer takes the dense all-expert combine over every token
     of x when ``dense_combine`` (the serving step and one-shot decode), else
@@ -186,7 +203,9 @@ def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
     and training), as the JAX package's call sites do. A layer without an
     MLP (``spec.mlp == "none"``, xLSTM) passes x through. ``group``: the
     tensor-parallel group of the serving step, whose ranks hold d_ff
-    slices (dense MLP or dense combine); their outputs are summed."""
+    slices (dense MLP or dense combine); their outputs are summed.
+    ``ac``: the training forward's activation constraint, handed to the
+    capacity dispatch."""
     if spec.mlp == "none":
         return x, None
     h = apply_norm(lp["norm2"], x)
@@ -196,7 +215,7 @@ def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
         out = moe_forward_decode(lp["moe"], cfg, h.reshape(-1, h.shape[-1]),
                                  group)
         return x + out.reshape(h.shape), None
-    out, stats = moe_forward(lp["moe"], cfg, h)
+    out, stats = moe_forward(lp["moe"], cfg, h, ac=ac)
     return x + out, stats.aux_loss
 
 
@@ -216,25 +235,29 @@ def forward_train(params: dict, cfg: ModelConfig, tokens, cond=None,
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
     the scanned layer), so that autograd keeps one (B, S, D) input per
     layer. ``aux`` is the sum of the MoE layers' load-balance losses (0
-    without MoE layers). ``ac`` (activation sharding) is not ported and
-    raises when given."""
-    if ac is not None:
-        raise NotImplementedError("the torch port trains without sharding: "
-                                  "ac is not ported")
+    without MoE layers).
+
+    Over a grid (DTensor parameters and tokens, ``sharding.rules``) the
+    same code runs on every rank. ``ac`` (``rules.activation_constraint``)
+    pins each layer's input, as the JAX package's ``layer_forward`` does,
+    and reaches the MoE block (computed on local shards, over the model
+    or the expert axes) and the mamba scan."""
     cfg.validate()
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    positions = whole_like(torch.arange(S, dtype=torch.int32,
+                                        device=x.device).expand(B, S), x)
+    aux = whole_like(torch.zeros((), dtype=torch.float32, device=x.device),
+                     x)
     for lp, spec in zip(params["layers"], cfg.layer_specs()):
         def layer(x, lp=lp, spec=spec):
             xc = None if cond is None or "xattn" not in lp else \
                 attn_mod.make_cross_cache(lp["xattn"], cfg, cond)
             x, a, _ = layer_forward(lp, cfg, spec, x, positions, cross=xc,
-                                    train=True)
+                                    train=True, ac=ac)
             return (x,) if a is None else (x, a)
-        out = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        out = checkpoint(layer, x, use_reentrant=False) if remat \
+            else layer(x)
         x = out[0]
         if len(out) > 1:
             aux = aux + out[1]
@@ -580,7 +603,7 @@ def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
 
 def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   plain_kernels: bool = False, train: bool = False,
-                  return_state: bool = False, cross=None):
+                  return_state: bool = False, cross=None, ac=None):
     """One layer (mixer [+ cross-attention to ``cross``, a
     ``StaticKVCache``, when given] + MLP) over a contiguous sequence.
     Returns (x, MoE aux loss or None, extras): extras is (k, v) with k
@@ -588,18 +611,22 @@ def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
     mixer when ``return_state`` (``mamba_prefill``, ``mlstm_chunkwise`` or
     ``slstm_forward`` returning it; else ``mamba_forward`` and the others
     without it, and None). ``train``: attention by the training route
-    (``attention_forward``'s), never a kernel."""
+    (``attention_forward``'s), never a kernel. ``ac``: the activation
+    constraint of training over a grid, which pins x first and reaches
+    the mamba and MoE blocks."""
+    if ac is not None:
+        x = ac(x)
     h = apply_norm(lp["norm1"], x)
     extras = None
     if spec.mixer == "attn":
         a, extras = attn_mod.attention_forward(lp["attn"], cfg, spec, h,
                                                positions, plain=plain_kernels,
-                                               train=train)
+                                               train=train, ac=ac)
     elif spec.mixer == "mamba":
         if return_state:
             a, extras = mamba_mod.mamba_prefill(lp["mamba"], cfg, h)
         else:
-            a = mamba_mod.mamba_forward(lp["mamba"], cfg, h)
+            a = mamba_mod.mamba_forward(lp["mamba"], cfg, h, ac=ac)
     else:
         fwd = (xlstm_mod.mlstm_chunkwise if spec.mixer == "mlstm" else
                xlstm_mod.slstm_forward)
@@ -607,7 +634,7 @@ def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
         if return_state:
             a, extras = a
     x = cross_block(lp, cfg, x + a, cross)
-    x, aux = mlp_block(lp, cfg, spec, x, dense_combine=False)
+    x, aux = mlp_block(lp, cfg, spec, x, dense_combine=False, ac=ac)
     return x, aux, extras
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, dense_init, dtype_of
+from repro_torch.sharding import rules
 
 _CONV = 4  # depthwise causal conv kernel width on the q/k branch
 
@@ -110,7 +111,8 @@ def _qkv_gates_from(params: dict, cfg: ModelConfig, u, xc):
     v = (u @ params["wv"]).reshape(B, S, H, hd).float()
     xcf = xc.float()
     ig = xcf @ params["w_igate"] + params["b_igate"]
-    fg = F.logsigmoid(xcf @ params["w_fgate"] + params["b_fgate"])
+    fg = rules.pointwise(F.logsigmoid,
+                         xcf @ params["w_fgate"] + params["b_fgate"])
     return q, k, v, ig, fg
 
 
@@ -190,9 +192,12 @@ def mlstm_chunkwise(params: dict, cfg: ModelConfig, x: torch.Tensor,
     xc = _conv_seq(params, u, None if state is None else state.conv)
     q, k, v, ig, fg = _qkv_gates_from(params, cfg, u, xc)
     if state is None:
-        state = mlstm_init_state(cfg, B, x.dtype, x.device)
+        st = mlstm_init_state(cfg, B, x.dtype, x.device)
+        state = MLSTMState(*(rules.whole_like(t, x)
+                             for t in (st.C, st.n, st.m, st.conv)))
     chunks = [a.reshape(B, NC, W, *a.shape[2:]) for a in (q, k, v, ig, fg)]
-    tri = torch.tril(torch.ones((W, W), dtype=torch.bool, device=x.device))
+    tri = rules.whole_like(torch.tril(torch.ones(
+        (W, W), dtype=torch.bool, device=x.device)), x)
     C, n, m = state.C, state.n, state.m
     hs = []
     for c in range(NC):
@@ -279,7 +284,7 @@ def _slstm_cell(params: dict, cfg: ModelConfig, wx_t: torch.Tensor,
     z_in, i_in, f_in, o_in = (wx_t.float() + params["b_gates"]).chunk(4, -1)
     z = torch.tanh(z_in + rz)
     ig = i_in + ri                                          # log-space
-    fg = F.logsigmoid(f_in + rf)
+    fg = rules.pointwise(F.logsigmoid, f_in + rf)
     o = torch.sigmoid(o_in + ro)
     m_new = torch.maximum(fg + state.m, ig)
     iprime = torch.exp(ig - m_new)
@@ -317,7 +322,11 @@ def slstm_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     """Sequential sLSTM over a sequence. x: (B, S, D)."""
     B = x.shape[0]
     wx = x @ params["w_gates"]                             # (B, S, 4D)
-    st = slstm_init_state(cfg, B, x.device) if state is None else state
+    st = state
+    if st is None:
+        st = slstm_init_state(cfg, B, x.device)
+        st = SLSTMState(*(rules.whole_like(t, x)
+                          for t in (st.c, st.n, st.h, st.m)))
     R = _recurrent_weights(params)
     hs = []
     # unbind, not wx[:, t]: a select's backward writes a whole zero tensor

@@ -9,8 +9,14 @@ bias corrections are f32 tensor arithmetic, as the JAX package's
 skips the leaves whose name holds one of :data:`NO_DECAY` (norms'
 ``scale``, the qkv biases), the set the JAX package's mask picks.
 
-ZeRO-1 moment sharding (the JAX package's ``moment_shardings``) is not
-ported: the port runs on one device.
+Over a grid (DTensor leaves, ``sharding.rules``), each gradient is
+taken to f32 and redistributed to its moment's layout (an all-reduce over
+the data axes, or with ZeRO-1 moments a reduce-scatter over ``data``),
+the update runs on each rank's shards, and each new parameter is
+redistributed back to its own layout (with ZeRO-1 an all-gather over
+``data``). The moments' own placement is the layout: the port's
+counterpart of the JAX package's ``moment_shardings``, which a traced
+array inside ``jit`` needs and a DTensor carries.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.training.tree import leaves, leaves_with_path, map_leaves, \
     rebuild
@@ -48,8 +55,10 @@ NO_DECAY = ("norm", "bias", "scale", "b_gates", "b_igate", "b_fgate",
 
 
 def init_adamw(params) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """Zero f32 moments of each parameter's shape, device and (for a
+    DTensor) layout."""
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=torch.float32, requires_grad=False)
     return AdamWState(step=0, mu=map_leaves(zeros, params),
                       nu=map_leaves(zeros, params))
 
@@ -103,14 +112,50 @@ def _groups(sizes: list[int]):
         yield group
 
 
+def _grid_norm(gs: list) -> torch.Tensor:
+    """The global norm of DTensor gradients: each rank sums the squares of
+    its shards, a leaf whole over a grid axis divided by that axis's size
+    (counted once over its copies), and one DTensor reduction sums the
+    ranks' totals."""
+    mesh = gs[0].device_mesh
+    total = 0.0
+    for g in gs:
+        copies = math.prod(n for n, pl in zip(mesh.shape, g.placements)
+                           if not pl.is_shard())
+        total = total + g.to_local().float().square().sum() / copies
+    return torch.sqrt(DTensor.from_local(
+        torch.as_tensor(total, dtype=torch.float32, device=gs[0].device),
+        mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor())
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig):
     """Returns (new_params, new_state, metrics {"lr", "grad_norm"}). The
     gradient is clipped by its global norm; new parameters keep each
     leaf's dtype and device (they do not require grad). Each elementwise
     operation rounds to f32, in the JAX package's order (multi-tensor
-    ``_foreach`` ops over groups of leaves)."""
-    gnorm = global_norm(grads)
+    ``_foreach`` ops over groups of leaves).
+
+    DTensor leaves (training over a grid): each f32 gradient is
+    redistributed to its moment's own layout (ZeRO-1 follows from
+    moments placed by ``sharding.rules.opt_shardings(..., zero1=True)``),
+    the update computed on this rank's shards, and each new parameter
+    redistributed to its parameter's layout; the returned moments keep
+    the moments' layout."""
+    named = leaves_with_path(params)
+    ps = [p for _, p in named]
+    gs, mus, nus = leaves(grads), leaves(state.mu), leaves(state.nu)
+    on_grid = bool(ps) and isinstance(ps[0], DTensor)
+    if on_grid:
+        mesh = ps[0].device_mesh
+        tgt = [m.placements for m in mus]
+        gs = [g.float().redistribute(mesh, t) for g, t in zip(gs, tgt)]
+        gnorm = _grid_norm(gs)
+        p_out = [p.placements for p in ps]
+        ps = [p.redistribute(mesh, t).to_local() for p, t in zip(ps, tgt)]
+        gs, mus, nus = ([t.to_local() for t in ts] for ts in (gs, mus, nus))
+    else:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-9), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
@@ -118,9 +163,6 @@ def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig):
     b1c = float(1.0 - cfg.beta1 ** _f32(step))
     b2c = float(1.0 - cfg.beta2 ** _f32(step))
     lr_f = float(lr)
-    named = leaves_with_path(params)
-    ps = [p for _, p in named]
-    gs, mus, nus = leaves(grads), leaves(state.mu), leaves(state.nu)
     new_p, new_mu, new_nu = ([None] * len(ps) for _ in range(3))
     for idx in _groups([p.numel() for p in ps]):
         gf = _mul([gs[i].float() for i in idx], clip)
@@ -141,7 +183,15 @@ def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig):
         for k, i in enumerate(idx):
             new_p[i] = out[k].to(ps[i].dtype)
             new_mu[i], new_nu[i] = mu2[k], nu2[k]
+    if on_grid:
+        def glob(t, pl):
+            return DTensor.from_local(t, mesh, pl, run_check=False)
+        new_p = [glob(p, t).redistribute(mesh, o)
+                 for p, t, o in zip(new_p, tgt, p_out)]
+        new_mu = [glob(m, t) for m, t in zip(new_mu, tgt)]
+        new_nu = [glob(m, t) for m, t in zip(new_nu, tgt)]
     return (rebuild(params, new_p),
             AdamWState(step=step, mu=rebuild(state.mu, new_mu),
                        nu=rebuild(state.nu, new_nu)),
             {"lr": lr, "grad_norm": gnorm})
+

@@ -496,8 +496,12 @@ def test_moe_dispatch_and_forward_match_jax():
     # the default capacity, rounded up to a multiple of 8 as in JAX
     for S in (1, 7, 40, 97, 150):
         assert tmoe.moe_capacity(tcfg, S) == jmoe.moe_capacity(jcfg, S)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tmoe.moe_forward(tp, tcfg, torch.from_numpy(x), ac=lambda a: a)
+    # an ``ac`` without a grid (the JAX package's Identity) leaves the
+    # block as on one device
+    pout, pst = tmoe.moe_forward(tp, tcfg, torch.from_numpy(x),
+                                 capacity=cap, ac=lambda a: a)
+    assert torch.equal(pout, tout) and all(
+        torch.equal(a, b) for a, b in zip(pst, tst))
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mixtral-8x22b"])

@@ -381,7 +381,9 @@ def test_forward_train_and_grads_match_jax(arch, remat):
 
 
 def test_forward_train_refuses_what_is_not_ported():
-    """``ac`` (activation sharding) is not ported and raises; ``cond`` is
+    """Nothing is refused any more. ``ac`` (the activation constraint,
+    ported: tests/test_torch_grid.py holds it over a grid) without a grid
+    pins nothing, as the JAX package's ``Identity``; ``cond``
     (cross-attention, held to JAX in tests/test_torch_multimodal.py): a
     model without cross-attention layers takes it and ignores it, as the
     JAX package's ``forward_train`` does."""
@@ -394,9 +396,8 @@ def test_forward_train_refuses_what_is_not_ported():
         want, _ = ttf.forward_train(tp, tcfg, tokens)
         got, _ = ttf.forward_train(tp, tcfg, tokens,
                                    cond=torch.zeros((1, 2, tcfg.d_model)))
-    assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ttf.forward_train(tp, tcfg, tokens, ac=lambda x: x)
+        pinned, _ = ttf.forward_train(tp, tcfg, tokens, ac=lambda x: x)
+    assert torch.equal(got, want) and torch.equal(pinned, want)
 
 
 # ---------------------------------------------------------------------------
