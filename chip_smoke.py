@@ -228,6 +228,34 @@ Phases (any failure exits non-zero; none is skipped):
               Prints per rank the parameter and moment bytes, peak
               memory, collectives per step by kind (CommDebugMode) and
               step ms (ranks time-slicing the card: no grid speed).
+ 15. dry      (a) the five examples (repro_torch.examples) at their
+              defaults with --device cuda: budgets held, tokens
+              generated, train_small's loss falling and its checkpoint
+              restored equal; K5 and K1 launched by quickstart and
+              long_context_decode, K3 and K1 by serve_batch and
+              train_small's serving. (b) the one-shot path
+              (forward_prefill / decode_step with ac) at (data 2, model
+              2) on four gloo ranks, each case also on one rank: reduced
+              llama f32 and int8, mixtral and jamba (4 right-padded
+              prompts, 8 decode steps of one rank's tokens): logits
+              within 1e-5 relative, the integer pool state equal after
+              the prefill and every step; llama-3.2-1b at full width (2
+              of 16 layers, bf16, 4 x 2048 tokens, 16 steps): K5 on the
+              tensor cores and K1 on every rank, pool payload per rank
+              <= total / 4 + a page per row, one rank's tokens decoded:
+              logits within SHARD_BF16_RTOL relative of one rank's and
+              the integer pool state equal after the prefill and every
+              step; each case's collectives in a decode step, and the
+              full-width case's peak per rank in one. (c) the dry run
+              (launch.dryrun) in subprocesses on the host, started first:
+              llama-3.2-1b at the four shapes on (16, 16), mixtral-8x7b
+              train_4k on (16, 8, 2), phase 14 (b)'s step on a fake (2,
+              2) group, whose parameter and moment bytes per rank and
+              collectives per step must equal phase 14 (b)'s and whose
+              peak (arguments + temp) must lie within 0.5-2x the measured
+              one, and (b)'s full-width decode step on a fake (2, 2)
+              group, whose temp must lie within 0.5-2x the peak above
+              the arguments measured on each rank.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
@@ -3224,6 +3252,513 @@ def grid_full(torch, np, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the examples, the sharded one-shot path, the dry run
+# ---------------------------------------------------------------------------
+
+# (a): each example at its defaults on the card -> the kernels it must
+# launch (K5 flash_attention, K1 paged_decode, K3 paged_prefill)
+EXAMPLES = {"quickstart": ("flash_attention", "paged_decode"),
+            "long_context_decode": ("flash_attention", "paged_decode"),
+            "eviction_comparison": (),
+            "serve_batch": ("paged_prefill", "paged_decode"),
+            "train_small": ("paged_prefill", "paged_decode")}
+# (b): the one-shot path at (data 2, model 2), four gloo ranks sharing the
+# card, against one rank: reduced f32 cases (name -> (arch, pool dtype)),
+# B 4 right-padded prompts of SHARD_LENS tokens, SHARD_STEPS decode steps,
+# each step's logits within SHARD_RTOL (relative to the largest) and the
+# integer pool state after the prefill and every step bit-equal (which pins
+# every victim)
+SHARD_REDUCED = {"llama-f32": ("llama-3.2-1b", "float32"),
+                 "mixtral": ("mixtral-8x7b", "float32"),
+                 "jamba": ("jamba-1.5-large-398b", "float32"),
+                 "llama-int8": ("llama-3.2-1b", "int8")}
+SHARD_LENS, SHARD_STEPS, SHARD_RTOL = (96, 64, 80, 72), 8, 1e-5
+# llama-3.2-1b at full width, bf16, 2 of 16 layers: B 4 x 2048-token
+# prompts, page 16, budget 512 (the dry run's cache config: slabs in
+# multiples of 16 pages), 16 decode steps of one rank's tokens; the logits
+# within SHARD_BF16_RTOL of one rank's, relative to the largest (2.1x the
+# largest reading, 0.0233, of chip call d2 in PERF.md)
+SHARD_FULL = dict(layers=2, S=2048, steps=16, page=16, budget=512)
+SHARD_BF16_RTOL = 5e-2
+# past the first layer a bf16 score rounds differently on the grid and a
+# near tie at the budget's edge may go the other way: the share of each
+# row's kept positions that one rank keeps too, at least (a wrong row or
+# head slice would keep an unrelated set)
+SHARD_POS_SHARE = 0.9
+SHARD_INT = ("block_table", "ref_count", "cur_page", "cur_off")
+# (c): the dry runs on the host, each a subprocess: llama-3.2-1b at the
+# four shapes on the (16, 16) grid, mixtral-8x7b train_4k expert-parallel
+DRYRUN = [["--arch", "llama-3.2-1b", "--shape", s, "--mesh", "single"]
+          for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+DRYRUN_EP = ["--arch", "mixtral-8x7b", "--shape", "train_4k", "--mesh",
+             "single", "--layout", "ep"]
+# the dry run of phase 14 (b)'s step on a fake (2, 2) group: its bytes and
+# collectives against the measured ones, its peak within PEAK_RATIO; of
+# (b)'s full-width decode step: its temp against the peak per rank
+PEAK_RATIO = (0.5, 2.0)
+DRYRUN_DECODE = """
+import dataclasses, json, warnings
+warnings.filterwarnings("ignore")
+from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.launch import dryrun
+cfg = dataclasses.replace(get_arch("llama-3.2-1b"), num_layers={layers})
+shape = ShapeConfig("decode_32k", {seq}, {B}, "decode")
+grid = dryrun.fake_grid((2, 2), ("data", "model"))
+r = dryrun.run_one("llama-3.2-1b", "decode_32k", "single", "paged_eviction",
+                   {budget}, {page}, False, None, grid=grid, cfg=cfg,
+                   shape=shape)
+print(json.dumps({{"memory": r["memory_analysis"],
+                  "collectives": {{k: v[0] for k, v in
+                                  r["collective_counts"].items()}}}}))
+"""
+DRYRUN_CROSS = """
+import dataclasses, json, warnings
+warnings.filterwarnings("ignore")
+from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.launch import analysis, dryrun
+cfg = dataclasses.replace(get_arch("llama-3.2-1b"), num_layers={layers})
+shape = ShapeConfig("train_4k", {S}, {B}, "train")
+grid = dryrun.fake_grid((2, 2), ("data", "model"))
+_, args = dryrun.build_step("llama-3.2-1b", "train_4k", grid, "full", 4096,
+                            16, True, cfg=cfg, shape=shape)
+r = dryrun.run_one("llama-3.2-1b", "train_4k", "single", "full", 4096, 16,
+                   True, None, grid=grid, cfg=cfg, shape=shape)
+print(json.dumps({{"param_bytes": analysis.local_bytes(args[0]),
+                  "moment_bytes": analysis.local_bytes(args[1].mu)
+                  + analysis.local_bytes(args[1].nu),
+                  "memory": r["memory_analysis"],
+                  "collectives": {{k: v[0] for k, v in
+                                  r["collective_counts"].items()}}}}))
+"""
+# CommDebugMode's names of the functional collectives -> the dry run's
+COMM_NAMES = {"all_reduce": "all-reduce",
+              "all_gather_into_tensor": "all-gather",
+              "reduce_scatter_tensor": "reduce-scatter",
+              "all_to_all_single": "all-to-all",
+              "shard_dim_alltoall": "all-to-all"}
+
+
+def examples_on_card(torch):
+    """(a): the five examples at their defaults with ``--device cuda``,
+    each one's result and kernel launches checked."""
+    import importlib
+    out = {}
+    for name, kernels in EXAMPLES.items():
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        reset_launches()
+        t0 = time.perf_counter()
+        r = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        what = f"phase 15 (a) {name}"
+        if name == "quickstart":
+            bad = [s["live"] for s in r["steps"]
+                   if s["live"] > r["budget"] + r["page"]]
+            if not r["finite"] or r["live_after_prefill"] > r["budget"] or \
+                    bad or len(r["tokens"]) != 20:
+                fail(f"{what}: {r['live_after_prefill']} live after the "
+                     f"prefill, {bad} above budget + page, finite "
+                     f"{r['finite']}")
+            summary = (f"{r['live_after_prefill']} live after the prefill "
+                       f"(budget {r['budget']}), {len(r['tokens'])} tokens")
+        elif name == "long_context_decode":
+            live = [c["live"] for c in r["checkpoints"]]
+            if not r["finite"] or max(live) > r["budget"] + r["page"] or \
+                    r["checkpoints"][-1]["position"] != 96 + 600:
+                fail(f"{what}: live tokens {live}, {r['checkpoints']}")
+            summary = (f"live tokens {live} at positions "
+                       f"{[c['position'] for c in r['checkpoints']]}")
+        elif name == "eviction_comparison":
+            frag = {p: v["fragmented"] for p, v in r.items()}
+            if frag["paged_eviction"] or frag["full"]:
+                fail(f"{what}: fragmented pages {frag}")
+            summary = f"fragmented pages {frag}"
+        elif name == "serve_batch":
+            if r["requests"] != 10 or set(r["generated"]) != {32} or \
+                    r["max_live"] > r["budget"] + r["chunk"]:
+                fail(f"{what}: {r}")
+            summary = (f"{r['requests']} requests, {r['tokens']} tokens in "
+                       f"{r['steps']} steps, max live {r['max_live']} "
+                       f"(budget {r['budget']} + chunk {r['chunk']})")
+        else:
+            if not r["losses"][-1] < r["losses"][0] or \
+                    not r["restored_equal"] or len(r["generated"]) != 16:
+                fail(f"{what}: loss {r['losses'][0]} -> {r['losses'][-1]}, "
+                     f"restored equal {r['restored_equal']}, generated "
+                     f"{r['generated']}")
+            summary = (f"loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} "
+                       f"in {len(r['losses'])} steps, checkpoint restored "
+                       f"equal, served 16 tokens")
+        missing = [k for k in kernels if not launches[k]]
+        if missing:
+            fail(f"{what}: kernels not launched: {missing} ({launches})")
+        used = {k: launches[k] for k in ("flash_attention", "paged_decode",
+                                         "paged_prefill")}
+        print(f"  (a) {name}: {summary}; launches {used}; {seconds:.1f} s",
+              flush=True)
+        out[name] = used
+    return out
+
+
+def shard_prompts(torch, vocab, S, lens):
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, vocab, (len(lens), S), generator=gen,
+                           dtype=torch.int32).cuda()
+    valid = torch.arange(S, device="cuda")[None, :] < torch.tensor(
+        lens, device="cuda")[:, None]
+    return tokens, valid
+
+
+def shard_state(torch, cache):
+    """The integer pool state of a one-shot cache (whole; a collective on a
+    grid) as host arrays."""
+    from repro_torch.core.paged_cache import PagedLayerCache
+    from repro_torch.sharding import rules
+    whole = rules.whole_cache(cache)
+    out = {"cur_pos": whole.cur_pos.cpu().numpy()}
+    for i, c in enumerate(whole.layers):
+        if isinstance(c, PagedLayerCache):
+            out.update({f"{i}/{n}": getattr(c, n).cpu().numpy()
+                        for n in SHARD_INT})
+            out[f"{i}/pos"] = c.pos.cpu().numpy()
+    return out
+
+
+def kept_share(np, got, want, key):
+    """The least share, over rows, of the positions a row keeps in layer
+    ``key``'s pool (``.../pos``) that one rank's keeps too; the block
+    tables equal."""
+    bt = want[key[:-len("pos")] + "block_table"]
+    shares = []
+    for row in bt:
+        pages = row[row >= 0]
+        a, b = got[key][pages].ravel(), want[key][pages].ravel()
+        a = a[a >= 0]
+        shares.append(float(np.isin(a, b[b >= 0]).mean()) if a.size else 1.0)
+    return min(shares)
+
+
+def shard_run(torch, cfg, ccfg, S, lens, steps, feed=None, grid=None,
+              comm_step=None):
+    """The one-shot prefill of ``lens``-token prompts and ``steps`` decode
+    steps (on ``grid`` when given; ``feed``: the tokens to decode, default
+    greedy) -> logits and states per step, the greedy tokens, kernel
+    launches, this rank's pool payload bytes, and with ``comm_step`` the
+    collectives of that decode step (CommDebugMode) and its peak bytes
+    above those allocated before it, and the same peak of one more step
+    through the kernels' plain versions (what the dry run counts)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.core.paged_cache import PagedLayerCache
+    from repro_torch.core.policies import get_policy
+    from repro_torch.models.transformer import (decode_step, forward_prefill,
+                                                init_model)
+    from repro_torch.sharding import rules
+    params = init_model(cfg, seed=0, device="cuda")
+    tokens, valid = shard_prompts(torch, cfg.vocab_size, S, lens)
+    pol = get_policy(ccfg.policy)
+    ac = None
+    if grid is not None:
+        params = rules.distribute(grid, params,
+                                  rules.param_shardings(grid, cfg, params))
+        ac = rules.activation_constraint(grid, len(lens))
+    reset_launches()
+    logits, cache = forward_prefill(params, cfg, tokens, pol, ccfg,
+                                    valid=valid, total_seq_hint=S + steps,
+                                    ac=ac)
+    full = rules.full(logits)
+    out = {"logits": [full.float().cpu().numpy()],
+           "state": [shard_state(torch, cache)], "tokens": [], "comm": None}
+    for i in range(steps):
+        tok = torch.argmax(full, -1).to(torch.int32)
+        out["tokens"].append(tok.cpu().numpy())
+        if feed is not None:
+            tok = torch.from_numpy(feed[i]).cuda()
+        mode = CommDebugMode()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with mode:
+            logits, cache = decode_step(params, cfg, tok, cache, pol, ccfg,
+                                        ac=ac)
+        if i == comm_step:
+            torch.cuda.synchronize()
+            out["step_peak"] = torch.cuda.max_memory_allocated() - base
+            out["comm"] = {COMM_NAMES.get(str(k).split(".")[-1], str(k)): v
+                           for k, v in mode.get_comm_counts().items()}
+        full = rules.full(logits)
+        out["logits"].append(full.float().cpu().numpy())
+        out["state"].append(shard_state(torch, cache))
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    if comm_step is not None:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        decode_step(params, cfg, tok, cache, pol, ccfg, ac=ac,
+                    plain_kernels=True)
+        torch.cuda.synchronize()
+        out["plain_step_peak"] = torch.cuda.max_memory_allocated() - base
+    # the bytes this rank holds (a shard that views a larger buffer keeps
+    # all of it); one rank's pool without its trash row
+    local = (lambda t: t.to_local().untyped_storage().nbytes()) \
+        if grid is not None else (lambda t: nbytes(t[:-1]))
+    out["pages"] = sum(c.pos.shape[0] for c in rules.whole_cache(
+        cache).layers if isinstance(c, PagedLayerCache))
+    out["pool_bytes"] = sum(local(t) for c in cache.layers
+                            if isinstance(c, PagedLayerCache)
+                            for t in (c.k_buf, c.v_buf, c.k_scale_buf,
+                                      c.v_scale_buf) if t is not None)
+    return out
+
+
+def shard_cfgs():
+    """name -> (config, cache config, S, lens, steps) of phase 15 (b)."""
+    from repro_torch.configs import CacheConfig, get_arch
+    cases = {name: (get_arch(arch).reduced(),
+                    CacheConfig(page_size=8, cache_budget=32, dtype=dt),
+                    max(SHARD_LENS), SHARD_LENS, SHARD_STEPS)
+             for name, (arch, dt) in SHARD_REDUCED.items()}
+    from repro_torch.launch.dryrun import make_cache_cfg
+    f = SHARD_FULL
+    cases["llama-full"] = (
+        dataclasses.replace(get_arch("llama-3.2-1b"), num_layers=f["layers"]),
+        make_cache_cfg("paged_eviction", f["budget"], f["page"], "bfloat16"),
+        f["S"], (f["S"],) * 4, f["steps"])
+    return cases
+
+
+def shard_rank(group, feeds):
+    """One rank of phase 15 (b): every case at (data 2, model 2), decoding
+    one rank's tokens."""
+    import torch
+
+    from repro_torch.launch.mesh import make_grid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = make_grid((2, 2), ("data", "model"), device=group.device)
+    out = {"backend": torch.distributed.get_backend()}
+    for name, (cfg, ccfg, S, lens, steps) in shard_cfgs().items():
+        t0 = time.perf_counter()
+        out[name] = shard_run(torch, cfg, ccfg, S, lens, steps,
+                              feed=feeds.get(name), grid=grid, comm_step=1)
+        out[name]["seconds"] = time.perf_counter() - t0
+        if group.rank:
+            out[name] = {k: v for k, v in out[name].items()
+                         if k not in ("logits", "state")}
+    return out
+
+
+def shard_full(torch, np, card):
+    """(b): the one-rank references, then four ranks spawned once."""
+    from datetime import timedelta
+
+    from repro_torch.launch.mesh import run_ranks
+    ref = {}
+    for name, (cfg, ccfg, S, lens, steps) in shard_cfgs().items():
+        t0 = time.perf_counter()
+        ref[name] = shard_run(torch, cfg, ccfg, S, lens, steps, comm_step=1)
+        ref[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    feeds = {name: r["tokens"] for name, r in ref.items()}
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_rank, GRID, feeds, device="cuda",
+                      timeout=timedelta(seconds=GRID_TIMEOUT_S))
+    spawn_s = time.perf_counter() - t0
+    if [r["backend"] for r in ranks] != ["gloo"] * GRID:
+        fail("phase 15 (b): four ranks on one card should take gloo")
+    for name, (cfg, ccfg, S, lens, steps) in shard_cfgs().items():
+        what = f"phase 15 (b) {name}"
+        want, got = ref[name], ranks[0][name]
+        kern = "paged_decode_int8" if ccfg.dtype == "int8" else "paged_decode"
+        for rank, r in enumerate(ranks):
+            lr = r[name]["launches"]
+            if not lr["flash_attention"] or not lr[kern]:
+                fail(f"{what}: rank {rank} launched {lr}")
+            if cfg.dtype == "bfloat16" and \
+                    lr["flash_attention/tensor_core"] != lr["flash_attention"]:
+                fail(f"{what}: rank {rank} flash off the tensor cores: {lr}")
+        per_rank = [r[name]["pool_bytes"] for r in ranks]
+        row_page = want["pool_bytes"] // want["pages"] * len(lens)
+        if max(per_rank) > want["pool_bytes"] / GRID + row_page:
+            fail(f"{what}: pool payload per rank {per_rank}, one rank "
+                 f"{want['pool_bytes']}")
+        worst = max(float(np.abs(g - w).max() / np.abs(w).max())
+                    for g, w in zip(got["logits"], want["logits"]))
+        tol = SHARD_RTOL if name in SHARD_REDUCED else SHARD_BF16_RTOL
+        if tol is not None and worst > tol:
+            fail(f"{what}: logits {worst:.3g} from one rank's (tol {tol})")
+        # in bf16 a score past the first layer rounds differently on the
+        # grid, so the tokens those layers keep may differ: their share
+        # equal to one rank's is held to SHARD_POS_SHARE
+        loose = set() if name in SHARD_REDUCED else {
+            k for k in want["state"][0] if k.endswith("/pos")
+            and not k.startswith("0/")}
+        for i, (g, w) in enumerate(zip(got["state"], want["state"])):
+            bad = [k for k in w if k not in loose
+                   and not np.array_equal(g[k], w[k])]
+            if bad:
+                fail(f"{what}: integer pool state after step {i} "
+                     f"differs from one rank's: {bad}")
+        kept = [min((kept_share(np, g, w, k) for k in loose), default=1.0)
+                for g, w in zip(got["state"], want["state"])]
+        if name not in SHARD_REDUCED and SHARD_POS_SHARE is not None and \
+                min(kept) < SHARD_POS_SHARE:
+            fail(f"{what}: kept positions equal to one rank's {kept}")
+        if name in SHARD_REDUCED:
+            print(f"  (b) {name}: logits within {worst:.3g} of one rank's "
+                  f"(tol {SHARD_RTOL}), integer pool state equal after the "
+                  f"prefill and each of {steps} steps; pool payload per "
+                  f"rank {per_rank} (one rank {want['pool_bytes']}); "
+                  f"collectives in a decode step {got['comm']}; "
+                  f"{got['seconds']:.1f} s on rank 0", flush=True)
+        else:
+            per_step = [float(np.abs(g - w).max() / np.abs(w).max())
+                        for g, w in zip(got["logits"], want["logits"])]
+            print(f"  (b) {name} ({cfg.num_layers} layers, bf16, B "
+                  f"{len(lens)} x S {S}, {steps} steps of one rank's "
+                  f"tokens) on four ranks ({card}): logits within "
+                  f"{worst:.4g} of one rank's, relative to the largest (tol "
+                  f"{SHARD_BF16_RTOL}; prefill, then each step: "
+                  f"{[f'{e:.3g}' for e in per_step]}), integer pool state "
+                  f"equal after the prefill and each step but the kept "
+                  f"positions past layer 0, whose share equal to one "
+                  f"rank's is {min(kept):.4f} at least (tol "
+                  f"{SHARD_POS_SHARE}; per step "
+                  f"{[f'{k:.3f}' for k in kept]}); K5 / K5 on "
+                  f"tensor cores / K1 per rank "
+                  f"{[(r[name]['launches']['flash_attention'], r[name]['launches']['flash_attention/tensor_core'], r[name]['launches']['paged_decode']) for r in ranks]}; "
+                  f"pool payload per rank {per_rank} (one rank "
+                  f"{want['pool_bytes']}, total / 4 + a page per row "
+                  f"{want['pool_bytes'] / GRID + row_page:.0f}); peak above "
+                  f"the arguments in decode step 1 per rank "
+                  f"{[r[name]['step_peak'] for r in ranks]} bytes (one rank "
+                  f"{want['step_peak']}), in a step through the plain "
+                  f"versions {[r[name]['plain_step_peak'] for r in ranks]} "
+                  f"(one rank {want['plain_step_peak']}); collectives in a "
+                  f"decode step "
+                  f"{got['comm']}; prefill + decode {got['seconds']:.1f} s "
+                  f"on rank 0 (one rank {want['seconds']:.1f} s)",
+                  flush=True)
+    print(f"  (b) ranks spawned and run in {spawn_s:.1f} s", flush=True)
+    return {"ref": ref, "ranks": ranks}
+
+
+class DryRuns:
+    """(c): the dry runs, each a subprocess on the host (no card: its
+    devices hidden), started at once in the background: the llama shapes
+    one after another in a thread, the expert-parallel run and the
+    cross-check beside them. ``stop`` ends whatever still runs."""
+
+    def __init__(self, out_dir):
+        import threading
+        self.out_dir, self.procs, self.results = out_dir, [], {}
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                        OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        mod = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+               out_dir]
+        _, layers, _, B, S, _, _ = GRID_FULL["b"]
+        f = SHARD_FULL
+        decode = DRYRUN_DECODE.format(layers=f["layers"],
+                                      seq=f["S"] + f["steps"], B=4,
+                                      budget=f["budget"], page=f["page"])
+        self.threads = [threading.Thread(target=self._run, args=(name, cmd))
+                        for name, cmd in [
+                            ("ep", mod + DRYRUN_EP),
+                            ("cross", [sys.executable, "-c",
+                                       DRYRUN_CROSS.format(layers=layers,
+                                                           S=S, B=B)]),
+                            ("decode", [sys.executable, "-c", decode])]]
+        self.threads.append(threading.Thread(target=lambda: [
+            self._run(args[3], mod + args) for args in DRYRUN]))
+        for t in self.threads:
+            t.start()
+
+    def _run(self, name, cmd):
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, env=self.env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             cwd=self.out_dir)
+        self.procs.append(p)
+        text, _ = p.communicate()
+        self.results[name] = (p.returncode, text,
+                              time.perf_counter() - t0)
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def finish(self):
+        for t in self.threads:
+            t.join(timeout=900)
+        self.stop()
+        names = [a[3] for a in DRYRUN] + ["ep", "cross", "decode"]
+        for name in names:
+            if name not in self.results:
+                fail(f"phase 15 (c) {name}: did not finish")
+            rc, text, secs = self.results[name]
+            if rc:
+                fail(f"phase 15 (c) {name}: exit {rc}: {text[-3000:]}")
+        return {n: self.results[n] for n in names}
+
+
+def dryrun_check(dry: dict, grid14, shard, card):
+    """(c): every roofline line printed with its wall seconds; the
+    cross-checks against phase 14 (b)'s and 15 (b)'s measurements."""
+    for name, (_, text, secs) in dry.items():
+        for line in text.splitlines():
+            if line.startswith("[dryrun]"):
+                print(f"  (c) {line} (wall {secs:.1f} s)", flush=True)
+    _, text, secs = dry["cross"]
+    got = json.loads(text.strip().splitlines()[-1])
+    r0 = grid14["ranks"][0]["b"]
+    measured = {COMM_NAMES.get(k, k): v for k, v in r0["comm"][-1].items()}
+    peak = (got["memory"]["argument_size_in_bytes"] +
+            got["memory"]["temp_size_in_bytes"]) / 2 ** 30
+    ratio = peak / r0["peak_gib"]
+    print(f"  (c) the dry run of phase 14 (b)'s step (a fake (2, 2) group, "
+          f"{secs:.1f} s) against its measurement ({card}): parameter bytes "
+          f"per rank {got['param_bytes']} (measured {r0['param_bytes']}), "
+          f"moment bytes {got['moment_bytes']} (measured "
+          f"{r0['moment_bytes']}), collectives per step "
+          f"{got['collectives']} (measured {measured}), predicted peak "
+          f"{peak:.2f} GiB (arguments + temp) against the measured "
+          f"{r0['peak_gib']:.2f} GiB: ratio {ratio:.3f}", flush=True)
+    if got["param_bytes"] != r0["param_bytes"] or \
+            got["moment_bytes"] != r0["moment_bytes"]:
+        fail("phase 15 (c): the dry run's bytes per rank differ from phase "
+             "14 (b)'s")
+    if got["collectives"] != measured:
+        fail(f"phase 15 (c): the dry run's collectives {got['collectives']} "
+             f"differ from phase 14 (b)'s {measured}")
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        fail(f"phase 15 (c): predicted / measured peak {ratio:.3f} outside "
+             f"{PEAK_RATIO}")
+    _, text, secs = dry["decode"]
+    got = json.loads(text.strip().splitlines()[-1])
+    temp = got["memory"]["temp_size_in_bytes"]
+    peaks = [r["llama-full"]["plain_step_peak"] for r in shard["ranks"]]
+    ratios = [temp / p for p in peaks]
+    measured = shard["ranks"][0]["llama-full"]["comm"]
+    print(f"  (c) the dry run of phase 15 (b)'s full-width decode step (a "
+          f"fake (2, 2) group, {secs:.1f} s; the kernels' plain versions) "
+          f"against its measurement ({card}): temp per rank {temp} bytes "
+          f"against the peak above the arguments of a step through the "
+          f"plain versions {peaks}: ratios {[f'{x:.3f}' for x in ratios]} "
+          f"(through the kernels "
+          f"{[r['llama-full']['step_peak'] for r in shard['ranks']]}); "
+          f"arguments {got['memory']['argument_size_in_bytes']} bytes; "
+          f"collectives per step {got['collectives']} (measured "
+          f"{measured})", flush=True)
+    if not all(PEAK_RATIO[0] <= x <= PEAK_RATIO[1] for x in ratios):
+        fail(f"phase 15 (c): predicted decode temp / measured peak "
+             f"{ratios} outside {PEAK_RATIO}")
+    return ratio
+
+
+# ---------------------------------------------------------------------------
 # phase 9: training, and the trained weights handed to serving and one-shot
 # ---------------------------------------------------------------------------
 
@@ -3557,7 +4092,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/14] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/15] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -3567,7 +4102,7 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/14] kernels against their plain versions")
+    phase("[2/15] kernels against their plain versions")
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
@@ -3577,7 +4112,7 @@ def main() -> None:
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
 
-    phase("[3/14] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/15] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     for policy in ("paged_eviction",) + BASELINES:
@@ -3604,33 +4139,33 @@ def main() -> None:
     oneshot_parity(torch, np, "float32", arch=MUSICGEN, budget=48)
     train_parity(torch, np, arch=MUSICGEN, steps=2, seq=1024)
 
-    phase(f"[4/14] llama-3.2-1b at full width: serving, bf16 pool, with "
+    phase(f"[4/15] llama-3.2-1b at full width: serving, bf16 pool, with "
           f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
           f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/14] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/15] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[6/14] llama-3.2-1b at full width: serving, int8 pool "
+    phase(f"[6/15] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
     serve8 = serve_full_width(torch, np, "int8", 4,
                               num_layers=INT8_SERVE_LAYERS)[0]
     torch.cuda.empty_cache()
 
-    phase(f"[7/14] llama-3.2-1b at full width: the paper's baselines "
+    phase(f"[7/15] llama-3.2-1b at full width: the paper's baselines "
           f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[8/14] llama-3.2-1b at full width: eviction-regret probes "
+    phase(f"[8/15] llama-3.2-1b at full width: eviction-regret probes "
           f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[9/14] training: card against CPU, llama-3.2-1b at full width "
+    phase("[9/15] training: card against CPU, llama-3.2-1b at full width "
           "then served from its checkpoint, TINY trained and scored")
     t9 = time.perf_counter()
     train_parity(torch, np)
@@ -3640,7 +4175,7 @@ def main() -> None:
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    phase("[10/14] the attention-only families at full width: "
+    phase("[10/15] the attention-only families at full width: "
           + ", ".join(f"{a} ({n} layers, budget {b})"
                       for a, (n, b) in FAMILIES.items()))
     t10 = time.perf_counter()
@@ -3654,7 +4189,7 @@ def main() -> None:
               for a, r in families.items()), flush=True)
     torch.cuda.empty_cache()
 
-    phase("[11/14] the recurrent families at full width: "
+    phase("[11/15] the recurrent families at full width: "
           + ", ".join(f"{a} ({n} layers)" for a, n in RECURRENT.items()))
     t11 = time.perf_counter()
     recurrent = {arch: recurrent_full_width(torch, np, arch, n, card)
@@ -3667,7 +4202,7 @@ def main() -> None:
           f"{jamba['one_shot']['paged_decode']}; {card}", flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[12/14] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
+    phase(f"[12/15] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
           f"int8 pools), forward_step and training ({MUSICGEN_CUT_LAYERS} "
           f"layers)")
     t12 = time.perf_counter()
@@ -3680,7 +4215,7 @@ def main() -> None:
           f"{music['step']['paged_decode']}; {card}", flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[13/14] tensor-parallel serving at tp {TP}, two ranks "
+    phase(f"[13/15] tensor-parallel serving at tp {TP}, two ranks "
           f"time-sharing the card over gloo: "
           + ", ".join(f"{a} reduced(tp=2)" for a in TP_REDUCED)
           + f" (f32, int8) against tp 1; {TP_LLAMA} ({TP_LLAMA_LAYERS} of 32 "
@@ -3691,14 +4226,35 @@ def main() -> None:
           flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[14/14] training over a grid, {GRID} gloo ranks time-sharing "
+    phase(f"[14/15] training over a grid, {GRID} gloo ranks time-sharing "
           f"the card: (a) " + ", ".join(GRID_REDUCED) + " reduced f32 "
           f"against one rank; (b) {GRID_FULL['b'][0]} at (data 2, model 2) "
           f"with ZeRO-1, (c) {GRID_FULL['c'][0]} expert-parallel at (data "
           f"1, expert 2, tp 2), full width, bf16")
     t14 = time.perf_counter()
-    grid_full(torch, np, card)
+    grid14 = grid_full(torch, np, card)
     print(f"  phase 14: {time.perf_counter() - t14:.1f} s; {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    phase("[15/15] the examples on the card; the one-shot path at (data 2, "
+          "model 2), four gloo ranks sharing the card: "
+          + ", ".join(SHARD_REDUCED) + " reduced against one rank, "
+          f"llama-3.2-1b ({SHARD_FULL['layers']} layers, bf16); the dry run "
+          f"on the host")
+    t15 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as dry_dir:
+        dry = DryRuns(dry_dir)
+        try:
+            examples_on_card(torch)
+            torch.cuda.empty_cache()
+            shard = shard_full(torch, np, card)
+            torch.cuda.empty_cache()
+            results = dry.finish()
+        finally:
+            dry.stop()
+    dryrun_check(results, grid14, shard, card)
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s; {card}",
           flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4

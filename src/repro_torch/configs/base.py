@@ -272,6 +272,28 @@ class ModelConfig:
 # Serving / cache configuration (paper knobs)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Input shapes (the JAX package's assigned dry-run shapes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES: dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
 @dataclass(frozen=True)
 class CacheConfig:
     """Paged KV cache + eviction configuration (the paper's knobs)."""

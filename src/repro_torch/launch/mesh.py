@@ -289,7 +289,8 @@ def step_collectives(cfg, policy: str, *, has_decode: bool,
 
     - per attention layer: a sum after ``wo`` (repro/models/transformer.py:
       424-425), a sum after the MLP's ``w_down`` or the MoE experts' (f32,
-      before the gate combine; repro/models/mlp.py:27-28,
+      before the gate combine in the JAX package, after it in the port;
+      repro/models/mlp.py:27-28,
       repro/models/moe.py:310-311), the policy's score means
       (:data:`SCORE_REDUCTIONS`), and with ``fused_scores`` a mean of the
       kernels' per-head norms for the page scores
@@ -304,3 +305,17 @@ def step_collectives(cfg, policy: str, *, has_decode: bool,
                                    + chunk * has_prefill + fused_scores)
     out["all_reduce_sum"] += metrics
     return +out
+
+
+# --- hardware constants: the roofline's denominators --------------------
+# NVIDIA H100 SXM5 80GB, 700 W: datasheet figures, not measured. The dry
+# run's node model puts GPUS_PER_NODE ranks on one NVLink node, ranks laid
+# out row-major over the grid: a collective whose group lies inside one
+# node moves its bytes over NVLink, any other over InfiniBand (one 400
+# Gb/s NDR link per GPU). On the (16, 16) grid both axes leave the node
+# (a "model" group spans 16 consecutive ranks, two nodes).
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s per GPU
+HBM_BW = 3.35e12                # HBM3 bytes/s per GPU
+NVLINK_BW = 450e9               # NVLink bytes/s per direction per GPU
+IB_BW = 50e9                    # InfiniBand bytes/s per GPU
+GPUS_PER_NODE = 8

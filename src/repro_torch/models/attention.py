@@ -93,8 +93,22 @@ def spec_window(cfg: ModelConfig, spec: LayerSpec) -> int:
     return 0
 
 
-def _grid_attention(q, k, v, positions, window: int, ac):
-    """The training route's attention over a grid, on each rank's shards:
+def contiguous_attention(q, k, v, positions, window: int = 0,
+                         plain: bool = False):
+    """The one-shot prefill's attention over a contiguous prompt: the flash
+    kernel on the card; on the CPU the JAX package's routing (the flash
+    kernel's plain version when S % 128 == 0 and hd % 8 == 0, else the
+    position-masked full causal attention)."""
+    if q.is_cuda or (q.shape[1] % 128 == 0 and q.shape[-1] % 8 == 0):
+        return ops.flash_attention(q, k, v, window=window, plain=plain)
+    return full_causal_attention(q, k, v, q_positions=positions,
+                                 kv_positions=positions, window=window)
+
+
+def _grid_attention(q, k, v, positions, window: int, ac, attend=None):
+    """Attention over a grid, on each rank's shards (``attend(q, k, v,
+    positions, window)``: the training route's ``causal_attention`` by
+    default, :func:`contiguous_attention` for the one-shot prefill):
     attention is independent per (example, query head), so q (B, S, H,
     hd) splits its batch over the data axes and its heads over the model
     axes when they divide H; K/V split the same way when the model axes
@@ -120,8 +134,11 @@ def _grid_attention(q, k, v, positions, window: int, ac):
         kv = (h0 + torch.arange(H_l, device=ql.device)) // G
         kl, vl = kl[:, :, kv], vl[:, :, kv]
     pos = rules.place(grid, positions, (b, None)).to_local()
-    out = causal_attention(ql, kl, vl, q_positions=pos, kv_positions=pos,
-                           window=window)
+    if attend is None:
+        out = causal_attention(ql, kl, vl, q_positions=pos,
+                               kv_positions=pos, window=window)
+    else:
+        out = attend(ql, kl, vl, pos, window)
     return rules.from_local(grid, out, (b, None, hq, None))
 
 
@@ -139,21 +156,21 @@ def attention_forward(params: dict, cfg: ModelConfig, spec: LayerSpec, x,
     queries never see padding; the position-masked route lets them see the
     padding keys (position -1), as the JAX package's plain route does. Only
     the CPU takes that route, for parity with the JAX package at S % 128.
-    Over a grid (DTensor x) the training route runs on each rank's shards
-    (:func:`_grid_attention`, ``ac`` the activation constraint)."""
+    Over a grid (DTensor x) either route runs on each rank's shards
+    (:func:`_grid_attention`, ``ac`` the activation constraint): on CUDA
+    shards the one-shot route launches the flash kernel per rank."""
     q, k, v = project_qkv(params, cfg, x, positions)
     window = spec_window(cfg, spec)
     B, S = x.shape[:2]
-    if train and isinstance(q, DTensor):
-        out = _grid_attention(q, k, v, positions, window, ac)
+    if isinstance(q, DTensor):
+        out = _grid_attention(
+            q, k, v, positions, window, ac, attend=None if train else
+            lambda *a: contiguous_attention(*a, plain=plain))
     elif train:
         out = causal_attention(q, k, v, q_positions=positions,
                                kv_positions=positions, window=window)
-    elif q.is_cuda or (S % 128 == 0 and cfg.resolved_head_dim % 8 == 0):
-        out = ops.flash_attention(q, k, v, window=window, plain=plain)
     else:
-        out = full_causal_attention(q, k, v, q_positions=positions,
-                                    kv_positions=positions, window=window)
+        out = contiguous_attention(q, k, v, positions, window, plain)
     return out.reshape(B, S, -1) @ params["wo"], (k, v)
 
 

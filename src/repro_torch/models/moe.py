@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, dense_init, dtype_of
@@ -262,15 +263,50 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return _moe_block(params, cfg, x, cap)
 
 
+def _grid_decode(params: dict, cfg: ModelConfig, x, ac):
+    """:func:`moe_forward_decode` over a grid (DTensor x (N, D), its rows
+    over the data axes), on each rank's shards: the router whole, each
+    rank's experts (all of them, or its ``expert`` share) on its slice of
+    d_ff, the gate combine of its experts' partial outputs, then one f32
+    sum over the axes that split the experts or d_ff (the order of
+    :func:`moe_forward_decode`'s)."""
+    grid, b = ac.grid, ac.batch_axes
+    xl = rules.to_local(grid, x, (b, None))
+    _, top_p, top_e = route({"router": rules.full(params["router"])}, cfg,
+                            xl)
+    gate = torch.zeros((xl.shape[0], cfg.num_experts), dtype=torch.float32,
+                       device=xl.device).scatter(1, top_e, top_p)
+    w = {k: params[k].to_local() if isinstance(params[k], DTensor)
+         else params[k] for k in ("w_gate", "w_up", "w_down")}
+    e0 = rules.shard_offset(params["w_gate"], 0) \
+        if isinstance(params["w_gate"], DTensor) else 0
+    act = activation(cfg.act)
+    h = act(torch.matmul(xl, w["w_gate"])) * torch.matmul(xl, w["w_up"])
+    eout = torch.matmul(h, w["w_down"])                    # (E_l, N_l, D)
+    out = torch.einsum("ebd,be->bd", eout.float(),
+                       gate[:, e0:e0 + eout.shape[0]])
+    names = list(rules.grid_shape(grid))
+    split = tuple(names[i] for i, p in
+                  enumerate(getattr(params["w_gate"], "placements", ()))
+                  if p.is_shard())
+    out = rules.sum_over(grid, out, (b, None), split) if split else \
+        rules.from_local(grid, out, (b, None))
+    return out.to(x.dtype)
+
+
 def moe_forward_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                       group=None) -> torch.Tensor:
+                       group=None, ac=None) -> torch.Tensor:
     """x (N, D) -> (N, D): the dense all-expert combine (every expert on
-    every token, weighed by the top-k gates). Under tensor parallelism
-    (``group``) each rank holds every expert's slice of d_ff; the router
-    runs whole on every rank (f32), and the partial expert outputs are
-    summed over the ranks in f32 before the gate combine, as in the JAX
-    package (summing after the combine would move E times fewer bytes;
-    parity comes first)."""
+    every token, weighed by the top-k gates). Sharded, under tensor
+    parallelism (``group``: each rank holds every expert's slice of d_ff)
+    or over a grid (DTensor x, ``ac`` the activation constraint;
+    :func:`_grid_decode`), every rank runs the router whole (f32), gates
+    its partial expert outputs, and the (N, D) f32 combines are summed
+    over the ranks. The JAX package sums the (E, N, D) expert outputs
+    before the combine: summing after it moves E times fewer bytes and
+    differs by rounding only."""
+    if isinstance(x, DTensor):
+        return _grid_decode(params, cfg, x, ac)
     N = x.shape[0]
     _, top_p, top_e = route(params, cfg, x)
     gate = torch.zeros((N, cfg.num_experts), dtype=torch.float32,
@@ -283,6 +319,7 @@ def moe_forward_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     h = act(torch.matmul(x, params["w_gate"])) * \
         torch.matmul(x, params["w_up"])                    # (E, N, F)
     eout = torch.matmul(h, params["w_down"])               # (E, N, D)
+    out = torch.einsum("ebd,be->bd", eout.float(), gate)
     if group is not None:
-        eout = group.all_reduce_sum(eout.float())
-    return torch.einsum("ebd,be->bd", eout.float(), gate).to(x.dtype)
+        out = group.all_reduce_sum(out)
+    return out.to(x.dtype)

@@ -9,15 +9,15 @@ inputs serve it.
 
 ``make_inputs`` draws concrete random inputs from an explicit
 ``torch.Generator``: the draws differ from the JAX package's (the parity
-tests hand its numpy inputs over instead). The JAX ``input_specs``
-(``jax.ShapeDtypeStruct`` stand-ins for the dry-run lowering) has no
-counterpart until the port has a sharded dry run.
+tests hand its numpy inputs over instead). ``input_specs`` gives the
+dry run's stand-ins: meta tensors of the shapes and dtypes of the JAX
+package's ``jax.ShapeDtypeStruct`` ones (no allocation).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.common import dtype_of
 
@@ -48,4 +48,22 @@ def make_inputs(gen: torch.Generator, cfg: ModelConfig, batch: int,
     if cfg.cross_attention:
         cond = torch.randn((batch, cfg.cond_len, cfg.d_model), generator=gen,
                            device=device).to(dtype_of(cfg.dtype))
+    return {"tokens": tokens, "cond": cond}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *, for_decode=False,
+                device="meta") -> dict:
+    """Stand-ins for every model input of ``shape`` (the dry run), on
+    ``device`` (default "meta": shapes and dtypes only): {"tokens": int32
+    (B, S), (B, K, S) with codebooks, or (B,) / (B, K) ``for_decode``,
+    "cond": (B, cond_len, d_model) in the model's dtype, or None without
+    cross-attention}, B the shape's global batch."""
+    B = shape.global_batch
+    tshape = decode_token_shape(cfg, B) if for_decode else \
+        token_shape(cfg, B, shape.seq_len)
+    tokens = torch.zeros(tshape, dtype=torch.int32, device=device)
+    cond = None
+    if cfg.cross_attention:
+        cond = torch.zeros((B, cfg.cond_len, cfg.d_model),
+                           dtype=dtype_of(cfg.dtype), device=device)
     return {"tokens": tokens, "cond": cond}

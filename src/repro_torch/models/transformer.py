@@ -11,6 +11,8 @@ decode rows and incremental Alg.2 compression on prefill rows.
 offline / whole-prompt path): a contiguous forward over the whole prompt
 (the flash kernel), each layer's K/V compressed to the budget by Alg.2 and
 paged (``compress_and_page``), then one token per step under Alg.3.
+With ``ac`` the same two loops run over a (data, model) grid, each layer
+branching into ``grid_oneshot``'s regions where its work differs.
 
 ``forward_train`` gives logits over the whole sequence through plain
 autograd attention (``common.causal_attention``), never a kernel, as the
@@ -73,12 +75,14 @@ from repro_torch.core.policies import EvictionPolicy
 from repro_torch.core.prefill import compress_and_page
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import grid_oneshot
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm, soft_cap)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward, moe_forward_decode
+from repro_torch.sharding import rules
 from repro_torch.sharding.rules import map_tree, vocab_embedding, whole_like
 
 
@@ -204,8 +208,8 @@ def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
     MLP (``spec.mlp == "none"``, xLSTM) passes x through. ``group``: the
     tensor-parallel group of the serving step, whose ranks hold d_ff
     slices (dense MLP or dense combine); their outputs are summed.
-    ``ac``: the training forward's activation constraint, handed to the
-    capacity dispatch."""
+    ``ac``: the activation constraint of a grid, handed to the MoE
+    block."""
     if spec.mlp == "none":
         return x, None
     h = apply_norm(lp["norm2"], x)
@@ -213,7 +217,7 @@ def mlp_block(lp: dict, cfg: ModelConfig, spec: LayerSpec, x,
         return x + mlp_forward(lp["mlp"], cfg, h, group), None
     if dense_combine:
         out = moe_forward_decode(lp["moe"], cfg, h.reshape(-1, h.shape[-1]),
-                                 group)
+                                 group, ac=ac)
         return x + out.reshape(h.shape), None
     out, stats = moe_forward(lp["moe"], cfg, h, ac=ac)
     return x + out, stats.aux_loss
@@ -293,6 +297,14 @@ def paged_layers(layers: list) -> list[PagedLayerCache]:
 RECURRENT_STEP = {"mamba": mamba_mod.mamba_decode_step,
                   "mlstm": xlstm_mod.mlstm_decode_step,
                   "slstm": xlstm_mod.slstm_decode_step}
+# a recurrent mixer's whole-prompt forward that also gives its final state:
+# (params, cfg, x (B, S, D)) -> (out, state)
+RECURRENT_PREFILL = {
+    "mamba": mamba_mod.mamba_prefill,
+    "mlstm": lambda p, c, x: xlstm_mod.mlstm_chunkwise(p, c, x,
+                                                       return_state=True),
+    "slstm": lambda p, c, x: xlstm_mod.slstm_forward(p, c, x,
+                                                     return_state=True)}
 
 
 def recurrent_init_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -612,8 +624,9 @@ def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
     ``slstm_forward`` returning it; else ``mamba_forward`` and the others
     without it, and None). ``train``: attention by the training route
     (``attention_forward``'s), never a kernel. ``ac``: the activation
-    constraint of training over a grid, which pins x first and reaches
-    the mamba and MoE blocks."""
+    constraint over a grid, which pins x first and reaches the attention,
+    mamba and MoE blocks (a recurrent mixer's final state:
+    ``grid_oneshot.recurrent_prefill``)."""
     if ac is not None:
         x = ac(x)
     h = apply_norm(lp["norm1"], x)
@@ -622,37 +635,46 @@ def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
         a, extras = attn_mod.attention_forward(lp["attn"], cfg, spec, h,
                                                positions, plain=plain_kernels,
                                                train=train, ac=ac)
+    elif return_state:
+        fn = RECURRENT_PREFILL[spec.mixer]
+        a, extras = fn(lp[spec.mixer], cfg, h) if ac is None else \
+            grid_oneshot.recurrent_prefill(fn, lp[spec.mixer], cfg, h, ac)
     elif spec.mixer == "mamba":
-        if return_state:
-            a, extras = mamba_mod.mamba_prefill(lp["mamba"], cfg, h)
-        else:
-            a = mamba_mod.mamba_forward(lp["mamba"], cfg, h, ac=ac)
+        a = mamba_mod.mamba_forward(lp["mamba"], cfg, h, ac=ac)
     else:
         fwd = (xlstm_mod.mlstm_chunkwise if spec.mixer == "mlstm" else
                xlstm_mod.slstm_forward)
-        a = fwd(lp[spec.mixer], cfg, h, return_state=return_state)
-        if return_state:
-            a, extras = a
+        a = fwd(lp[spec.mixer], cfg, h)
     x = cross_block(lp, cfg, x + a, cross)
     x, aux = mlp_block(lp, cfg, spec, x, dense_combine=False, ac=ac)
     return x, aux, extras
 
 
+def _on_grid(ac, t):
+    """A plain input ``t`` (the same on every rank) split over the batch
+    axes of ``ac``'s grid; ``t`` itself without a grid or as a DTensor."""
+    if ac is None or t is None or isinstance(t, DTensor):
+        return t
+    return rules.place(ac.grid, t, (ac.batch_axes,) + (None,) * (t.dim() - 1))
+
+
 def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
                    valid, cond, policy: EvictionPolicy, ccfg: CacheConfig,
-                   seq_len_hint: int, plain_kernels: bool):
+                   seq_len_hint: int, plain_kernels: bool, ac=None):
     """Layer forward that also builds its decode cache: Alg.2 and paging
     for attention, the final state for a recurrent mixer (which sees no
     ``valid`` mask, as in the JAX package). Returns (x, the layer's cache,
-    its conditioning K/V from ``cond`` or None)."""
+    its conditioning K/V from ``cond`` or None). Over a grid (``ac``) the
+    compression and paging run as ``grid_oneshot.compress_and_page`` and
+    the caches come out laid out by ``rules.cache_shardings``."""
     if spec.mixer != "attn":
         x, _, state = layer_forward(lp, cfg, spec, x, positions,
-                                    return_state=True)
+                                    return_state=True, ac=ac)
         return x, state, None
     xc = None if cond is None or "xattn" not in lp else \
         attn_mod.make_cross_cache(lp["xattn"], cfg, cond)
     x, _, (k, v) = layer_forward(lp, cfg, spec, x, positions, plain_kernels,
-                                 cross=xc)
+                                 cross=xc, ac=ac)
     window = attn_mod.spec_window(cfg, spec)
     hint = seq_len_hint if not window else min(seq_len_hint,
                                                window + ccfg.page_size)
@@ -662,17 +684,40 @@ def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
         # out-of-window tokens at paging time (keeps the slab small)
         cur = torch.where(valid, positions, -1).amax(-1, keepdim=True)
         kv_valid = valid & (positions > cur - window)
-    cache = compress_and_page(k, v, positions, kv_valid, policy, ccfg,
-                              seq_len_hint=hint,
-                              cache_dtype=dtype_of(ccfg.dtype))
+    if ac is None:
+        cache = compress_and_page(k, v, positions, kv_valid, policy, ccfg,
+                                  seq_len_hint=hint,
+                                  cache_dtype=dtype_of(ccfg.dtype))
+    else:
+        cache = grid_oneshot.compress_and_page(
+            cfg, k, v, positions, kv_valid, policy, ccfg, hint,
+            dtype_of(ccfg.dtype), ac)
+        if xc is not None:
+            xc = grid_oneshot.place_cross(cfg, xc, ac)
     return x, cache, xc
+
+
+def _last_valid(x, valid, ac):
+    """(x at each row's last valid token (B, D), valid tokens per row (B,)
+    int32); over a grid picked on each rank's rows."""
+    if ac is not None:
+        b = ac.batch_axes
+        x = rules.to_local(ac.grid, x, (b, None, None))
+        valid = rules.to_local(ac.grid, valid, (b, None))
+    n_valid = valid.sum(-1, dtype=torch.int32)
+    last = (n_valid.long() - 1).clamp_min(0)
+    x_last = x[torch.arange(x.shape[0], device=x.device), last]
+    if ac is not None:
+        x_last = rules.from_local(ac.grid, x_last, (b, None))
+        n_valid = rules.from_local(ac.grid, n_valid, (b,))
+    return x_last, n_valid
 
 
 @torch.no_grad()
 def forward_prefill(params: dict, cfg: ModelConfig, tokens,
                     policy: EvictionPolicy, ccfg: CacheConfig, valid=None,
                     total_seq_hint: int | None = None,
-                    plain_kernels: bool = False, cond=None):
+                    plain_kernels: bool = False, cond=None, ac=None):
     """Process whole prompts, compress each layer's K/V by Alg.2 and page
     it (a recurrent layer keeps its final state): tokens (B, S) int32, or
     (B, K, S) with K codebooks; ``cond`` (B, cond_len, D): the
@@ -683,79 +728,117 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens,
     too, as in the JAX package). ``total_seq_hint``: expected prompt +
     generation length, which sizes the page slabs (default S). The caches
     live on ``tokens``' device. Returns (last valid token's logits (B,
-    vocab) f32, or (B, K, vocab) with codebooks, and the ModelCache)."""
+    vocab) f32, or (B, K, vocab) with codebooks, and the ModelCache).
+
+    ``ac`` (``rules.activation_constraint``): the prefill over a grid, the
+    parameters DTensors placed by ``rules.param_shardings``, each layer's
+    input pinned by ``ac``, attention and compression as regions on local
+    shards (``grid_oneshot``); the logits come out a DTensor."""
     cfg.validate()
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, _on_grid(ac, tokens))
     B, S = x.shape[0], x.shape[1]
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     if valid is None:
         valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    positions, valid, cond = (_on_grid(ac, t)
+                              for t in (positions, valid, cond))
     positions = torch.where(valid, positions, -1)
     hint = total_seq_hint or S
     layers, cross = [], []
     for lp, spec in zip(params["layers"], cfg.layer_specs()):
         x, c, xc = _prefill_layer(lp, cfg, spec, x, positions, valid, cond,
-                                  policy, ccfg, hint, plain_kernels)
+                                  policy, ccfg, hint, plain_kernels, ac)
         layers.append(c)
         cross.append(xc)
-    n_valid = valid.sum(-1, dtype=torch.int32)
-    last = (n_valid.long() - 1).clamp_min(0)
-    logits = lm_logits(params, cfg, x[torch.arange(B, device=dev), last])
+    x_last, n_valid = _last_valid(x, valid, ac)
+    logits = lm_logits(params, cfg, x_last)
     return logits, ModelCache(layers=layers, cur_pos=n_valid, cross=cross)
 
 
 def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc,
                   cur_pos, policy: EvictionPolicy, ccfg: CacheConfig, active,
                   decode_splits: int, fused_scores: bool,
-                  plain_kernels: bool):
+                  plain_kernels: bool, ac=None):
     """One layer, one token. x: (B, D). A recurrent layer steps every row,
     ``active`` or not, as the JAX package's ``_decode_layer`` does; an
     attention layer with conditioning K/V ``xc`` attends to it after its
-    self-attention."""
+    self-attention. Returns (x, the layer's cache): the same cache updated
+    in place, or over a grid (``ac``, x pinned first) its new layout, the
+    attention with the pool's bookkeeping and the recurrent mixer run as
+    regions on local shards (``grid_oneshot``)."""
+    if ac is not None:
+        x = ac(x)
     h = apply_norm(lp["norm1"], x)
     if spec.mixer != "attn":
-        m, new = RECURRENT_STEP[spec.mixer](lp[spec.mixer], cfg, h, kvc)
-        _assign(kvc, new)
-        return mlp_block(lp, cfg, spec, x + m, dense_combine=True)[0]
-    q, k, v = attn_mod.decode_project_qkv(lp["attn"], cfg, h, cur_pos)
+        if ac is None:
+            m, new = RECURRENT_STEP[spec.mixer](lp[spec.mixer], cfg, h, kvc)
+            _assign(kvc, new)
+        else:
+            m, kvc = grid_oneshot.recurrent_decode(
+                RECURRENT_STEP[spec.mixer], lp[spec.mixer], cfg, h, kvc, ac)
+        return mlp_block(lp, cfg, spec, x + m, dense_combine=True,
+                         ac=ac)[0], kvc
+    window = attn_mod.spec_window(cfg, spec)
     if kvc.stats is not None:
         kvc.stats.zero_()
-    out = []
+    if ac is None:
+        q, k, v = attn_mod.decode_project_qkv(lp["attn"], cfg, h, cur_pos)
+        out = []
 
-    def attend(c):
-        o, pscores = attn_mod.decode_attention(
-            q, c, cur_pos=cur_pos, window=attn_mod.spec_window(cfg, spec),
-            num_splits=decode_splits, want_scores=fused_scores,
-            plain=plain_kernels)
-        out.append(o)
-        return pscores
+        def attend(c):
+            o, pscores = attn_mod.decode_attention(
+                q, c, cur_pos=cur_pos, window=window,
+                num_splits=decode_splits, want_scores=fused_scores,
+                plain=plain_kernels)
+            out.append(o)
+            return pscores
 
-    decode_append(kvc, k, v, cur_pos, policy, ccfg, active=active,
-                  attend=attend)
-    x = x + out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
-    x = cross_block(lp, cfg, x[:, None], xc)[:, 0]
-    return mlp_block(lp, cfg, spec, x, dense_combine=True)[0]
+        decode_append(kvc, k, v, cur_pos, policy, ccfg, active=active,
+                      attend=attend)
+        m = out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
+    else:
+        m, kvc = grid_oneshot.decode_attention(
+            lp["attn"], cfg, h, kvc, cur_pos, active, policy, ccfg, window,
+            decode_splits, plain_kernels, ac)
+    x = x + m
+    if xc is not None:
+        x = cross_block(lp, cfg, x[:, None], xc)[:, 0]
+    return mlp_block(lp, cfg, spec, x, dense_combine=True, ac=ac)[0], kvc
 
 
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, tokens, cache: ModelCache,
                 policy: EvictionPolicy, ccfg: CacheConfig, active=None,
                 decode_splits: int = 1, fused_scores: bool = False,
-                plain_kernels: bool = False):
+                plain_kernels: bool = False, ac=None):
     """One decode step of every request: tokens (B,) [or (B, K) with K
     codebooks] -> (logits (B, [K,] vocab) f32, cache), the cache updated in
     place. ``active`` (B,) bool: rows that take a token. ``decode_splits``
-    / ``fused_scores`` / ``plain_kernels``: see :func:`forward_step`."""
-    x = embed_tokens(params, cfg, tokens)
-    B = x.shape[0]
+    / ``fused_scores`` / ``plain_kernels``: see :func:`forward_step`.
+    ``ac``: the step over a grid, the cache laid out by
+    ``rules.place_cache`` or from a grid ``forward_prefill``; its layer
+    caches are replaced by their new layouts. ``fused_scores`` over a grid
+    raises: a rank holding part of a KV head's query group would count
+    its norms twice."""
+    if ac is not None and fused_scores:
+        raise NotImplementedError(
+            "fused_scores over a grid: a rank holding part of a KV head's "
+            "query group would count its norms twice; rank pages by the "
+            "stored scores")
+    x = embed_tokens(params, cfg, _on_grid(ac, tokens))
     if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=x.device)
+        active = torch.ones((x.shape[0],), dtype=torch.bool,
+                            device=x.device)
+    active = _on_grid(ac, active)
     cur_pos = cache.cur_pos
-    for lp, spec, kvc, xc in zip(params["layers"], cfg.layer_specs(),
-                                 cache.layers, cache.cross):
-        x = _decode_layer(lp, cfg, spec, x, kvc, xc, cur_pos, policy, ccfg,
-                          active, decode_splits, fused_scores, plain_kernels)
+    for i, (lp, spec, xc) in enumerate(zip(params["layers"],
+                                           cfg.layer_specs(), cache.cross)):
+        x, cache.layers[i] = _decode_layer(
+            lp, cfg, spec, x, cache.layers[i], xc, cur_pos, policy, ccfg,
+            active, decode_splits, fused_scores, plain_kernels, ac)
     logits = lm_logits(params, cfg, x)
     cache.cur_pos = torch.where(active, cur_pos + 1, cur_pos)
+    if ac is not None:
+        cache.cur_pos = rules.place(ac.grid, cache.cur_pos, (ac.batch_axes,))
     return logits, cache

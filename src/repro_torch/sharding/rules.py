@@ -251,15 +251,25 @@ def place(grid, t: torch.Tensor, spec: tuple) -> DTensor:
     if isinstance(t, DTensor):
         return t.redistribute(mesh, pl)
     if t.device.type != mesh.device_type:
-        # the rules split only dimensions their axes divide
-        local, coord = t, mesh.get_coordinate()
-        for i, p in enumerate(pl):
-            if p.is_shard():
-                local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
-        return DTensor.from_local(
-            local.to(mesh.device_type).contiguous(), mesh, pl,
-            run_check=False, shape=t.shape, stride=t.stride())
+        # the rules split only dimensions their axes divide; a meta tensor
+        # (the dry run) keeps its shard on meta
+        local = _cut(mesh, t, pl)
+        if t.device.type != "meta":
+            local = local.to(mesh.device_type)
+        return DTensor.from_local(local.contiguous(), mesh, pl,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
     return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+
+def _cut(mesh, t: torch.Tensor, pl: list) -> torch.Tensor:
+    """This rank's chunk of ``t`` (a view) under placements ``pl``: the
+    dimensions split over several mesh dimensions split major first."""
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            t = t.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+    return t
 
 
 def distribute(grid, tree, specs):
@@ -435,6 +445,191 @@ def pin_inner(ac):
 
 def pin_time(ac):
     return getattr(ac, "time", None) or (lambda x: x)
+
+
+# ---------------------------------------------------------------------------
+# training over a grid: the cache and step-input specs
+# ---------------------------------------------------------------------------
+
+# the port's names of a PagedLayerCache's fields -> the JAX package's; the
+# port's pool buffers carry the trash row N, which the JAX leaves lack
+_JAX_NAME = {"k_buf": "k", "v_buf": "v", "pos_buf": "pos",
+             "score_buf": "score", "k_scale_buf": "k_scale",
+             "v_scale_buf": "v_scale"}
+
+
+def _dp_axes(grid, n: int) -> tuple:
+    """The data axes over which a pool dimension of ``n`` pages splits
+    evenly: ("pod", "data"), ("data",) or ()."""
+    shape = grid_shape(grid)
+    if "pod" in shape and n % axis_size(grid, "pod", "data") == 0:
+        return ("pod", "data")
+    if axis_size(grid, "data") > 1 and n % axis_size(grid, "data") == 0:
+        return ("data",)
+    return ()
+
+
+def _pool_dim0(grid, n: int, take_model: bool):
+    """The spec entry of the pool's page dimension: its data axes, with
+    the model axes folded in after them when ``take_model`` (the KV heads
+    do not split over the model axes) and they divide it too."""
+    dp = _dp_axes(grid, n)
+    msz = model_size(grid)
+    if take_model and msz > 1:
+        ma = axes_of(model_axes(grid))
+        if n % axis_size(grid, *(dp + ma)) == 0:
+            dp = dp + ma
+    return None if not dp else (dp[0] if len(dp) == 1 else dp)
+
+
+def cache_spec(grid, cfg, path: str, shape: tuple, batch: int) -> tuple:
+    """The spec of the cache leaf at ``path`` of ``shape`` (paths as
+    :func:`tp_cache_specs` gives them: "layers/0/k_buf", "cross/1/k",
+    "cur_pos"): the JAX package's ``_cache_spec`` (rules.py:150-236) on
+    the port's leaves, which have no repetition dimension.
+
+    A page pool's buffers (``k_buf``, ``v_buf``, ``pos_buf``,
+    ``score_buf``, the int8 scales) hold N + 1 rows; their spec is that
+    of the N pool rows, and over a grid the trash row is left out
+    (:func:`place_cache`): a region that writes the pool builds its
+    whole buffer with a fresh trash row, so per-rank bytes are the JAX
+    rule's exactly. The pool's pages split over the data axes, with the
+    model axes folded in when the KV heads do not divide them, else the
+    KV heads over the model axes; ``pos`` / ``score`` / ``ref_count``
+    follow the pages; ``stats`` is whole; ``block_table`` and the
+    write heads split over the batch; the conditioning K/V over the batch
+    and the KV heads; the recurrent states over the batch and their
+    inner width."""
+    kind, name = path.split("/", 1)[0], path.rsplit("/", 1)[-1]
+    b = batch_axes(grid, batch)
+    n = len(shape)
+    msz, MA = model_size(grid), model_axes(grid)
+    kv_div = msz > 1 and cfg.num_kv_heads % msz == 0
+    m = lambda d: msz > 1 and shape[d] % msz == 0  # noqa: E731
+
+    def spec(*dims):
+        return tuple(dims) + (None,) * (n - len(dims))
+
+    if kind == "layers" and name in _JAX_NAME:
+        pages = shape[0] - 1
+        d0 = _pool_dim0(grid, pages, take_model=not kv_div)
+        if n == 4:                               # K/V (N, page, KV, hd)
+            return spec(d0, None, MA if kv_div else None)
+        if n == 3:                               # int8 scales (N, page, KV)
+            return spec(d0, None, MA if kv_div else None)
+        return spec(d0)                          # pos / score (N, page)
+    if kind == "cross":                          # (B, Sc, KV, hd)
+        return spec(b, None, MA if kv_div else None)
+    if name == "ref_count":
+        return spec(_pool_dim0(grid, shape[0], take_model=not kv_div))
+    if name == "stats":
+        return spec()
+    if name == "block_table":
+        return spec(b)
+    if name in ("cur_page", "cur_off", "cur_pos"):
+        return spec(b)
+    if name == "conv":                           # (B, dc - 1, di)
+        return spec(b, None, MA if n == 3 and m(2) else None)
+    if name == "ssm":                            # (B, di, ds)
+        return spec(b, MA if m(1) else None)
+    if name == "C":                              # mLSTM (B, H, hd, hd)
+        return spec(b, None, MA if m(2) else None)
+    if name == "n" and n == 3:                   # mLSTM (B, H, hd)
+        return spec(b, None, MA if m(2) else None)
+    if name == "m" and n == 2 and shape[1] <= 128:   # mLSTM (B, H)
+        return spec(b)
+    if name in ("c", "h", "n", "m") and n == 2:  # sLSTM (B, D)
+        return spec(b, MA if m(1) else None)
+    return spec(b)
+
+
+def cache_shardings(grid, cfg, cache, batch: int) -> dict:
+    """{path: spec} of every tensor of a ``ModelCache`` (paths as
+    :func:`tp_cache_specs`), by :func:`cache_spec`."""
+    return {path: cache_spec(grid, cfg, path, tuple(leaf.shape), batch)
+            for path, leaf in _cache_leaves(cache)}
+
+
+def place_cache(grid, cfg, cache, batch: int):
+    """A ``ModelCache`` (e.g. from ``init_decode_caches``, whole on every
+    rank, or on "meta") laid out over the grid by :func:`cache_shardings`:
+    every tensor a DTensor, each pool buffer without its trash row."""
+    specs = cache_shardings(grid, cfg, cache, batch)
+
+    def one(path, t):
+        name = path.rsplit("/", 1)[-1]
+        if path.startswith("layers/") and name in _JAX_NAME:
+            t = t[:-1]
+        return place(grid, t, specs[path])
+
+    def copy(c, kind, i):
+        return None if c is None else dataclasses.replace(c, **{
+            f.name: one(f"{kind}/{i}/{f.name}", getattr(c, f.name))
+            for f in dataclasses.fields(c)
+            if getattr(c, f.name) is not None})
+    return dataclasses.replace(
+        cache, layers=[copy(c, "layers", i)
+                       for i, c in enumerate(cache.layers)],
+        cross=[copy(c, "cross", i) for i, c in enumerate(cache.cross)],
+        cur_pos=one("cur_pos", cache.cur_pos))
+
+
+def whole_cache(cache):
+    """The one-device ``ModelCache`` of a cache laid out over a grid
+    (:func:`place_cache`): every DTensor gathered whole (a collective
+    every rank must join), each pool buffer given back its trash row
+    (zero K/V, position -1, score -inf). A plain cache is returned as
+    it is."""
+    if not isinstance(cache.cur_pos, DTensor):
+        return cache
+
+    def copy(c, paged):
+        return None if c is None else dataclasses.replace(c, **{
+            f.name: with_trash_row(f.name if paged else "",
+                                   full(getattr(c, f.name)))
+            for f in dataclasses.fields(c)
+            if getattr(c, f.name) is not None})
+    from repro_torch.core.paged_cache import PagedLayerCache
+    return dataclasses.replace(
+        cache, layers=[copy(c, isinstance(c, PagedLayerCache))
+                       for c in cache.layers],
+        cross=[copy(c, False) for c in cache.cross],
+        cur_pos=full(cache.cur_pos))
+
+
+def with_trash_row(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A pool buffer ``name`` of N rows given its trash row (zero K/V and
+    scales, position -1, score -inf); any other field as it is."""
+    if name not in _JAX_NAME:
+        return t
+    fill = {"pos_buf": -1, "score_buf": -torch.inf}.get(name, 0)
+    return torch.cat([t, torch.full_like(t[:1], fill)])
+
+
+def step_input_shardings(grid, cfg, batch: int, chunk: int) -> dict:
+    """The specs of the unified step's operands and the chunked-prefill
+    kernel's tile layouts, as the JAX package's ``step_input_shardings``
+    (rules.py:250-301): the batch over the data axes; the query heads,
+    the decode partials' and the epilogue norms' KV heads over the model
+    axes when they divide them; ``block_table`` and ``page_scores`` over
+    the batch only. ``chunk`` (the step's T) does not change a spec."""
+    b = batch_axes(grid, batch)
+    msz, MA = model_size(grid), model_axes(grid)
+    heads = MA if msz > 1 and cfg.num_heads % msz == 0 else None
+    kv = MA if msz > 1 and cfg.num_kv_heads % msz == 0 else None
+    return {
+        "tokens": (b, None),
+        "n_tok": (b,),
+        "mask": (b,),
+        "share_src": (b,),
+        "share_pages": (b,),
+        "q": (b, None, heads, None),
+        "q_pos": (b, None),
+        "block_table": (b, None),
+        "page_scores": (b, None),
+        "decode_partials": (b, kv, None, None, None),
+        "epilogue_norms": (b, kv, None, None),
+    }
 
 
 # ---------------------------------------------------------------------------
