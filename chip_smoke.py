@@ -38,7 +38,20 @@ Phases (any failure exits non-zero; none is skipped):
               (scaled_dot_product_attention, a yardstick only, also in both
               clocks); and each one's device_ms and bound at those three
               head dims, at their models' dtypes (TINY f32, the others bf16),
-              and at the four family shapes (bf16, window 0)
+              and at the four family shapes (bf16, window 0). K3 (K4 bit
+              for bit) also over churned int8 pools at every one of those
+              shapes and the family shapes (G 1, 2, 3, 4, 6, 8; hd 32, 64,
+              80, 96, 128; windows 0 and > 0): a bf16 query on the int8
+              tensor-core route within the derived bound (worst ratio
+              printed; NaN scales on the slots no query sees change no bit),
+              an f32 query on the int8 CUDA-core route bit-equal to the
+              CUDA-core route over the dequantized pool and within 1e-4;
+              norms within 1e-5 relative. Then K3 over an int8 pool at
+              phase 6's shape (bf16 query) and TINY's (f32) before and
+              after: dequantize, the CUDA-core launch over the dequantized
+              view, the two together, the int8-native route, with bounds,
+              SDPA over the dequantized view, the plain version and the
+              peak memory above the inputs; prints phase 2's seconds
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions, under
               paged_eviction and each of the paper's baselines: the engine on
@@ -48,7 +61,8 @@ Phases (any failure exits non-zero; none is skipped):
               tokens; greedy tokens, devstats and the integer pool state
               equal; on int8 pools, where a quantizer input rounds
               differently on the two runs, the first such value on both
-              sides. The engines run with a trace, the lineage ledger and a
+              sides (the int8 engines' prefill launches all on K3's int8
+              CUDA-core route). The engines run with a trace, the lineage ledger and a
               timeline: the two routes' step records (timing fields aside)
               and lineage events equal, the ledger reconciled after every
               step; and the float paged_eviction requests served once more
@@ -95,8 +109,13 @@ Phases (any failure exits non-zero; none is skipped):
               once on a bf16 and once on an int8 pool
   6. int8     phase 4's workload (4 requests) served on an int8 pool at 1
               of the 16 layers (full width; depth cut for the run time;
-              every prefill launch on the CUDA-core route: a bf16 query
-              over the dequantized f32 pool)
+              every prefill launch on the int8 tensor-core route, none on
+              the CUDA cores, no k_dequant / v_dequant call); each step's
+              peak device memory above its start; one mixed step's
+              attention call rerun on its own inputs through the int8
+              route and through the old path (dequantize + CUDA-core
+              route): peak above the inputs, both outputs against the
+              plain version
   7. baselines the paper's comparison: streaming_llm, inverse_key_l2 and
               keydiff each serve 4 of phase 4's requests (16 greedy tokens)
               and run phase 5's prompts one-shot (bf16, 16 decode steps),
@@ -304,6 +323,14 @@ KERNELS = {
     "paged_prefill_per_qhead": dict(
         source="src/repro_torch/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill.py:322"),
+    # K3's int8-native routes: a bf16 query on the tensor cores (phase 6's
+    # main path), an f32 query on the CUDA cores (the reduced f32 configs)
+    "paged_prefill_int8": dict(
+        source="src/repro_torch/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill.py:240"),
+    "paged_prefill_int8_cuda_core": dict(
+        source="src/repro_torch/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill.py:240"),
     "flash_attention": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_prefill.py:115"),
@@ -328,9 +355,10 @@ def card_line() -> str:
 def launch_counters():
     """name -> (object, attribute) of every kernel wrapper's launch count,
     and of the prefill and flash wrappers' counts per route
-    ("paged_prefill/tensor_core", ...)."""
+    ("paged_prefill/tensor_core", "paged_prefill/int8_tensor_core", ...)."""
     from repro_torch.kernels.block_score import block_score_cuda
-    from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+    from repro_torch.kernels.flash_prefill import (PREFILL_ROUTES,
+                                                   flash_attention_cuda,
                                                    paged_prefill_cuda)
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_int8_cuda)
@@ -342,9 +370,11 @@ def launch_counters():
             "flash_attention": (flash_attention_cuda, "launches"),
             "block_score": (block_score_cuda, "launches"),
             **{f"{name}/{route}": (fn, f"{route}_launches")
-               for name, fn in (("paged_prefill", paged_prefill_cuda),
-                                ("flash_attention", flash_attention_cuda))
-               for route in ("tensor_core", "cuda_core")}}
+               for name, fn, routes in (
+                   ("paged_prefill", paged_prefill_cuda, PREFILL_ROUTES),
+                   ("flash_attention", flash_attention_cuda,
+                    ("tensor_core", "cuda_core")))
+               for route in routes}}
 
 
 def reset_launches() -> None:
@@ -524,9 +554,10 @@ def check_family_shapes(torch, worst):
     """K1, K3 (with K4 bit for bit) and K5 against their plain versions at
     FAMILY_SHAPES, bf16 throughout: K1 at splits 1 and 4 on a churned pool
     (row 1 unmapped, row 2 at cur_pos -1: exact zeros), K3/K4 at chunk 256
-    (G * T rows up to 2048), K5 on one prompt of 4096 tokens; each at the
-    shape's windows, within today's tolerances (K1 one bf16 step, the
-    tensor-core routes the derived bound)."""
+    (G * T rows up to 2048), also over an int8 pool (check_prefill_int8),
+    K5 on one prompt of 4096 tokens; each at the shape's windows, within
+    today's tolerances (K1 one bf16 step, the tensor-core routes the
+    derived bound)."""
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                    flash_attention_plain,
                                                    flash_route,
@@ -596,6 +627,8 @@ def check_family_shapes(torch, worst):
                      f"the G-fold one ({label}, window {window})")
             del o, o2, o3, nk, nk2, wt
         del k, v, pos, bt, qf
+        check_prefill_int8(torch, worst, label, (KV, G, hd, page), Pn,
+                           windows, bf16, seed + 2)
         route = flash_route(bf16, hd)
         for window in windows:
             x = [torch.randn((1, S1, n, hd), generator=g).to(bf16).cuda()
@@ -668,6 +701,119 @@ def check_decode(torch, worst):
                    f", 2 windows x splits 1/2/4/{P}", err, share, nerr, hd=hd)
 
 
+# the int8 routes' norms against the plain version's (relative)
+INT8_NORM_RTOL = 1e-5
+
+
+def check_prefill_int8(torch, worst, label, shape, Pn, windows, q_dtype,
+                       seed, stale=False):
+    """K3 / K4 over a churned int8 pool (shared pages, holes, unmapped
+    slots, a partly filled page; padding rows) at each window, q of
+    ``q_dtype``: a bf16 query on the int8 tensor-core route within
+    ref.tc_bf16_bound of the plain version over the dequantized pool (the
+    worst ratio printed); an f32 query on the int8 CUDA-core route
+    bit-equal to the CUDA-core route over the dequantized view and within
+    1e-4 of the plain version; norms within INT8_NORM_RTOL; the per-Q-head
+    kernel bit-equal to the G-fold one. ``stale``: the scales of every pool
+    slot at position < 0 are then set to NaN, and the tensor-core route's
+    output must not change by a bit (a masked key's probability is 0
+    before its scale is applied)."""
+    from repro_torch.kernels.flash_prefill import (INT8_TENSOR_CORE,
+                                                   paged_prefill_cuda,
+                                                   paged_prefill_int8_plain,
+                                                   prefill_route)
+    from repro_torch.kernels.paged_attention import dequantize
+    from repro_torch.kernels.ref import (abs_value_weight, churned_pool,
+                                         prefill_positions)
+    KV, G, hd, page = shape
+    k8, v8, ks, vs, pos, bt, cur = churned_pool(B, Pn, page, KV, hd,
+                                                torch.int8, seed)
+    kd, vd = dequantize(k8, ks), dequantize(v8, vs)
+    g = torch.Generator().manual_seed(seed)
+    qp = prefill_positions(cur.cpu(), T).cuda()
+    q = torch.randn((B, T, KV * G, hd), generator=g).to(q_dtype).cuda()
+    route = prefill_route(q_dtype, torch.int8, hd)
+    tc = route == INT8_TENSOR_CORE
+    name = "paged_prefill_int8" if tc else "paged_prefill_int8_cuda_core"
+    dname = str(q_dtype).removeprefix("torch.")
+    scales = dict(k_scale=ks, v_scale=vs)
+    for window in windows:
+        kw = dict(window=window, return_scores=True)
+        o, nk = paged_prefill_cuda(q, k8, v8, pos, bt, qp, **scales, **kw)
+        o2, nk2 = paged_prefill_int8_plain(q, k8, v8, ks, vs, pos, bt, qp,
+                                           **kw)
+        o3, _ = paged_prefill_cuda(q, k8, v8, pos, bt, qp, **scales,
+                                   window=window, per_qhead=True)
+        torch.cuda.synchronize()
+        case = f"{label} q {dname} int8 pool window {window}, {G * T} rows " \
+            f"({route})"
+        if o[B - 1].any():
+            fail(f"{name}: padding rows are not 0 ({case})")
+        nerr = _norm_err(nk, nk2)
+        wt = abs_value_weight(q, kd, vd, window=window, pos=pos,
+                              block_table=bt, q_pos=qp) if tc else None
+        err, share = _err(o, o2, dname, wt)
+        if tc:
+            extra = f"; worst ratio to tc_bf16_bound {share:.4f}"
+        else:
+            o4, nk4 = paged_prefill_cuda(q, kd, vd, pos, bt, qp, **kw)
+            same = torch.equal(o, o4) and all(
+                torch.equal(a, b) for a, b in zip(nk, nk4))
+            extra = f"; bit-equal to the CUDA-core route over the " \
+                f"dequantized view: {same} (max diff " \
+                f"{float((o - o4).abs().max()):.3g})"
+            if not same:
+                fail(f"{name} is not bit-equal to the CUDA-core route over "
+                     f"the dequantized view ({case})")
+        extra += f"; norms {nerr:.3g} (tol {INT8_NORM_RTOL})"
+        if not nerr <= INT8_NORM_RTOL:
+            fail(f"{name}: norms {nerr:.3g} from the plain version's ({case})")
+        _check(worst, name, case, err, share, nerr, extra, hd=hd)
+        same = torch.equal(o3, o)
+        _check(worst, "paged_prefill_per_qhead", case,
+               *_err(o3, o2, dname, wt),
+               extra=f"; bit-equal to the G-fold kernel: {same}", hd=hd)
+        if not same:
+            fail(f"the per-Q-head prefill kernel is not bit-equal to the "
+                 f"G-fold one ({case})")
+        if stale and tc:
+            hole = (pos < 0)[..., None].expand_as(ks)
+            nan = torch.full_like(ks, float("nan"))
+            o5, _ = paged_prefill_cuda(
+                q, k8, v8, pos, bt, qp, k_scale=torch.where(hole, nan, ks),
+                v_scale=torch.where(hole, nan, vs), window=window)
+            torch.cuda.synchronize()
+            print(f"  {name:23s} {case}: NaN scales on the {int(hole.sum())} "
+                  f"(slot, head) scales at position < 0: output bit-equal "
+                  f"{bool(torch.equal(o5, o))}", flush=True)
+            if not torch.equal(o5, o):
+                fail(f"{name}: a stale scale on a masked key moved the "
+                     f"output ({case})")
+        del o, o2, o3, nk, nk2, wt
+    del k8, v8, ks, vs, kd, vd, q
+
+
+def check_dequant_division(torch):
+    """``dequantize`` (the plain versions' and k_dequant's dequantization)
+    divides scale / 127 correctly rounded on the card, as the int8 kernels
+    and the JAX package do: 2**22 scales in [0, 4) against numpy's f32
+    division on the host. Prints how many of them PyTorch's CUDA division
+    by a Python number (a multiply by the reciprocal) gets one ulp off."""
+    import numpy as np
+    from repro_torch.kernels.paged_attention import dequantize
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sc = torch.rand(1 << 22, generator=gen, device="cuda") * 4
+    exact = torch.from_numpy(sc.cpu().numpy() / np.float32(127.0))
+    ones = torch.ones((sc.numel(), 1), dtype=torch.int8, device="cuda")
+    off = int((dequantize(ones, sc)[:, 0].cpu() != exact).sum())
+    scalar = int(((sc / 127.0).cpu() != exact).sum())
+    print(f"  dequantize: scale / 127 off the true division in {off} of "
+          f"{sc.numel()} scales (a Python-number divisor: {scalar})",
+          flush=True)
+    if off:
+        fail("dequantize does not divide correctly rounded on the card")
+
+
 def check_kernels(torch):
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                    flash_attention_plain,
@@ -679,6 +825,7 @@ def check_kernels(torch):
     from repro_torch.kernels.ref import (abs_value_weight, churned_pool,
                                          prefill_positions)
     worst: dict = {}
+    check_dequant_division(torch)
     check_decode(torch, worst)
     check_family_shapes(torch, worst)
     seed = 0
@@ -738,6 +885,11 @@ def check_kernels(torch):
                        f"{arch} {dname} S {S} window {window} ({route})",
                        *_err(o, o2, dname, wt), hd=hd)
                 del x, o, o2, wt
+            # the int8-native prefill routes (q f32: CUDA cores; q bf16:
+            # tensor cores); NaN scales on masked slots at the first shape
+            check_prefill_int8(torch, worst, arch, (KV, G, hd, page), P,
+                               (0, 8 * page), dt, seed + 200,
+                               stale=arch == "llama-3.2-1b")
             # page scores: the float pool and the dequantized int8 one
             check_block_score(torch, worst, f"{arch} {dname} pool", k, v, pos)
             check_block_score(torch, worst, f"{arch} int8 pool",
@@ -944,6 +1096,131 @@ def time_kernels(torch, F, shape=None, dname="bfloat16", full=True):
               f"{r['plain_ms']:.4f} ms{note}, library {lib}, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
     return res
+
+
+# the shapes the int8 prefill routes are timed at: phase 6's mixed step
+# (llama-3.2-1b, bf16 query: the int8 tensor-core route) and TINY's f32 hd 32
+# (the int8 CUDA-core route)
+INT8_TIMED = {"llama-3.2-1b": (SHAPES["llama-3.2-1b"], "bfloat16"),
+              "TINY (hd 32)": NEW_HD_SHAPES["TINY (hd 32)"]}
+
+
+def peak_above(torch, fn):
+    """(bytes the card's allocator held at its peak during ``fn`` above what
+    it held before, fn's result)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def time_int8_prefill(torch, F, shape, dname, floor):
+    """K3 over an int8 pool at a mixed step's shape (B 8, T 256, 49 slots;
+    ``shape`` (KV, G, hd, page), q in ``dname``), before and after the
+    int8-native routes, each as ms (host work included), device ms and its
+    bound: (a) ``dequantize`` of K and V (the whole pool, as k_dequant),
+    (b) the CUDA-core launch over the dequantized view, (c) the two
+    together (the old path), then the int8-native route (G-fold and
+    per-Q-head); beside them the plain version, SDPA over the gathered,
+    dequantized view (device and host clocks) and the launch floor
+    ``floor``; and the peak device memory above the inputs of (c) and of the
+    new route. Returns the new route's row in time_kernels' format, with
+    the others under "before"."""
+    from repro_torch.kernels.flash_prefill import (paged_prefill_cuda,
+                                                   paged_prefill_int8_plain,
+                                                   prefill_route)
+    from repro_torch.kernels.paged_attention import dequantize
+    from repro_torch.kernels.ref import (churned_pool, gather_block_table,
+                                         prefill_positions)
+    KV, G, hd, page = shape
+    H = KV * G
+    dt = getattr(torch, dname)
+    k8, v8, ks, vs, pos, bt, cur = churned_pool(B, P, page, KV, hd,
+                                                torch.int8, 100)
+    g = torch.Generator().manual_seed(100)
+    qf = torch.randn((B, T, H, hd), generator=g).to(dt).cuda()
+    qp = prefill_positions(cur.cpu(), T).cuda()
+    kd, vd = dequantize(k8, ks), dequantize(v8, vs)
+    kg, vg, pg = gather_block_table(kd, vd, pos, bt)
+    S = P * page
+    qpe = qp[:, :, None]
+    kpos = pg.reshape(B, 1, S)
+    valid = (kpos >= 0) & (qpe >= 0) & (kpos <= qpe)             # (B, T, S)
+    flops = 4 * hd * H * int(valid.sum())
+    kd8 = kg.reshape(B, KV, S, hd).to(dt)
+    vd8 = vg.reshape(B, KV, S, hd).to(dt)
+    del kg, vg
+    # bytes: (a) the whole int8 pool and its scales read, the f32 copy
+    # written; the attention routes read the pages the tables reach
+    # (int8 + scales, or the f32 copy), positions, tables, q, and write the
+    # output and the norms
+    phys = torch.unique(bt.clamp_min(0))
+    n_el = phys.numel() * page * KV * hd
+    meta = phys.numel() * page * 4 + nbytes(bt)
+    io = 2 * nbytes(qf) + nbytes(qp) + 2 * B * KV * P * page * 4
+    pool_el = k8.numel()
+    pre = dict(return_scores=True)
+    sc = dict(k_scale=ks, v_scale=vs)
+    old_route = prefill_route(dt, torch.float32, hd)
+    new_route = prefill_route(dt, torch.int8, hd)
+    new_bound = bound_ms(2 * n_el + 2 * phys.numel() * page * KV * 4 + meta +
+                         io, flops, dname)
+    calls = {
+        "dequantize": (lambda: (dequantize(k8, ks), dequantize(v8, vs)),
+                       bound_ms(2 * pool_el * (1 + 4) + nbytes(ks, vs),
+                                2 * pool_el, "float32")),
+        "cuda_core_over_dequantized": (
+            lambda: paged_prefill_cuda(qf, kd, vd, pos, bt, qp, **pre),
+            bound_ms(2 * n_el * 4 + meta + io, flops, "float32")),
+        "old_path": (  # the same function as the new route: its bound
+            lambda: paged_prefill_cuda(qf, dequantize(k8, ks),
+                                       dequantize(v8, vs), pos, bt, qp,
+                                       **pre), new_bound),
+        "new": (lambda: paged_prefill_cuda(qf, k8, v8, pos, bt, qp, **sc,
+                                           **pre), new_bound),
+        "new_per_qhead": (
+            lambda: paged_prefill_cuda(qf, k8, v8, pos, bt, qp, **sc,
+                                       per_qhead=True),
+            bound_ms(2 * n_el + 2 * phys.numel() * page * KV * 4 + meta +
+                     io - 2 * B * KV * P * page * 4, flops, dname))}
+    rows = {}
+    for name, (fn, bound) in calls.items():
+        rows[name] = dict(ms=timed(torch, fn), device_ms=device_timed(
+            torch, fn), bound=bound)
+    for name in ("old_path", "new"):
+        rows[name]["peak_bytes"] = peak_above(torch, calls[name][0])[0]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qf.transpose(1, 2), kd8, vd8, attn_mask=valid[:, None],
+        enable_gqa=True)
+    lib_ms, lib_dev = timed(torch, sdpa), device_timed(torch, sdpa)
+    plain_ms = timed(torch, lambda: paged_prefill_int8_plain(
+        qf, k8, v8, ks, vs, pos, bt, qp, **pre))
+    routes = {"dequantize": "plain torch", "cuda_core_over_dequantized":
+              old_route, "old_path": f"dequantize + {old_route}",
+              "new": new_route, "new_per_qhead": f"{new_route}, per-Q-head"}
+    print(f"  int8 prefill, {dname} query (KV {KV}, G {G}, hd {hd}, B {B}, "
+          f"T {T}, {P} slots of page {page}); plain {plain_ms:.4f} ms, SDPA "
+          f"over the dequantized view {lib_ms:.4f} ms (device {lib_dev:.4f}),"
+          f" launch floor {floor:.4f}; the f32 copy {8 * pool_el} bytes",
+          flush=True)
+    for name, r in rows.items():
+        peak = f", peak above its inputs {r['peak_bytes']} bytes" \
+            if "peak_bytes" in r else ""
+        print(f"    {name} ({routes[name]}): {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}); device {r['device_ms'] / lib_dev:.2f}x "
+              f"SDPA{peak}", flush=True)
+    new = rows["new"]
+    return dict(ms=new["ms"], device_ms=new["device_ms"],
+                device_clean_ms=device_timed(torch, calls["new"][0],
+                                             clean=True),
+                plain_ms=plain_ms, bound=new["bound"], library_ms=lib_ms,
+                library_device_ms=lib_dev, floor_device_ms=floor,
+                route=new_route,
+                before={name: dict(r, route=routes[name])
+                        for name, r in rows.items() if name != "new"})
 
 
 # ---------------------------------------------------------------------------
@@ -1279,6 +1556,11 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
         print(f"  engine {policy} {kv_dtype}: with probes every 2 decode "
               f"steps: {len(samples)} probes, tokens and launches equal "
               f"({lr})", flush=True)
+    if kv_dtype == "int8" and attn and (
+            not lk["paged_prefill"] or
+            lk["paged_prefill/int8_cuda_core"] != lk["paged_prefill"]):
+        fail(f"{what}: not every prefill launch took the int8 CUDA-core "
+             f"route: {lk}")
     if tk != tp:
         fail(f"{what}: greedy tokens differ between kernels and plain")
     if len(sk) != len(sp) or any(not np.array_equal(a, b)
@@ -1320,6 +1602,7 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
           f"{stk.pages_evicted} pages, {stk.tokens_evicted} tokens, forced "
           f"{stk.forced_evictions}, {stk.shared_prefix_hits} prefix "
           f"adoptions", flush=True)
+    return lk
 
 
 def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
@@ -1540,9 +1823,9 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
             any(launches[n] for n in others):
         fail(f"the {kv_dtype} path's kernels did not run as expected: "
              f"{launches}")
-    # bf16 pool: every prefill launch on the tensor cores; int8 pool (its
-    # dequantized f32 view under a bf16 query): every one on the CUDA cores
-    route = "cuda_core" if kv_dtype == "int8" else "tensor_core"
+    # bf16 pool: every prefill launch on the tensor cores; int8 pool (int8
+    # pages under a bf16 query): every one on the int8 tensor-core route
+    route = "int8_tensor_core" if kv_dtype == "int8" else "tensor_core"
     if launches[f"paged_prefill/{route}"] != launches["paged_prefill"]:
         fail(f"{kv_dtype} serving: not every prefill launch took the "
              f"{route} route: {launches}")
@@ -1554,6 +1837,116 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
              f"{s}")
     check_invariants(np, eng.cache.layers)
     return launches, eng, wall, step_walls
+
+
+def serve_int8(torch, np):
+    """Phase 6: llama-3.2-1b at full width (INT8_SERVE_LAYERS layers) serves
+    4 of phase 4's requests on an int8 pool (serve_full_width's checks).
+    Every prefill launch takes the int8 tensor-core route, and no
+    k_dequant / v_dequant runs. Each step's peak device memory above what
+    was allocated when it began is read (reset_peak_memory_stats,
+    max_memory_allocated). On the inputs of the first attention call that
+    holds both prefill and decode rows (copied when it is made; that step's
+    peak is left out), the call is run again two ways: through the int8
+    route and through the old path (``dequantize`` the pool, then the
+    CUDA-core route), each with its peak above its inputs and its output
+    against the plain version. Returns serve_full_width's launches."""
+    from repro_torch.core.paged_cache import PagedLayerCache
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_prefill import (paged_prefill_cuda,
+                                                   paged_prefill_int8_plain)
+    from repro_torch.kernels.paged_attention import dequantize
+    from repro_torch.kernels.ref import abs_value_weight
+    deq_calls = {"k_dequant": 0, "v_dequant": 0}
+    real_deq = {n: getattr(PagedLayerCache, n) for n in deq_calls}
+
+    def counted(n):
+        def call(self):
+            deq_calls[n] += 1
+            return real_deq[n](self)
+        return call
+
+    seen, peaks = {}, []
+    real_attn = ops.paged_prefill_attention
+
+    def spy(q, cache, *, q_pos, **kw):
+        if not seen:
+            n = (q_pos >= 0).sum(1)
+            if bool((n == 1).any() & (n > 1).any()):
+                seen.update(q=q.clone(), q_pos=q_pos.clone(),
+                            window=kw.get("window", 0), step=len(peaks),
+                            **{f: getattr(cache, f).clone() for f in (
+                                "k", "v", "k_scale", "v_scale", "pos",
+                                "block_table")})
+        return real_attn(q, cache, q_pos=q_pos, **kw)
+
+    def on_engine(eng):
+        real_step = eng.step
+
+        def step():
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            d0 = eng.stats.decode_steps
+            more = real_step()
+            peaks.append((eng.stats.decode_steps == d0,
+                          torch.cuda.max_memory_allocated() - base))
+            return more
+        eng.step = step
+
+    ops.paged_prefill_attention = spy
+    for n in deq_calls:
+        setattr(PagedLayerCache, n, counted(n))
+    try:
+        launches, eng, _, walls = serve_full_width(
+            torch, np, "int8", 4, num_layers=INT8_SERVE_LAYERS,
+            on_engine=on_engine)
+    finally:
+        ops.paged_prefill_attention = real_attn
+        for n, fn in real_deq.items():
+            setattr(PagedLayerCache, n, fn)
+    if any(deq_calls.values()) or launches["paged_prefill/cuda_core"]:
+        fail(f"phase 6: the int8 pool was dequantized ({deq_calls}) or a "
+             f"prefill launch took the CUDA-core route: {launches}")
+    if not seen:
+        fail("phase 6: no attention call held both prefill and decode rows")
+    mixed = [b for i, (m, b) in enumerate(peaks) if m and i != seen["step"]]
+    dec = [b for m, b in peaks if not m]
+    print(f"  step peaks above the step's start (device memory): mixed "
+          f"max {max(mixed)} / median {sorted(mixed)[len(mixed) // 2]} "
+          f"bytes over {len(mixed)} steps, decode-only max {max(dec)} "
+          f"bytes; prefill routes {launches}; k_dequant / v_dequant calls "
+          f"{deq_calls}", flush=True)
+    c = seen
+    kw = dict(window=c["window"], return_scores=True)
+    args = (c["pos"], c["block_table"], c["q_pos"])
+    new_peak, (o_new, _) = peak_above(torch, lambda: paged_prefill_cuda(
+        c["q"], c["k"], c["v"], *args, k_scale=c["k_scale"],
+        v_scale=c["v_scale"], **kw))
+    old_peak, (o_old, _) = peak_above(torch, lambda: paged_prefill_cuda(
+        c["q"], dequantize(c["k"], c["k_scale"]),
+        dequantize(c["v"], c["v_scale"]), *args, **kw))
+    plain, _ = paged_prefill_int8_plain(c["q"], c["k"], c["v"], c["k_scale"],
+                                        c["v_scale"], *args, **kw)
+    wt = abs_value_weight(c["q"], dequantize(c["k"], c["k_scale"]),
+                          dequantize(c["v"], c["v_scale"]), window=c["window"],
+                          pos=c["pos"], block_table=c["block_table"],
+                          q_pos=c["q_pos"])
+    e_new, sh_new = _err(o_new, plain, "bfloat16", wt)
+    e_old, sh_old = _err(o_old, plain, "bfloat16")
+    rows = (c["q_pos"] >= 0).sum(1).tolist()
+    print(f"  one mixed step's attention (step {c['step'] + 1}, valid "
+          f"queries per row {rows}, pool {c['k'].shape[0]} pages): peak "
+          f"above its inputs, int8 tensor-core route {new_peak} bytes, old "
+          f"path (dequantize + CUDA-core route) {old_peak} bytes (the f32 "
+          f"copy alone {8 * c['k'].numel()}); against the plain version: "
+          f"new {e_new:.3g} ({sh_new:.3g} of tc_bf16_bound), old {e_old:.3g} "
+          f"({sh_old:.3g} of one bf16 step); {card_line()}", flush=True)
+    if sh_new > 1 or sh_old > 1:
+        fail("phase 6: the mixed step's attention disagrees with the plain "
+             "version")
+    del seen, c, o_new, o_old, plain, wt
+    eng.close()
+    return launches
 
 
 def oneshot_prompts(torch, np, vocab):
@@ -4103,21 +4496,31 @@ def main() -> None:
               flush=True)
 
     phase("[2/15] kernels against their plain versions")
+    t2 = time.perf_counter()
     reset_launches()
     worst = check_kernels(torch)
     checked = read_launches()
     timing = time_kernels(torch, F)
+    floor = timing["paged_decode"]["floor_device_ms"]
+    int8_rows = {label: time_int8_prefill(torch, F, shape, dname, floor)
+                 for label, (shape, dname) in INT8_TIMED.items()}
+    timing["paged_prefill_int8"] = int8_rows["llama-3.2-1b"]
+    timing["paged_prefill_int8_cuda_core"] = int8_rows["TINY (hd 32)"]
     other_hd = {shape[2]: time_kernels(torch, F, shape, dname, full=False)
                 for shape, dname in NEW_HD_SHAPES.values()}
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
+    print(f"  phase 2: {time.perf_counter() - t2:.1f} s; {card}", flush=True)
 
     phase("[3/15] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
+    int8_engine_launches = 0
     for policy in ("paged_eviction",) + BASELINES:
         for kv_dtype in ("float32", "int8"):
-            engine_parity(torch, np, kv_dtype, policy)
+            lk = engine_parity(torch, np, kv_dtype, policy)
+            if kv_dtype == "int8":
+                int8_engine_launches += lk["paged_prefill/int8_cuda_core"]
         for kv_dtype in ("float32", "int8"):
             oneshot_parity(torch, np, kv_dtype, policy=policy)
     # a ragged prompt above 2048 tokens: the flash kernel on the card
@@ -4151,8 +4554,7 @@ def main() -> None:
 
     phase(f"[6/15] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
-    serve8 = serve_full_width(torch, np, "int8", 4,
-                              num_layers=INT8_SERVE_LAYERS)[0]
+    serve8 = serve_int8(torch, np)
     torch.cuda.empty_cache()
 
     phase(f"[7/15] llama-3.2-1b at full width: the paper's baselines "
@@ -4258,11 +4660,15 @@ def main() -> None:
           flush=True)
 
     # launches on the main paths: decode and prefill from serving (phases 4
-    # and 6), flash attention from the one-shot prefill (phase 5); the
-    # per-Q-head kernel and the pool pass, oracles on no path, from phase 2
+    # and 6; K3's int8 CUDA-core route from phase 3's int8 engines, the
+    # reduced f32 config), flash attention from the one-shot prefill (phase
+    # 5); the per-Q-head kernel and the pool pass, oracles on no path, from
+    # phase 2
     launches = {"paged_decode": serve["paged_decode"],
                 "paged_decode_int8": serve8["paged_decode_int8"],
                 "paged_prefill": serve["paged_prefill"],
+                "paged_prefill_int8": serve8["paged_prefill/int8_tensor_core"],
+                "paged_prefill_int8_cuda_core": int8_engine_launches,
                 "paged_prefill_per_qhead": checked["paged_prefill_per_qhead"],
                 "flash_attention": oneshot["bfloat16"]["flash_attention"],
                 "block_score": checked["block_score"]}
@@ -4287,12 +4693,13 @@ def main() -> None:
                          hd: {"device_ms": t[name]["device_ms"],
                               "bound_ms": t[name]["bound"][0],
                               "bound_by": t[name]["bound"][1]}
-                         for hd, t in other_hd.items()},
+                         for hd, t in other_hd.items() if name in t},
                      "other_shapes": {
                          label: {"device_ms": t[name]["device_ms"],
                                  "bound_ms": t[name]["bound"][0],
                                  "bound_by": t[name]["bound"][1]}
-                         for label, t in other_shapes.items()}})
+                         for label, t in other_shapes.items() if name in t},
+                     **({"before": r["before"]} if "before" in r else {})})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.core import devstats
 from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention import dequantize
 
 
 @dataclass
@@ -96,15 +97,16 @@ class PagedLayerCache:
         return self.k_scale_buf is not None
 
     def k_dequant(self) -> torch.Tensor:
-        """The K pool (N, page, KV, hd) in f32 when quantized, else as is."""
+        """The K pool (N, page, KV, hd) in f32 when quantized, else as is
+        (``kernels.paged_attention.dequantize``)."""
         if not self.quantized:
             return self.k
-        return self.k.float() * (self.k_scale / 127.0)[..., None]
+        return dequantize(self.k, self.k_scale)
 
     def v_dequant(self) -> torch.Tensor:
         if not self.quantized:
             return self.v
-        return self.v.float() * (self.v_scale / 127.0)[..., None]
+        return dequantize(self.v, self.v_scale)
 
     # ------------------------------------------------------------ derived
     @property

@@ -31,6 +31,18 @@
 // fall in eight different bank groups; at D 32 (W 4), 80 (W 2) and 96 (W 4)
 // some phases share a bank group, which costs time, not correctness.
 //
+// int8 pools (the paged prefill's int8 tensor-core route): the K / V rows
+// come in as int8 (16 values per 16-byte cp.async copy) into a staging
+// ring, and `widen_tile` turns a staged tile into the same swizzled bf16
+// tile the bf16 route reads: exact, since every int8 value is a bf16
+// integer. The per-key scales stay out of the products: `scale_cols`
+// multiplies each score column by its key's s_k / 127 in registers, and
+// softmax_pv's `fold` multiplies each probability by its key's s_v / 127
+// before it is rounded to bf16 for P V (l sums the unfolded
+// probabilities). A masked key's probability is set to 0 before the fold
+// sees it, and the fold's result is dropped for it: a stale scale (even a
+// NaN) on a masked key never reaches o or l.
+//
 // Masking: the row max starts at -1e30 and a masked score never enters it;
 // its probability is set to 0 explicitly (never exp(-1e30 - m), which is 1
 // for a row whose keys so far are all masked). A tile with no valid key for
@@ -41,6 +53,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +93,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `rows` rows of D int8 into an unswizzled staging tile (row stride D
+// bytes), one 16-byte chunk of 16 values per thread and step; row_ptr as in
+// load_tile.
+template <int D, class RowPtr>
+__device__ __forceinline__ void load_tile_i8(int8_t* tile, int rows,
+                                             const int8_t* fallback,
+                                             RowPtr row_ptr) {
+  static_assert(D % 16 == 0, "rows of whole 16-byte int8 chunks");
+  constexpr int C = D / 16;
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    const int8_t* src = row_ptr(r);
+    cp_async16(tile + r * D + c * 16, src ? src + c * 16 : fallback,
+               src != nullptr);
+  }
 }
 
 // Copy `rows` rows of D bf16 into a swizzled tile, one 16-byte chunk per
@@ -135,6 +165,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// Widen a staged int8 tile (rows x D, row-major) into a swizzled bf16 tile:
+// a thread takes 16 values (one 16-byte chunk) and writes two 16-byte bf16
+// chunks. Exact: every int8 value is an integer bf16 holds.
+template <int D>
+__device__ __forceinline__ void widen_tile(bf16* dst, const int8_t* src,
+                                           int rows) {
+  constexpr int C = D / 16;
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    const int4 u = *reinterpret_cast<const int4*>(src + r * D + c * 16);
+    const int8_t* x = reinterpret_cast<const int8_t*>(&u);
+    uint4 w[2];
+    uint32_t* o = reinterpret_cast<uint32_t*>(w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      o[e] = pack_bf16(static_cast<float>(x[2 * e]),
+                       static_cast<float>(x[2 * e + 1]));
+    *reinterpret_cast<uint4*>(dst + swz<D>(r, c * 16)) = w[0];
+    *reinterpret_cast<uint4*>(dst + swz<D>(r, c * 16 + 8)) = w[1];
+  }
+}
+
+// Multiply each score column, key j of the tile, by f[j] (the int8 route's
+// s_k / 127): s[n][e] holds key 8 n + 2 t + (e & 1).
+__device__ __forceinline__ void scale_cols(float (&s)[8][4],
+                                           const float* f) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 ff = *reinterpret_cast<const float2*>(f + 8 * n + 2 * t);
+    s[n][0] *= ff.x;
+    s[n][1] *= ff.y;
+    s[n][2] *= ff.x;
+    s[n][3] *= ff.y;
+  }
+}
+
+// The probability fed to P V for key j: p itself (bf16 pools).
+struct NoFold {
+  __device__ __forceinline__ float operator()(int, float p) const {
+    return p;
+  }
+};
 
 // The online-softmax state of one warp's 16 rows (this lane's share).
 template <int D>
@@ -202,11 +276,13 @@ __device__ __forceinline__ void qk(float (&s)[8][4], const bf16* sQ,
 // and add P V with P rounded to bf16 and V from the swizzled value tile sV.
 // m is kept on the unscaled dot products (scale > 0 keeps the order), and
 // exp(scale (x - m)) is computed as 2^(x c - m c), c = scale log2(e): one
-// fused multiply-add and one special-function op per score.
-template <int D, class Valid>
+// fused multiply-add and one special-function op per score. l sums the
+// probabilities p; P V takes fold(j, p) of each valid key and exactly 0 for
+// a masked one (fold is never trusted with a masked key's p).
+template <int D, class Valid, class Fold = NoFold>
 __device__ __forceinline__ void softmax_pv(Rows<D>& st, float (&s)[8][4],
                                            const bf16* sV, float scale,
-                                           Valid valid) {
+                                           Valid valid, Fold fold = Fold()) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   const float c = scale * 1.4426950408889634f;
 #pragma unroll
@@ -233,8 +309,13 @@ __device__ __forceinline__ void softmax_pv(Rows<D>& st, float (&s)[8][4],
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[n][2 * h + e];
-        x = (vm >> (2 * n + e)) & 1u ? exp2_approx(fmaf(x, c, -mc)) : 0.f;
+        const bool ok = (vm >> (2 * n + e)) & 1u;
+        x = ok ? exp2_approx(fmaf(x, c, -mc)) : 0.f;
         sum += x;
+        // bf16 tiles skip the fold: the compiler keeps the select even for
+        // the identity, and it cost K3 12% of its time on the H100
+        if constexpr (!std::is_same_v<Fold, NoFold>)
+          x = ok ? fold(8 * n + 2 * t + e, x) : 0.f;
       }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);

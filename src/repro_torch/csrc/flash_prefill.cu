@@ -22,7 +22,8 @@
 // score epilogue. Each row's arithmetic is the same in both grids, so the
 // two outputs are bit-equal.
 //
-// Two routes, chosen by the wrapper from the dtypes (never a fallback):
+// Four routes, chosen by the wrapper from the dtypes and head dim (never a
+// fallback):
 //
 // bf16 query over a bf16 pool, hd 32, 64, 80, 96 or 128: tensor cores
 // (attn_tile.cuh: mma.sync m16n8k16, ldmatrix, cp.async). A block holds 64
@@ -40,18 +41,53 @@
 // tiles, and a tile that is all masked for a row leaves it bit for bit
 // unchanged, so per-Q-head and G-fold agree bit for bit.
 //
-// f32 query (either pool), or a bf16 query over an f32 pool (the pool an
-// int8 cache dequantizes to): CUDA cores, the page walk of
-// paged_common.cuh, one page of keys per step, f32 dot products from
-// shared memory, rows in the g * T + t order.
+// bf16 query over an int8 pool (int8 values, (N, page, KV) f32 absmax
+// scales), hd 32, 64, 80, 96 or 128: the same tensor-core kernel and tiles,
+// instantiated on int8. A key tile's rows come in as int8, 16 values per
+// 16-byte cp.async copy, into a two-stage staging ring; with them each
+// key's s_k / 127 and s_v / 127 (the JAX package's x * (s / 127) factor,
+// correctly rounded). The tile being computed is widened to one bf16 tile
+// in shared memory (exact: every int8 value is a bf16 integer), so Q K^T
+// and P V run on the bf16 tile routine as they do for a bf16 pool. The
+// scales stay out of the products: S = (Q X_k^T) (s_k / 127) per key
+// column in registers, and P' = p (s_v / 127), rounded to bf16 as the bf16
+// route rounds p, feeds P V while l sums the unfolded p. Against the plain
+// version's f32 arithmetic over the dequantized pool that adds one f32
+// rounding per score, and P' carries the bf16 route's error model
+// (ref.tc_bf16_bound, its weight (P |V|) / l of the dequantized V). A
+// masked key's p is 0 before its scale is applied, so a stale scale on a
+// free slot never reaches the output. The norms are (s / 127) ||x||, ||x||
+// from the exact integer sum of squares.
+//
+// f32 query over an int8 pool: the CUDA-core page walk below, which reads
+// the int8 values and scales and dequantizes in registers as x * (s / 127)
+// (K2's operation and k_dequant's): every product sees the f32 values the
+// plain version sees, bit for bit those of the same walk over the
+// dequantized pool.
+//
+// f32 query over an f32 or bf16 pool, or a bf16 query over an f32 pool:
+// CUDA cores, the page walk of paged_common.cuh, one page of keys per
+// step, f32 dot products from shared memory, rows in the g * T + t order.
 //
 // What bounds it on an H100: at chunk 256 the work is about 4 * rows * hd
 // FLOPs per key and the pool is read once per row tile, from L2 after the
 // first; the bytes (the pages reached, q and the output once each) bound it
-// on paper. The tensor-core route keeps the products off the CUDA cores and
-// skips every key tile and row tile no row can use, which in a mixed step
+// on paper. The tensor-core routes keep the products off the CUDA cores and
+// skip every key tile and row tile no row can use, which in a mixed step
 // is most of the decode rows' T - 1 padding tokens.
+//
+// The int8 routes' bound: the int8 K / V of the pages the tables reach (1
+// byte a value) and their scales (4 bytes a (token, head)), positions,
+// tables, q and the output, at 3.35 TB/s; 4 hd operations per valid pair
+// at 989 TFLOP/s (bf16 query) or 67 (f32). At llama-3.2-1b's mixed step
+// (B 8, T 256, 49 slots of page 16) q and the output are most of it. What
+// they replace: a pass over the WHOLE pool per layer and step (1 byte read,
+// 4 written per value: k_dequant / v_dequant), then the CUDA-core walk
+// reading 4 bytes a value of the pages reached, with f32 FMAs. The int8
+// routes write no copy and read a quarter of the walk's pool bytes.
 #include <climits>
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,16 +220,27 @@ __device__ __forceinline__ float sum_squares8(const tc::bf16* p) {
   return s;
 }
 
-inline size_t tc_smem_bytes(int D, int ntiles) {
-  return (size_t)(kRowsP + 4 * tc::kKeys) * D * 2 +
-         (size_t)(2 * tc::kKeys + 3 * kRowsP + ntiles) * sizeof(int);
+// Shared memory of the tensor-core kernel: a bf16 pool's K / V tiles are
+// the cp.async ring itself (two stages); an int8 pool's ring holds int8
+// tiles and their scale factors, and one bf16 tile each of K and V is
+// widened from the stage being computed.
+inline size_t tc_smem_bytes(int D, int ntiles, bool int8_pool) {
+  const size_t tiles =
+      int8_pool ? (size_t)(kRowsP + 2 * tc::kKeys) * D * 2 +
+                      (size_t)4 * tc::kKeys * D
+                : (size_t)(kRowsP + 4 * tc::kKeys) * D * 2;
+  const size_t words =
+      (size_t)(int8_pool ? 6 : 2) * tc::kKeys + 3 * kRowsP + ntiles;
+  return tiles + words * sizeof(int);
 }
 
-template <int D>
+template <int D, typename TP>
 __global__ void __launch_bounds__(kThreadsP)
     paged_prefill_tc_kernel(const tc::bf16* __restrict__ q,
-                            const tc::bf16* __restrict__ kpool,
-                            const tc::bf16* __restrict__ vpool,
+                            const TP* __restrict__ kpool,
+                            const TP* __restrict__ vpool,
+                            const float* __restrict__ kscale,
+                            const float* __restrict__ vscale,
                             const int* __restrict__ pos,
                             const int* __restrict__ bt,
                             const int* __restrict__ q_pos,
@@ -201,11 +248,18 @@ __global__ void __launch_bounds__(kThreadsP)
                             int Tq, int KV, int G, int P, int page,
                             long long s_n, long long s_page, long long s_kv,
                             int window, float scale, int per_qhead) {
+  constexpr bool kInt8 = std::is_same_v<TP, int8_t>;
+  constexpr int kBf16Stages = kInt8 ? 1 : 2;  // bf16 K / V tiles
+  constexpr int kI8 = kInt8 ? 2 * tc::kKeys : 0;  // int8 ring: keys
   extern __shared__ __align__(128) unsigned char smem_raw[];
   tc::bf16* sQ = reinterpret_cast<tc::bf16*>(smem_raw);  // kRowsP x D
-  tc::bf16* sK = sQ + kRowsP * D;                         // 2 x kKeys x D
-  tc::bf16* sV = sK + 2 * tc::kKeys * D;                  // 2 x kKeys x D
-  int* s_kpos = reinterpret_cast<int*>(sV + 2 * tc::kKeys * D);  // 2 x kKeys
+  tc::bf16* sK = sQ + kRowsP * D;               // kBf16Stages x kKeys x D
+  tc::bf16* sV = sK + kBf16Stages * tc::kKeys * D;
+  int8_t* s8K = reinterpret_cast<int8_t*>(sV + kBf16Stages * tc::kKeys * D);
+  int8_t* s8V = s8K + kI8 * D;                  // int8: 2 x kKeys x D each
+  float* s_kf = reinterpret_cast<float*>(s8V + kI8 * D);  // int8: s_k / 127
+  float* s_vf = s_kf + kI8;                     // int8: s_v / 127
+  int* s_kpos = reinterpret_cast<int*>(s_vf + kI8);  // 2 x kKeys
   int* s_qpos = s_kpos + 2 * tc::kKeys;  // per row; -1 == padding
   int* s_tok = s_qpos + kRowsP;          // per row: token, -1 past the chunk
   int* s_head = s_tok + kRowsP;          // per row: query head
@@ -289,8 +343,8 @@ __global__ void __launch_bounds__(kThreadsP)
 
   auto load_kv = [&](int kt, int stage) {
     const int k0 = kt * tc::kKeys;
-    auto row = [&](const tc::bf16* base) {
-      return [=](int j) -> const tc::bf16* {
+    auto row = [&](const TP* base) {
+      return [=](int j) -> const TP* {
         const int key = k0 + j;
         if (key >= nkeys) return nullptr;
         const int p = key / page;
@@ -299,18 +353,36 @@ __global__ void __launch_bounds__(kThreadsP)
                (long long)kv * s_kv;
       };
     };
-    tc::load_tile<D>(sK + stage * tc::kKeys * D, tc::kKeys, kpool,
-                     row(kpool));
-    tc::load_tile<D>(sV + stage * tc::kKeys * D, tc::kKeys, vpool,
-                     row(vpool));
+    if constexpr (kInt8) {
+      tc::load_tile_i8<D>(s8K + stage * tc::kKeys * D, tc::kKeys, kpool,
+                          row(kpool));
+      tc::load_tile_i8<D>(s8V + stage * tc::kKeys * D, tc::kKeys, vpool,
+                          row(vpool));
+    } else {
+      tc::load_tile<D>(sK + stage * tc::kKeys * D, tc::kKeys, kpool,
+                       row(kpool));
+      tc::load_tile<D>(sV + stage * tc::kKeys * D, tc::kKeys, vpool,
+                       row(vpool));
+    }
     if (tid < tc::kKeys) {
       const int key = k0 + tid;
       int kq = -1;  // unmapped slots and keys past the table: masked
+      float kf = 0.f, vf = 0.f;
       if (key < nkeys) {
         const int p = key / page, phys = btr[p];
         if (phys >= 0) kq = pos[(long long)phys * page + (key - p * page)];
+        if constexpr (kInt8) {  // the page the values come from (norms)
+          const long long si =
+              ((long long)max(phys, 0) * page + (key - p * page)) * KV + kv;
+          kf = kscale[si] / 127.f;
+          vf = vscale[si] / 127.f;
+        }
       }
       s_kpos[stage * tc::kKeys + tid] = kq;
+      if constexpr (kInt8) {
+        s_kf[stage * tc::kKeys + tid] = kf;
+        s_vf[stage * tc::kKeys + tid] = vf;
+      }
     }
   };
 
@@ -334,8 +406,13 @@ __global__ void __launch_bounds__(kThreadsP)
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    const tc::bf16* tK = sK + stage * tc::kKeys * D;
-    const tc::bf16* tV = sV + stage * tc::kKeys * D;
+    const tc::bf16* tK = sK + (kInt8 ? 0 : stage) * tc::kKeys * D;
+    const tc::bf16* tV = sV + (kInt8 ? 0 : stage) * tc::kKeys * D;
+    if constexpr (kInt8) {
+      tc::widen_tile<D>(sK, s8K + stage * tc::kKeys * D, tc::kKeys);
+      tc::widen_tile<D>(sV, s8V + stage * tc::kKeys * D, tc::kKeys);
+      __syncthreads();
+    }
     if (norms) {  // f32 sums of the bf16 values: two lanes per key
       const int j = warp * 16 + (lane >> 1), half = lane & 1;
       float sk = 0.f, sv = 0.f;
@@ -350,17 +427,30 @@ __global__ void __launch_bounds__(kThreadsP)
       const int key = kt * tc::kKeys + j;
       if (!half && key < nkeys) {
         const long long at = ((long long)b * KV + kv) * nkeys + key;
-        kn[at] = sqrtf(sk);
-        vn[at] = sqrtf(sv);
+        float nk = sqrtf(sk), nv = sqrtf(sv);
+        if constexpr (kInt8) {  // sums of integer squares: exact in f32
+          nk *= s_kf[stage * tc::kKeys + j];
+          nv *= s_vf[stage * tc::kKeys + j];
+        }
+        kn[at] = nk;
+        vn[at] = nv;
       }
     }
     if (attend && warp_rows) {
       const int* kpos = s_kpos + stage * tc::kKeys;
+      auto valid = [&](int hh, int j) {
+        return paged::pair_valid(true, kpos[j], qp[hh], window);
+      };
       float s[8][4];
       tc::qk<D>(s, sQ, r0, tK);
-      tc::softmax_pv<D>(st, s, tV, scale, [&](int hh, int j) {
-        return paged::pair_valid(true, kpos[j], qp[hh], window);
-      });
+      if constexpr (kInt8) {
+        const float* vf = s_vf + stage * tc::kKeys;
+        tc::scale_cols(s, s_kf + stage * tc::kKeys);
+        tc::softmax_pv<D>(st, s, tV, scale, valid,
+                          [&](int j, float p) { return p * vf[j]; });
+      } else {
+        tc::softmax_pv<D>(st, s, tV, scale, valid);
+      }
     }
     __syncthreads();  // the stage is consumed before it is refilled
   }
@@ -368,21 +458,24 @@ __global__ void __launch_bounds__(kThreadsP)
   store(st);
 }
 
-template <int D>
-int launch_tc(const void* q, const void* k, const void* v, const int* pos,
-              const int* bt, const int* q_pos, void* out, float* kn,
-              float* vn, int B, int Tq, int KV, int G, int P, int page,
-              long long s_n, long long s_page, long long s_kv, int window,
-              float scale, int per_qhead, cudaStream_t stream) {
+template <int D, typename TP>
+int launch_tc(const void* q, const void* k, const void* v, const float* ks,
+              const float* vs, const int* pos, const int* bt,
+              const int* q_pos, void* out, float* kn, float* vn, int B,
+              int Tq, int KV, int G, int P, int page, long long s_n,
+              long long s_page, long long s_kv, int window, float scale,
+              int per_qhead, cudaStream_t stream) {
   const int ntiles = (P * page + tc::kKeys - 1) / tc::kKeys;
-  const size_t smem = tc_smem_bytes(D, ntiles);
-  cudaError_t err = paged::allow_smem(paged_prefill_tc_kernel<D>, smem);
+  const size_t smem =
+      tc_smem_bytes(D, ntiles, std::is_same_v<TP, int8_t>);
+  cudaError_t err =
+      paged::allow_smem(paged_prefill_tc_kernel<D, TP>, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = per_qhead ? Tq : G * Tq;
   const dim3 grid((rows + kRowsP - 1) / kRowsP, per_qhead ? KV * G : KV, B);
-  paged_prefill_tc_kernel<D><<<grid, kThreadsP, smem, stream>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), pos, bt, q_pos,
+  paged_prefill_tc_kernel<D, TP><<<grid, kThreadsP, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const TP*>(k),
+      static_cast<const TP*>(v), ks, vs, pos, bt, q_pos,
       static_cast<tc::bf16*>(out), per_qhead ? nullptr : kn,
       per_qhead ? nullptr : vn, Tq, KV, G, P, page, s_n, s_page, s_kv,
       window, scale, per_qhead);
@@ -390,7 +483,8 @@ int launch_tc(const void* q, const void* k, const void* v, const int* pos,
 }
 
 // ---------------------------------------------------------------------------
-// f32 query, or a bf16 query over an f32 pool, on CUDA cores
+// f32 query (f32, bf16 or int8 pool), or a bf16 query over an f32 pool, on
+// CUDA cores
 // ---------------------------------------------------------------------------
 
 template <typename TQ, typename TK>
@@ -426,21 +520,25 @@ extern "C" {
 
 // CUDA-core route. q (B, T, H, hd) contiguous, H = KV * G; k/v pool
 // (N, page, KV, hd) with element strides s_n, s_page, s_kv and hd
-// contiguous; pos (N, page) int32; bt (B, P) int32; q_pos (B, T) int32
-// (-1 == padding). out (B, T, H, hd) in q's type; kn / vn (B, KV, P, page)
-// f32 when not null (G-fold only). tile_rows: the rows one block holds
-// (folded rows, or one head's tokens when per_qhead). q_dtype / pool_dtype:
-// 0 = float32, 1 = bfloat16; a bf16 query over a bf16 pool is the
-// tensor-core route's (paged_prefill_tc) and is refused here. Returns the
-// CUDA error code of the launch (0 == success).
-int paged_prefill(const void* q, const void* k, const void* v, const int* pos,
+// contiguous; ks / vs the int8 pool's (N, page, KV) contiguous f32 scales
+// (null for a float pool); pos (N, page) int32; bt (B, P) int32; q_pos
+// (B, T) int32 (-1 == padding). out (B, T, H, hd) in q's type; kn / vn
+// (B, KV, P, page) f32 when not null (G-fold only). tile_rows: the rows
+// one block holds (folded rows, or one head's tokens when per_qhead).
+// q_dtype / pool_dtype: 0 = float32, 1 = bfloat16, 2 = int8; the pairs
+// taken are f32 / f32, f32 / bf16, bf16 / f32 and f32 / int8 (the
+// tensor-core routes' bf16 / bf16 and bf16 / int8 are paged_prefill_tc's
+// and are refused here). Returns the CUDA error code of the launch
+// (0 == success).
+int paged_prefill(const void* q, const void* k, const void* v,
+                  const float* ks, const float* vs, const int* pos,
                   const int* bt, const int* q_pos, void* out, float* kn,
                   float* vn, int B, int T, int KV, int G, int hd, int P,
                   int page, long long s_n, long long s_page, long long s_kv,
                   int tile_rows, int window, float scale, int q_dtype,
                   int pool_dtype, int per_qhead, void* stream) {
-  const paged::Pool pool{k,    v,    nullptr, nullptr, pos, s_n,
-                         s_page, s_kv, page,    hd,      KV};
+  const paged::Pool pool{k,    v,    ks,   vs, pos, s_n,
+                         s_page, s_kv, page, hd, KV};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool pq = per_qhead != 0;
   if (q_dtype == 0 && pool_dtype == 0)
@@ -454,25 +552,39 @@ int paged_prefill(const void* q, const void* k, const void* v, const int* pos,
     return launch<__nv_bfloat16, float>(pq, q, pool, bt, q_pos, out, kn, vn,
                                         B, T, KV, G, P, tile_rows, window,
                                         scale, st);
+  if (q_dtype == 0 && pool_dtype == 2 && ks != nullptr && vs != nullptr)
+    return launch<float, int8_t>(pq, q, pool, bt, q_pos, out, kn, vn, B, T,
+                                 KV, G, P, tile_rows, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Tensor-core route: a bf16 query over a bf16 pool, hd 32, 64, 80, 96 or
-// 128, every
-// pool row 16-byte aligned (s_n, s_page, s_kv multiples of 8). Arguments
-// as paged_prefill; folded row r is query head kv * G + r / T, token r % T.
+// Tensor-core routes: a bf16 query over a bf16 pool (pool_dtype 1) or over
+// an int8 pool with its scales ks / vs (pool_dtype 2), hd 32, 64, 80, 96 or
+// 128, every pool row 16-byte aligned (s_n, s_page, s_kv whole 16 bytes).
+// Arguments as paged_prefill; folded row r is query head kv * G + r / T,
+// token r % T.
 int paged_prefill_tc(const void* q, const void* k, const void* v,
-                     const int* pos, const int* bt, const int* q_pos,
-                     void* out, float* kn, float* vn, int B, int T, int KV,
-                     int G, int hd, int P, int page, long long s_n,
-                     long long s_page, long long s_kv, int window,
-                     float scale, int per_qhead, void* stream) {
+                     const float* ks, const float* vs, const int* pos,
+                     const int* bt, const int* q_pos, void* out, float* kn,
+                     float* vn, int B, int T, int KV, int G, int hd, int P,
+                     int page, long long s_n, long long s_page,
+                     long long s_kv, int window, float scale, int pool_dtype,
+                     int per_qhead, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PREFILL_TC(D)                                                       \
-  case D:                                                                   \
-    return launch_tc<D>(q, k, v, pos, bt, q_pos, out, kn, vn, B, T, KV, G, \
-                        P, page, s_n, s_page, s_kv, window, scale,         \
-                        per_qhead, st);
+  const bool int8_pool = pool_dtype == 2;
+  if (pool_dtype != 1 && !(int8_pool && ks != nullptr && vs != nullptr))
+    return (int)cudaErrorInvalidValue;
+#define PREFILL_TC(D)                                                        \
+  case D:                                                                    \
+    return int8_pool                                                         \
+               ? launch_tc<D, int8_t>(q, k, v, ks, vs, pos, bt, q_pos, out,  \
+                                      kn, vn, B, T, KV, G, P, page, s_n,     \
+                                      s_page, s_kv, window, scale,           \
+                                      per_qhead, st)                         \
+               : launch_tc<D, tc::bf16>(q, k, v, nullptr, nullptr, pos, bt,  \
+                                        q_pos, out, kn, vn, B, T, KV, G, P,  \
+                                        page, s_n, s_page, s_kv, window,     \
+                                        scale, per_qhead, st);
   switch (hd) {
     PREFILL_TC(32)
     PREFILL_TC(64)

@@ -1,6 +1,6 @@
 // Shared pieces of the paged kernels, and the block-wide page walk of the
-// CUDA-core route of the paged prefill (flash_prefill.cu: f32 queries, and
-// a bf16 query over an f32 pool such as an int8 cache's dequantized one):
+// CUDA-core routes of the paged prefill (flash_prefill.cu: f32 queries over
+// an f32, bf16 or int8 pool, and a bf16 query over an f32 pool):
 // for one (request b, KV head) block, fold every page of a block-table
 // range into an online softmax over a tile of query rows. The decode kernel
 // (paged_attention.cu) has its own warp-level walk and uses only the
@@ -18,9 +18,11 @@
 // (m, l, acc) unchanged (alpha == 1, p == 0), so it is skipped outright.
 //
 // Pools are f32, bf16 or int8. An int8 pool carries (N, page, KV) f32
-// absmax scales and each element is dequantized on load as
-// x * (scale / 127), the JAX package's order, so the tiles in shared memory
-// (and the norms taken from them) are the dequantized values.
+// absmax scales: each page's scale / 127 (a correctly rounded division) is
+// computed once per token into shared memory, and each element is
+// dequantized on load as x * (scale / 127), the JAX package's order, so
+// the tiles in shared memory (and the norms taken from them) are the
+// dequantized values, bit for bit those of a pool dequantized beforehand.
 #pragma once
 
 #include <cstdint>
@@ -63,6 +65,8 @@ struct Smem {
   float* m;      // rows             running max
   float* l;      // rows             running normaliser
   float* alpha;  // rows             rescale factor of the current page
+  float* kf;     // page             int8 pools: the page's k scale / 127
+  float* vf;     // page             int8 pools: the page's v scale / 127
   int* qpos;     // rows             query positions (-1 == padding)
   int* kpos;     // page             token positions of the current page
 };
@@ -70,7 +74,8 @@ struct Smem {
 inline size_t smem_bytes(int rows, int page, int hd) {
   const size_t floats = (size_t)rows * (hd + 1) + (size_t)page * (hd + 1) +
                         (size_t)page * hd + (size_t)rows * page +
-                        (size_t)rows * hd + 3 * (size_t)rows;
+                        (size_t)rows * hd + 3 * (size_t)rows +
+                        2 * (size_t)page;
   return floats * sizeof(float) + ((size_t)rows + page) * sizeof(int);
 }
 
@@ -93,6 +98,10 @@ __device__ __forceinline__ Smem carve(float* base, int rows, int page,
   base += rows;
   s.alpha = base;
   base += rows;
+  s.kf = base;
+  base += page;
+  s.vf = base;
+  base += page;
   s.qpos = reinterpret_cast<int*>(base);
   s.kpos = s.qpos + rows;
   return s;
@@ -131,6 +140,7 @@ __device__ void walk_pages(const Smem& s, const Pool& pool, int kv,
   const TK* kp = static_cast<const TK*>(pool.k);
   const TK* vp = static_cast<const TK*>(pool.v);
   const bool norms = kn_out != nullptr;
+  constexpr bool kInt8 = std::is_same_v<TK, int8_t>;
   for (int p = p0; p < p1; ++p) {
     const int phys = bt_row[p];
     const bool mapped = phys >= 0;
@@ -141,6 +151,11 @@ __device__ void walk_pages(const Smem& s, const Pool& pool, int kv,
       s.kpos[tid] = kq;
       live = mapped && kq >= 0 && kq <= qmax &&
              (window <= 0 || kq > qmin - window);
+      if constexpr (kInt8) {
+        const long long si = (pg * page + tid) * pool.kv_heads + kv;
+        s.kf[tid] = pool.k_scale[si] / 127.f;
+        s.vf[tid] = pool.v_scale[si] / 127.f;
+      }
     }
     const bool attend = __syncthreads_or(live);
     if (attend || norms) {
@@ -149,10 +164,9 @@ __device__ void walk_pages(const Smem& s, const Pool& pool, int kv,
         const int j = i / hd, d = i - j * hd;
         const long long off = base + (long long)j * pool.s_page + d;
         float kx = to_float(kp[off]), vx = to_float(vp[off]);
-        if constexpr (std::is_same_v<TK, int8_t>) {
-          const long long si = (pg * page + j) * pool.kv_heads + kv;
-          kx *= pool.k_scale[si] / 127.f;
-          vx *= pool.v_scale[si] / 127.f;
+        if constexpr (kInt8) {
+          kx *= s.kf[j];
+          vx *= s.vf[j];
         }
         s.k[j * (hd + 1) + d] = kx;
         s.v[j * hd + d] = vx;

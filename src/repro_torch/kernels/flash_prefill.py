@@ -10,7 +10,9 @@ with ``return_scores`` the per-token norms ``kn``/``vn`` (B, KV, P, page).
 A (query, key) pair is valid iff the slot is mapped, kpos >= 0, qpos >= 0,
 kpos <= qpos and, with a window, kpos > qpos - window; rows with no valid
 key give zeros. The chunk's own K/V must already be in the pool. The pool
-is f32 or bf16 whatever q is (an int8 pool is dequantized first).
+is f32 or bf16 whatever q is, or int8 with its (N, page, KV) f32 absmax
+scales (:func:`paged_prefill_int8_plain`; the CUDA wrapper takes them as
+``k_scale`` / ``v_scale`` and reads the int8 values natively).
 ``per_qhead=True`` runs the per-Q-head grid, bit-equal to the fold, with
 no norms. The kernel source is ``csrc/flash_prefill.cu``; it replaces the
 JAX package's Pallas ``paged_flash_prefill_kernel`` and
@@ -25,12 +27,13 @@ source is ``csrc/flash_attention.cu``; it replaces the JAX package's Pallas
 ``flash_attention_kernel``.
 
 **Routes.** Each CUDA wrapper picks its route from dtypes and head dim
-alone (:func:`prefill_route`, :func:`flash_route`): bf16 throughout at hd
-32, 64, 80, 96 or 128 runs on the tensor cores, an f32 query (or a bf16 query over an f32
-pool) on the CUDA cores, anything else raises. The tensor-core route rounds
-each probability to bf16 before P V, so it is held to the plain version
-within :func:`repro_torch.kernels.ref.tc_bf16_bound`, not one bf16 rounding
-step.
+alone (:func:`prefill_route`, :func:`flash_route`): bf16 throughout, or a
+bf16 query over an int8 pool, at hd 32, 64, 80, 96 or 128 runs on the
+tensor cores; an f32 query (over any pool, int8 included) or a bf16 query
+over an f32 pool on the CUDA cores; anything else raises. The tensor-core
+routes round each probability to bf16 before P V, so they are held to the
+plain version within :func:`repro_torch.kernels.ref.tc_bf16_bound`, not
+one bf16 rounding step.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import FLOAT, INT, LONG, PTR
-from repro_torch.kernels.paged_attention import _DTYPES, NEG_INF, _check_pool
+from repro_torch.kernels.paged_attention import (_DTYPES, NEG_INF,
+                                                 _check_pool, dequantize)
 from repro_torch.kernels.ref import flash_attention_ref, gather_block_table
 
 
@@ -78,9 +82,29 @@ def paged_prefill_plain(q, k_pool, v_pool, pos, block_table, q_pos, *,
     return out, norms
 
 
+def paged_prefill_int8_plain(q, k_pool, v_pool, k_scale, v_scale, pos,
+                             block_table, q_pos, **kw):
+    """Plain torch version of the prefill kernel on an int8 pool:
+    dequantize (``x * (s / 127)``), then :func:`paged_prefill_plain`, as the
+    JAX package's ``paged_prefill_attention`` does. k_pool / v_pool:
+    (N, page, KV, hd) int8; k_scale / v_scale: (N, page, KV) f32."""
+    return paged_prefill_plain(q, dequantize(k_pool, k_scale),
+                               dequantize(v_pool, v_scale), pos,
+                               block_table, q_pos, **kw)
+
+
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+INT8_TENSOR_CORE, INT8_CUDA_CORE = "int8_tensor_core", "int8_cuda_core"
+PREFILL_ROUTES = (TENSOR_CORE, CUDA_CORE, INT8_TENSOR_CORE, INT8_CUDA_CORE)
 # head dims the tensor-core tiles are built for (whole 16-column mma steps)
 TC_HEAD_DIMS = (32, 64, 80, 96, 128)
+
+
+def _tc_head_dim(what: str, hd: int) -> None:
+    if hd not in TC_HEAD_DIMS:
+        raise ValueError(f"{what} needs head dim "
+                         f"{', '.join(map(str, TC_HEAD_DIMS))} (tensor-core "
+                         f"route), not {hd}")
 
 
 def prefill_route(q_dtype, pool_dtype, hd: int) -> str:
@@ -89,20 +113,27 @@ def prefill_route(q_dtype, pool_dtype, hd: int) -> str:
     - a bf16 query over a bf16 pool at hd 32, 64, 80, 96 or 128:
       ``"tensor_core"``
       (mma.sync on 64-row tiles, key tiles gathered by cp.async);
-    - an f32 query over either pool, or a bf16 query over an f32 pool (the
-      pool an int8 cache dequantizes to): ``"cuda_core"`` (f32 products;
-      rounding that f32 pool to bf16 would move the scores far beyond a
-      one-rounding tolerance);
-    - anything else raises (a bf16 pair at another hd included): no route
-      falls back to the other."""
+    - a bf16 query over an int8 pool at those head dims:
+      ``"int8_tensor_core"`` (the same tiles; int8 pages copied in as int8
+      and widened to bf16 in shared memory, exactly; the per-key scales
+      applied to the scores and folded into the probabilities in f32);
+    - an f32 query over an int8 pool: ``"int8_cuda_core"`` (the CUDA-core
+      page walk dequantizing each value in registers as ``x * (s / 127)``);
+    - an f32 query over an f32 or bf16 pool, or a bf16 query over an f32
+      pool: ``"cuda_core"`` (f32 products; rounding the f32 pool to bf16
+      would move the scores far beyond a one-rounding tolerance);
+    - anything else raises (a bf16 query at another hd included): no
+      route falls back to another."""
+    floats = (torch.float32, torch.bfloat16)
     if q_dtype == torch.bfloat16 and pool_dtype == torch.bfloat16:
-        if hd in TC_HEAD_DIMS:
-            return TENSOR_CORE
-        raise ValueError(f"a bf16 query over a bf16 pool needs head dim "
-                         f"{', '.join(map(str, TC_HEAD_DIMS))} (tensor-core "
-                         f"route), not {hd}")
-    if q_dtype in (torch.float32, torch.bfloat16) and \
-            pool_dtype in (torch.float32, torch.bfloat16):
+        _tc_head_dim("a bf16 query over a bf16 pool", hd)
+        return TENSOR_CORE
+    if q_dtype == torch.bfloat16 and pool_dtype == torch.int8:
+        _tc_head_dim("a bf16 query over an int8 pool", hd)
+        return INT8_TENSOR_CORE
+    if q_dtype == torch.float32 and pool_dtype == torch.int8:
+        return INT8_CUDA_CORE
+    if q_dtype in floats and pool_dtype in floats:
         return CUDA_CORE
     raise TypeError(f"no prefill route for a {q_dtype} query over a "
                     f"{pool_dtype} pool")
@@ -115,33 +146,43 @@ def tile_rows(hd: int) -> int:
 
 
 def _check_16b(**tensors) -> None:
-    """What the tensor-core route's 16-byte copies need: 16-byte aligned
-    bases and, for the pool, element strides that are multiples of 8."""
+    """What the tensor-core routes' 16-byte copies need: 16-byte aligned
+    bases and, for the pool, strides of whole 16 bytes (multiples of 8
+    elements of a bf16 pool, of 16 of an int8 one)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-        if name.endswith("pool") and any(st % 8 for st in t.stride()[:3]):
+        per = 16 // t.element_size()
+        if name.endswith("pool") and any(st % per for st in t.stride()[:3]):
             raise ValueError(f"{name} strides {t.stride()} are not "
-                             f"multiples of 8 elements")
+                             f"multiples of {per} elements")
 
 
 def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
-                       window: int = 0, scale: float | None = None,
+                       k_scale=None, v_scale=None, window: int = 0,
+                       scale: float | None = None,
                        return_scores: bool = False, per_qhead: bool = False):
     """Launch the CUDA prefill kernel (the per-Q-head one when
     ``per_qhead``) on the route :func:`prefill_route` picks; same contract
-    as :func:`paged_prefill_plain`. Raises on an input that
-    requires grad under autograd, on CPU tensors, on what no route
-    takes, or on a failed launch. The tensor-core fold orders its rows
-    g * T + t, the JAX package's order (a token-major order measured no
-    faster at the mixed step, PERF.md §6). Launch counts:
-    ``paged_prefill_cuda.launches``
-    (G-fold), ``.per_qhead_launches``, and per route over both grids
-    ``.tensor_core_launches`` and ``.cuda_core_launches``."""
-    build.refuse_autograd("paged_prefill", q, k_pool, v_pool)
+    as :func:`paged_prefill_plain`, or, over an int8 pool with its
+    ``k_scale`` / ``v_scale``, as :func:`paged_prefill_int8_plain` (the
+    kernel reads the int8 values and scales; nothing is dequantized
+    first). Raises on an input that requires grad under autograd, on CPU
+    tensors, on what no route takes, or on a failed launch. The
+    tensor-core fold orders its rows g * T + t, the JAX package's order (a
+    token-major order measured no faster at the mixed step, PERF.md §6).
+    Launch counts: ``paged_prefill_cuda.launches`` (G-fold),
+    ``.per_qhead_launches``, and per route over both grids
+    ``.tensor_core_launches``, ``.cuda_core_launches``,
+    ``.int8_tensor_core_launches`` and ``.int8_cuda_core_launches``."""
+    build.refuse_autograd("paged_prefill", q, k_pool, v_pool, k_scale,
+                          v_scale)
     if per_qhead and return_scores:
         raise ValueError("the per-Q-head kernel has no score epilogue")
-    _check_pool(q, k_pool, v_pool, pos, block_table)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 pool needs both k_scale and v_scale")
+    scales = None if k_scale is None else (k_scale, v_scale)
+    _check_pool(q, k_pool, v_pool, pos, block_table, scales)
     q = q.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     B, T, H, hd = q.shape
@@ -163,13 +204,14 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
     ptr = lambda t: t.data_ptr() if t is not None else None
     sn, sp, skv, _ = k_pool.stride()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    head = (ptr(q), ptr(k_pool), ptr(v_pool), ptr(pos), ptr(block_table),
-            ptr(q_pos), ptr(out), ptr(kn), ptr(vn), B, T, KV, G, hd, P, page,
-            sn, sp, skv)
-    if route == TENSOR_CORE:
+    head = (ptr(q), ptr(k_pool), ptr(v_pool), ptr(k_scale), ptr(v_scale),
+            ptr(pos), ptr(block_table), ptr(q_pos), ptr(out), ptr(kn),
+            ptr(vn), B, T, KV, G, hd, P, page, sn, sp, skv)
+    if route in (TENSOR_CORE, INT8_TENSOR_CORE):
         _check_16b(q=q, k_pool=k_pool, v_pool=v_pool)
         rc = lib.paged_prefill_tc(*head, int(window), float(scale),
-                                  int(per_qhead), stream)
+                                  _DTYPES[k_pool.dtype], int(per_qhead),
+                                  stream)
     else:
         rc = lib.paged_prefill(*head, tile_rows(hd), int(window),
                                float(scale), _DTYPES[q.dtype],
@@ -185,14 +227,16 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
 
 
 _PREFILL_SIGNATURES = {
-    "paged_prefill_tc": [PTR] * 9 + [INT] * 7 + [LONG] * 3 +
-    [INT, FLOAT, INT, PTR],
-    "paged_prefill": [PTR] * 9 + [INT] * 7 + [LONG] * 3 + [INT] * 2 +
+    "paged_prefill_tc": [PTR] * 11 + [INT] * 7 + [LONG] * 3 +
+    [INT, FLOAT, INT, INT, PTR],
+    "paged_prefill": [PTR] * 11 + [INT] * 7 + [LONG] * 3 + [INT] * 2 +
     [FLOAT, INT, INT, INT, PTR]}
 paged_prefill_cuda.launches = 0
 paged_prefill_cuda.per_qhead_launches = 0
 paged_prefill_cuda.tensor_core_launches = 0
 paged_prefill_cuda.cuda_core_launches = 0
+paged_prefill_cuda.int8_tensor_core_launches = 0
+paged_prefill_cuda.int8_cuda_core_launches = 0
 
 
 # ---------------------------------------------------------------------------

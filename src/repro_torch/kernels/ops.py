@@ -16,9 +16,15 @@ the kernels' per-token ||K|| / ||V|| epilogue by ``page_scores_from_norms``
 kernels themselves take ``KV`` and ``G`` from the local shapes: a rank's
 pool holds its KV/tp heads.
 
-int8 pools: decode reads them natively (the int8 kernel dequantizes in
-registers); chunked prefill and page scoring dequantize the pool in plain
-torch first and run the float kernels, as the JAX package does.
+int8 pools: decode and chunked prefill read them natively on the card.
+The decode kernel dequantizes in registers; the prefill kernel takes a bf16
+query on its int8 tensor-core route (int8 pages widened to bf16 in shared
+memory, the scales applied to the scores and folded into the
+probabilities) and an f32 query on its int8 CUDA-core route (dequantized in
+registers). Neither dequantizes the pool first. Their plain versions
+dequantize and run the float ones, as the JAX package does for the
+prefill. Page scoring (the pool pass, an oracle on no path) still
+dequantizes the pool in plain torch first.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.kernels.block_score import block_score_cuda, block_score_plain
 from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                flash_attention_plain,
                                                paged_prefill_cuda,
+                                               paged_prefill_int8_plain,
                                                paged_prefill_plain)
 from repro_torch.kernels.paged_attention import (combine_splits,
                                                  paged_attention_cuda,
@@ -76,11 +83,22 @@ def paged_prefill_attention(q, cache: PagedLayerCache, *, q_pos,
                             group=None):
     """Chunked-prefill attention (G-fold). q: (B, T, H, hd); q_pos: (B, T)
     int32, -1 == padding -> ((B, T, H, hd), page_scores (B, P) or None).
-    The chunk's K/V must already be appended to the pool."""
-    fn = paged_prefill_plain if plain or not q.is_cuda else paged_prefill_cuda
-    out, norms = fn(q, cache.k_dequant(), cache.v_dequant(), cache.pos,
-                    cache.block_table, q_pos, window=window, scale=scale,
-                    return_scores=return_scores)
+    The chunk's K/V must already be appended to the pool. An int8 pool goes
+    to the kernel as int8 values and scales (never dequantized first)."""
+    kernel = not plain and q.is_cuda
+    kw = dict(window=window, scale=scale, return_scores=return_scores)
+    args = (cache.pos, cache.block_table, q_pos)
+    if not cache.quantized:
+        fn = paged_prefill_cuda if kernel else paged_prefill_plain
+        out, norms = fn(q, cache.k, cache.v, *args, **kw)
+    elif kernel:
+        out, norms = paged_prefill_cuda(q, cache.k, cache.v, *args,
+                                        k_scale=cache.k_scale,
+                                        v_scale=cache.v_scale, **kw)
+    else:
+        out, norms = paged_prefill_int8_plain(q, cache.k, cache.v,
+                                              cache.k_scale, cache.v_scale,
+                                              *args, **kw)
     return out, _scores(cache, norms, group)
 
 

@@ -89,8 +89,11 @@ def paged_attention_plain(q, k_pool, v_pool, pos, block_table, cur_pos, *,
 
 def dequantize(x, scale):
     """int8 values (..., hd) and their absmax scales (...,) -> f32, as the
-    JAX package's ``k_dequant``: ``x * (scale / 127)``."""
-    return x.float() * (scale / 127.0)[..., None]
+    JAX package's ``k_dequant``: ``x * (scale / 127)``, the division
+    correctly rounded on every device. (A Python-number divisor would let
+    PyTorch's CUDA division multiply by the reciprocal instead, one ulp
+    off for some scales; a 0-dim tensor divisor divides.)"""
+    return x.float() * (scale / scale.new_full((), 127.0))[..., None]
 
 
 def paged_attention_int8_plain(q, k_pool, v_pool, k_scale, v_scale, pos,

@@ -18,7 +18,12 @@ value (both compute in f32, so a bf16 output may differ by one rounding
 step); bf16 on the tensor-core routes within ``ref.tc_bf16_bound`` (each
 probability is rounded to bf16 before P V); norms and page scores within
 1e-3 relative. Each launch's route is checked against its counter.
-The per-Q-head prefill kernel must equal the G-fold one bit for bit.
+The per-Q-head prefill kernel must equal the G-fold one bit for bit. On
+an int8 pool the prefill kernel reads the int8 values and scales: with a
+bf16 query on its int8 tensor-core route, within ``ref.tc_bf16_bound`` of
+the plain version over the dequantized pool; with an f32 query on its int8
+CUDA-core route, bit-equal to the CUDA-core route over the dequantized
+pool and within 1e-4 of the plain version; norms within 1e-5 relative.
 Under autograd every wrapper refuses an input that requires grad (the
 kernels have no backward pass); forward_train launches none of them.
 Every kernel also at the head dims beside 64 and 128 (``NEW_HD``): TINY's
@@ -40,9 +45,10 @@ from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
                                                flash_attention_plain,
                                                flash_route,
                                                paged_prefill_cuda,
+                                               paged_prefill_int8_plain,
                                                paged_prefill_plain,
                                                prefill_route)
-from repro_torch.kernels.paged_attention import (combine_splits,
+from repro_torch.kernels.paged_attention import (combine_splits, dequantize,
                                                  paged_attention_cuda,
                                                  paged_attention_int8_cuda,
                                                  paged_attention_int8_plain,
@@ -170,6 +176,43 @@ def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, pool_dtype, atol,
         # the per-Q-head grid: bit-equal to the fold
         o3, _ = paged_prefill_cuda(q, k, v, pos, bt, qp, window=window,
                                    per_qhead=True)
+        assert torch.equal(o3, o), float((o3.float() - o.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd", [(8, 4, 64), (8, 3, 128)] + NEW_HD)
+def test_cuda_prefill_int8_matches_plain(cuda, KV, G, hd, dtype):
+    k, v, ks, vs, pos, bt, cur = ref.churned_pool(8, 49, 16, KV, hd,
+                                                  torch.int8, seed=hd + 7,
+                                                  device=cuda)
+    kd, vd = dequantize(k, ks), dequantize(v, vs)
+    qp = ref.prefill_positions(cur.cpu(), 256).to(cuda)
+    q = torch.randn((8, 256, KV * G, hd), device=cuda).to(dtype)
+    route = prefill_route(dtype, torch.int8, hd)
+    assert route == ("int8_cuda_core" if dtype == torch.float32
+                     else "int8_tensor_core")
+    for window in (0, 128):
+        kw = dict(window=window, return_scores=True)
+        before = getattr(paged_prefill_cuda, f"{route}_launches")
+        o, nk = paged_prefill_cuda(q, k, v, pos, bt, qp, k_scale=ks,
+                                   v_scale=vs, **kw)
+        assert getattr(paged_prefill_cuda, f"{route}_launches") == before + 1
+        o2, nk2 = paged_prefill_int8_plain(q, k, v, ks, vs, pos, bt, qp, **kw)
+        assert not o[7].any(), "padding rows must output zeros"
+        if route == "int8_tensor_core":
+            w = ref.abs_value_weight(q, kd, vd, window=window, pos=pos,
+                                     block_table=bt, q_pos=qp)
+            _assert_within(o, o2, ref.tc_bf16_bound(o2, w))
+        else:
+            o4, nk4 = paged_prefill_cuda(q, kd, vd, pos, bt, qp, **kw)
+            assert torch.equal(o, o4), float((o - o4).abs().max())
+            assert all(torch.equal(x, y) for x, y in zip(nk, nk4))
+            torch.testing.assert_close(o, o2, atol=1e-4, rtol=0.0)
+        for x, y in zip(nk, nk2):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+        o3, _ = paged_prefill_cuda(q, k, v, pos, bt, qp, k_scale=ks,
+                                   v_scale=vs, window=window, per_qhead=True)
         assert torch.equal(o3, o), float((o3.float() - o.float()).abs().max())
 
 

@@ -7,6 +7,12 @@
   ``paged_attention_kernel_int8`` (interpret mode), at the shapes of
   tests/test_quantized_cache.py and on churned pools: outputs within 3e-5,
   norm tiles within 1e-5.
+- The chunked prefill on an int8 cache: ``paged_prefill_int8_plain`` and
+  ``ops.paged_prefill_attention`` (which take the int8 values and scales;
+  on the card the kernel reads them natively) against the JAX package's
+  ``paged_prefill_attention`` (its Pallas kernel in interpret mode over the
+  dequantized pool) on a churned cache: outputs within 1e-4, page scores
+  within 1e-6.
 - The serving engine on an int8 pool against the JAX ``Engine``: greedy
   tokens and every step's devstats equal. Both sides rank evictions the
   same way (stored scores, or both the fused epilogue): on int8 pools the
@@ -28,17 +34,19 @@ from repro.configs import CacheConfig as JCacheConfig
 from repro.configs import get_arch as jget_arch
 from repro.core import paged_cache as jpc
 from repro.core.policies import get_policy as jget_policy
+from repro.kernels import ops as jops
 from repro.kernels.paged_attention import paged_attention_kernel_int8
 from repro.models import transformer as jtf
 from repro.serving import Engine as JEngine
 from repro_torch.configs import CacheConfig, ModelConfig
-from repro_torch.convert import (jax_cache_layers, layer_cache_to_numpy,
-                                 params_from_jax)
+from repro_torch.convert import (jax_cache_layers, layer_cache_from_jax,
+                                 layer_cache_to_numpy, params_from_jax)
 from repro_torch.core import devstats
 from repro_torch.core import paged_cache as tpc
 from repro_torch.core.policies import get_policy
-from repro_torch.kernels import ref
-from repro_torch.kernels.paged_attention import (combine_splits,
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_prefill import paged_prefill_int8_plain
+from repro_torch.kernels.paged_attention import (combine_splits, dequantize,
                                                  paged_attention_int8_plain)
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import Engine
@@ -191,6 +199,64 @@ def test_int8_decode_plain_matches_pallas_churned(splits):
     for got, want in zip(norms, jnorms):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_dequantize_divides_exactly():
+    """x * (s / 127) with s / 127 a true f32 division, as the JAX package's
+    k_dequant and the int8 kernels compute it (on the card PyTorch would
+    multiply by the reciprocal for a Python-number divisor)."""
+    s = np.random.default_rng(0).uniform(0, 4, 1 << 16).astype(np.float32)
+    ones = torch.ones((s.size, 1), dtype=torch.int8)
+    got = dequantize(ones, torch.from_numpy(s))[:, 0].numpy()
+    np.testing.assert_array_equal(got, s / np.float32(127.0))
+
+
+@pytest.mark.parametrize("window", [0, 20])
+def test_int8_prefill_matches_jax(window):
+    """A churned int8 cache (3 rows of 7 slots of page 8, KV 2, G 2, hd 16:
+    shared pages, unmapped slots, a partly filled page, a prefill row, a
+    partial one, a decode row of padding queries); values, scales and q from
+    one numpy seed."""
+    B, P, page, KV, G, hd, T = 3, 7, 8, 2, 2, 16, 12
+    _, _, _, _, pos, bt, cur = ref.churned_pool(B, P, page, KV, hd,
+                                                torch.int8, seed=5,
+                                                device="cpu")
+    N = pos.shape[0]
+    rng = np.random.default_rng(window)
+    k8, v8 = (rng.integers(-127, 128, (N, page, KV, hd)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.1, 4.0, (N, page, KV)).astype(np.float32)
+              for _ in range(2))
+    q = rng.standard_normal((B, T, KV * G, hd)).astype(np.float32)
+    qp = ref.prefill_positions(cur, T)
+    jc = jpc.PagedLayerCache(
+        k=jnp.asarray(k8), v=jnp.asarray(v8), pos=jnp.asarray(pos.numpy()),
+        score=jnp.full((N, page), -jnp.inf, jnp.float32),
+        block_table=jnp.asarray(bt.numpy()),
+        ref_count=jnp.ones((N,), jnp.int32),
+        cur_page=jnp.zeros((B,), jnp.int32),
+        cur_off=jnp.zeros((B,), jnp.int32),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    tc = layer_cache_from_jax(jc, device="cpu")
+    jout, jscores = jops.paged_prefill_attention(
+        jnp.asarray(q), jc, q_pos=jnp.asarray(qp.numpy()), window=window,
+        return_scores=True)
+    out, scores = ops.paged_prefill_attention(
+        torch.from_numpy(q), tc, q_pos=qp, window=window, return_scores=True)
+    plain, norms = paged_prefill_int8_plain(
+        torch.from_numpy(q), tc.k, tc.v, tc.k_scale, tc.v_scale, tc.pos,
+        tc.block_table, qp, window=window, return_scores=True)
+    assert torch.equal(out, plain)
+    assert not out[B - 1].any(), "padding queries must output zeros"
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-4,
+                               rtol=0)
+    jscores = np.asarray(jscores)
+    np.testing.assert_array_equal(np.isinf(scores.numpy()),
+                                  np.isinf(jscores))
+    fin = np.isfinite(jscores)
+    assert fin.any() and (~fin).any()
+    np.testing.assert_allclose(scores.numpy()[fin], jscores[fin], atol=1e-6,
+                               rtol=0)
 
 
 def _kv2():

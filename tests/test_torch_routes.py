@@ -4,10 +4,12 @@ decode kernel's shape rule, on the CPU.
 A route is a function of dtypes and head dim alone, written down in the
 wrappers (``prefill_route``, ``flash_route``): bf16 throughout at hd 32, 64,
 80, 96 or 128 runs on the tensor cores; an f32 query, or a bf16 query over an f32
-pool (the dequantized int8 pool), on the CUDA cores; anything else raises.
-No route falls back to the other. The tensor-core route's 16-byte copies
-need aligned bases and pool strides in multiples of 8 elements, which the
-wrappers check and refuse otherwise.
+pool, on the CUDA cores; anything else raises. An int8 pool is read
+natively: a bf16 query over it takes the int8 tensor-core route at those
+head dims (and raises at any other, naming them), an f32 query the int8
+CUDA-core route. No route falls back to another. The tensor-core routes'
+16-byte copies need aligned bases and pool strides of whole 16 bytes (8
+bf16 or 16 int8 elements), which the wrappers check and refuse otherwise.
 
 The decode kernel (``decode_shape_check``) takes an f32 or bf16 query over
 an f32, bf16 or int8 pool at head dim 64 or 128, over a pool of its own
@@ -47,13 +49,30 @@ def test_prefill_f32_and_bf16_over_f32_take_cuda_cores(q_dtype, pool_dtype,
     (BF16, BF16, 40, ValueError),           # no tensor-core tile at hd 40
     (BF16, BF16, 72, ValueError),
     (BF16, BF16, 136, ValueError),
-    (BF16, torch.int8, 64, TypeError),      # int8 pools are dequantized first
+    (torch.float16, torch.int8, 64, TypeError),  # no f16 query route
     (torch.float16, torch.float16, 64, TypeError),
 ])
 def test_prefill_route_refuses_the_rest(q_dtype, pool_dtype, hd, exc):
     with pytest.raises(exc, match="32, 64, 80, 96, 128" if exc is ValueError
                        else None):
         fp.prefill_route(q_dtype, pool_dtype, hd)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128])
+def test_prefill_bf16_over_int8_takes_int8_tensor_cores(hd):
+    assert fp.prefill_route(BF16, torch.int8, hd) == fp.INT8_TENSOR_CORE
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 128])
+def test_prefill_f32_over_int8_takes_int8_cuda_cores(hd):
+    assert fp.prefill_route(F32, torch.int8, hd) == fp.INT8_CUDA_CORE
+
+
+@pytest.mark.parametrize("hd", [16, 48, 72, 136])
+def test_prefill_bf16_over_int8_refuses_other_head_dims(hd):
+    with pytest.raises(ValueError, match="int8 pool needs head dim 32, 64, "
+                                         "80, 96, 128"):
+        fp.prefill_route(BF16, torch.int8, hd)
 
 
 @pytest.mark.parametrize("dtype,hd,route", [
@@ -85,6 +104,16 @@ def test_16_byte_copy_checks():
         fp._check_16b(k_pool=padded)
     with pytest.raises(ValueError, match="aligned"):
         fp._check_16b(q=torch.zeros(1000, dtype=BF16)[1:])
+
+
+def test_16_byte_copy_checks_int8_pool():
+    """An int8 pool's rows are whole 16-byte chunks at hd 32, 64, 80, 96
+    and 128; a stride of 8 int8 elements is half a chunk."""
+    for hd in (32, 64, 80, 96, 128):
+        fp._check_16b(k_pool=torch.zeros((4, 16, 2, hd), dtype=torch.int8))
+    padded = torch.zeros((4, 16, 2, 72), dtype=torch.int8)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fp._check_16b(k_pool=padded)
 
 
 @pytest.mark.parametrize("q_dtype", [F32, BF16])
