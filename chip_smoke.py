@@ -27,7 +27,10 @@ Phases (any failure exits non-zero; none is skipped):
               slab of 65 pages), bf16 pools, windows 0 and > 0, and
               musicgen-medium's 24 / 24 heads (G 1, hd 64; it has no
               window), window 0. f32
-              cases within 1e-4; the tensor-core routes (bf16 prefill over a bf16
+              cases within 1e-4 (at hd 32, 64, 80, 96 and 128 on the
+              split-TF32 tensor-core routes of K3 / K4 / K5; the CUDA-core
+              routes, which take the other head dims, at hd 48); the bf16
+              tensor-core routes (bf16 prefill over a bf16
               pool, bf16 flash) within the derived bound 1e-5 + 2**-7 |plain|
               + 2**-8 (P |V|) / l; each case names its route. Then each one's
               time at the main path's shapes, as ms (events around the call,
@@ -44,14 +47,19 @@ Phases (any failure exits non-zero; none is skipped):
               80, 96, 128; windows 0 and > 0): a bf16 query on the int8
               tensor-core route within the derived bound (worst ratio
               printed; NaN scales on the slots no query sees change no bit),
-              an f32 query on the int8 CUDA-core route bit-equal to the
-              CUDA-core route over the dequantized pool and within 1e-4;
+              an f32 query on the int8 f32 tensor-core route bit-equal to
+              the f32 route over the dequantized pool and within 1e-4;
               norms within 1e-5 relative. Then K3 over an int8 pool at
-              phase 6's shape (bf16 query) and TINY's (f32) before and
-              after: dequantize, the CUDA-core launch over the dequantized
-              view, the two together, the int8-native route, with bounds,
-              SDPA over the dequantized view, the plain version and the
-              peak memory above the inputs; prints phase 2's seconds
+              phase 6's shape (bf16 query) before and after: dequantize,
+              the CUDA-core launch over the dequantized view, the two
+              together, the int8-native route, with bounds, SDPA over the
+              dequantized view, the plain version and the peak memory above
+              the inputs. Then the f32 routes timed (time_f32): K3 / K4
+              over f32 and int8 pools (f32 query) and K5, at TINY's heads
+              and llama-3.2-1b's, each with SDPA f32's device time, the
+              launch floor and both operation bounds (f32 CUDA cores, 67
+              TFLOP/s; split TF32, 165) beside the bytes'; prints phase
+              2's seconds
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions, under
               paged_eviction and each of the paper's baselines: the engine on
@@ -62,7 +70,8 @@ Phases (any failure exits non-zero; none is skipped):
               equal; on int8 pools, where a quantizer input rounds
               differently on the two runs, the first such value on both
               sides (the int8 engines' prefill launches all on K3's int8
-              CUDA-core route). The engines run with a trace, the lineage ledger and a
+              f32 tensor-core route; the float engines' on its f32
+              tensor-core route). The engines run with a trace, the lineage ledger and a
               timeline: the two routes' step records (timing fields aside)
               and lineage events equal, the ledger reconciled after every
               step; and the float paged_eviction requests served once more
@@ -110,11 +119,11 @@ Phases (any failure exits non-zero; none is skipped):
   6. int8     phase 4's workload (4 requests) served on an int8 pool at 1
               of the 16 layers (full width; depth cut for the run time;
               every prefill launch on the int8 tensor-core route, none on
-              the CUDA cores, no k_dequant / v_dequant call); each step's
+              a float pool's route, no k_dequant / v_dequant call); each step's
               peak device memory above its start; one mixed step's
               attention call rerun on its own inputs through the int8
-              route and through the old path (dequantize + CUDA-core
-              route): peak above the inputs, both outputs against the
+              route and through the old path (dequantize, then the
+              float-pool route): peak above the inputs, both outputs against the
               plain version
   7. baselines the paper's comparison: streaming_llm, inverse_key_l2 and
               keydiff each serve 4 of phase 4's requests (16 greedy tokens)
@@ -154,7 +163,7 @@ Phases (any failure exits non-zero; none is skipped):
               9c: TINY (benchmarks/accuracy.py) trained 900 steps on the
               recall task by accuracy.py's recipe, then scored on 6
               held-out batches by forward_prefill and 2 decode_steps (K5 on
-              the f32 CUDA-core route, K1): full at budget 32 must answer
+              the f32 tensor-core route, K1): full at budget 32 must answer
               >= 0.60; paged_eviction and streaming_llm at budgets 16 and 8
               are printed. Prints phase 9's seconds.
  10. families stablelm-3b (4 of 32 layers), gemma3-27b (6 of 62: one period
@@ -275,6 +284,13 @@ Phases (any failure exits non-zero; none is skipped):
               one, and (b)'s full-width decode step on a fake (2, 2)
               group, whose temp must lie within 0.5-2x the peak above
               the arguments measured on each rank.
+  16. f32     llama-3.2-1b at full width in f32 (random f32 weights from
+              a seed, an f32 pool): phase 5's one-shot prompts at 4 of 16
+              layers (K5 on its f32 tensor-core route) and phase 4's
+              serving workload at 1 layer (K3 on its f32 tensor-core
+              route), each through the kernels and through their plain
+              versions: greedy tokens equal, logits within 1e-4, every
+              K3 / K5 launch on the f32 tensor-core routes.
 
 Prints the card's name and power limit, one JSON line describing every
 kernel (with the route each timing took, "timed_route", the device-only
@@ -301,15 +317,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,      # CUDA cores, no tensor cores
-              "bfloat16": 989e12}    # dense tensor-core rate
-# |kernel - plain| <= atol + rtol * |plain|, elementwise, on the CUDA-core
-# routes. Both compute in f32; a bf16 output differs from the plain one only
+              "bfloat16": 989e12,    # dense tensor-core rate
+              # an f32 product as three TF32 products (split TF32) on the
+              # dense TF32 tensor-core rate, 495 / 3
+              "float32_tf32x3": 165e12}
+# |kernel - plain| <= atol + rtol * |plain|, elementwise, on the f32 routes
+# (split TF32 on the tensor cores, or the CUDA cores). Both compute in f32
+# (the split-TF32 products to about 2^-22 of each product, the tensor
+# core's sums not rounded to nearest); a bf16 output differs from the plain one only
 # where the two f32 values round to neighbouring bf16 numbers: one step, at
 # most 2**-7 of the value. The tensor-core routes (bf16 q over bf16 K/V)
 # round each probability to bf16 before P V and are held to
 # ref.tc_bf16_bound: 1e-5 + 2**-7 |plain| + 2**-8 (P |V|) / l.
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-5, 2 ** -7)}
 NORM_RTOL = 1e-3
+# the route of an f32 query over an int8 pool at the reduced configs' hd 64
+INT8_F32_ROUTE = "int8_f32_tensor_core"
 KERNELS = {
     "paged_decode": dict(
         source="src/repro_torch/csrc/paged_attention.cu",
@@ -323,15 +346,23 @@ KERNELS = {
     "paged_prefill_per_qhead": dict(
         source="src/repro_torch/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill.py:322"),
-    # K3's int8-native routes: a bf16 query on the tensor cores (phase 6's
-    # main path), an f32 query on the CUDA cores (the reduced f32 configs)
+    # K3's int8-native route under a bf16 query (phase 6's main path)
     "paged_prefill_int8": dict(
         source="src/repro_torch/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill.py:240"),
-    "paged_prefill_int8_cuda_core": dict(
+    # K3's and K5's f32 routes, split TF32 on the tensor cores: an f32 query
+    # over an f32 pool (phase 16's serving, the reduced f32 configs) and over
+    # an int8 pool (phase 3's int8 engines); K5 in f32 (phase 16's one-shot)
+    "paged_prefill_f32": dict(
+        source="src/repro_torch/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_prefill.py:240"),
+    "paged_prefill_int8_f32": dict(
         source="src/repro_torch/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill.py:240"),
     "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_prefill.py:115"),
+    "flash_attention_f32": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_prefill.py:115"),
     "block_score": dict(
@@ -357,7 +388,8 @@ def launch_counters():
     and of the prefill and flash wrappers' counts per route
     ("paged_prefill/tensor_core", "paged_prefill/int8_tensor_core", ...)."""
     from repro_torch.kernels.block_score import block_score_cuda
-    from repro_torch.kernels.flash_prefill import (PREFILL_ROUTES,
+    from repro_torch.kernels.flash_prefill import (FLASH_ROUTES,
+                                                   PREFILL_ROUTES,
                                                    flash_attention_cuda,
                                                    paged_prefill_cuda)
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -373,7 +405,7 @@ def launch_counters():
                for name, fn, routes in (
                    ("paged_prefill", paged_prefill_cuda, PREFILL_ROUTES),
                    ("flash_attention", flash_attention_cuda,
-                    ("tensor_core", "cuda_core")))
+                    FLASH_ROUTES))
                for route in routes}}
 
 
@@ -711,14 +743,16 @@ def check_prefill_int8(torch, worst, label, shape, Pn, windows, q_dtype,
     slots, a partly filled page; padding rows) at each window, q of
     ``q_dtype``: a bf16 query on the int8 tensor-core route within
     ref.tc_bf16_bound of the plain version over the dequantized pool (the
-    worst ratio printed); an f32 query on the int8 CUDA-core route
-    bit-equal to the CUDA-core route over the dequantized view and within
-    1e-4 of the plain version; norms within INT8_NORM_RTOL; the per-Q-head
+    worst ratio printed); an f32 query on the int8 f32 tensor-core route
+    (the int8 CUDA-core route at a head dim without a tensor-core tile)
+    bit-equal to the f32 route over the dequantized view and within 1e-4
+    of the plain version; norms within INT8_NORM_RTOL; the per-Q-head
     kernel bit-equal to the G-fold one. ``stale``: the scales of every pool
     slot at position < 0 are then set to NaN, and the tensor-core route's
     output must not change by a bit (a masked key's probability is 0
     before its scale is applied)."""
-    from repro_torch.kernels.flash_prefill import (INT8_TENSOR_CORE,
+    from repro_torch.kernels.flash_prefill import (INT8_F32_TENSOR_CORE,
+                                                   INT8_TENSOR_CORE,
                                                    paged_prefill_cuda,
                                                    paged_prefill_int8_plain,
                                                    prefill_route)
@@ -734,7 +768,9 @@ def check_prefill_int8(torch, worst, label, shape, Pn, windows, q_dtype,
     q = torch.randn((B, T, KV * G, hd), generator=g).to(q_dtype).cuda()
     route = prefill_route(q_dtype, torch.int8, hd)
     tc = route == INT8_TENSOR_CORE
-    name = "paged_prefill_int8" if tc else "paged_prefill_int8_cuda_core"
+    name = {INT8_TENSOR_CORE: "paged_prefill_int8",
+            INT8_F32_TENSOR_CORE: "paged_prefill_int8_f32"}.get(
+                route, "paged_prefill_int8_cuda_core")
     dname = str(q_dtype).removeprefix("torch.")
     scales = dict(k_scale=ks, v_scale=vs)
     for window in windows:
@@ -757,13 +793,14 @@ def check_prefill_int8(torch, worst, label, shape, Pn, windows, q_dtype,
             extra = f"; worst ratio to tc_bf16_bound {share:.4f}"
         else:
             o4, nk4 = paged_prefill_cuda(q, kd, vd, pos, bt, qp, **kw)
+            r4 = prefill_route(q_dtype, kd.dtype, hd)
             same = torch.equal(o, o4) and all(
                 torch.equal(a, b) for a, b in zip(nk, nk4))
-            extra = f"; bit-equal to the CUDA-core route over the " \
+            extra = f"; bit-equal to the {r4} route over the " \
                 f"dequantized view: {same} (max diff " \
                 f"{float((o - o4).abs().max()):.3g})"
             if not same:
-                fail(f"{name} is not bit-equal to the CUDA-core route over "
+                fail(f"{name} is not bit-equal to the {r4} route over "
                      f"the dequantized view ({case})")
         extra += f"; norms {nerr:.3g} (tol {INT8_NORM_RTOL})"
         if not nerr <= INT8_NORM_RTOL:
@@ -814,8 +851,73 @@ def check_dequant_division(torch):
         fail("dequantize does not divide correctly rounded on the card")
 
 
-def check_kernels(torch):
+# a head dim without a tensor-core tile: the CUDA-core routes take it
+CUDA_CORE_SHAPE = (4, 2, 48, 16)    # (KV, G, hd, page)
+
+
+def check_f32_pairs(torch, worst):
+    """K3 (K4 bit for bit) with a bf16 query over an f32 pool at
+    llama-3.2-1b's heads (the f32 tensor-core route, q widened exactly;
+    within one bf16 step), and the CUDA-core routes at CUDA_CORE_SHAPE's
+    hd 48: K3 / K4 for every pair an f32 route takes (int8 through
+    check_prefill_int8), K5 in f32 on 1000 tokens; windows 0 and 8
+    pages, within the f32 tolerance (one bf16 step for a bf16 output)."""
     from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                                   flash_attention_plain,
+                                                   flash_route,
+                                                   paged_prefill_cuda,
+                                                   paged_prefill_plain,
+                                                   prefill_route)
+    from repro_torch.kernels.ref import churned_pool, prefill_positions
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("llama-3.2-1b", SHAPES["llama-3.2-1b"], bf16, f32)] + \
+        [("hd 48", CUDA_CORE_SHAPE, qt, pt)
+         for qt, pt in ((f32, f32), (f32, bf16), (bf16, f32))]
+    for n, (label, (KV, G, hd, page), qt, pt) in enumerate(cases):
+        k, v, pos, bt, cur = churned_pool(B, P, page, KV, hd, pt, 700 + n)
+        g = torch.Generator().manual_seed(700 + n)
+        qp = prefill_positions(cur.cpu(), T).cuda()
+        q = torch.randn((B, T, KV * G, hd), generator=g).to(qt).cuda()
+        route = prefill_route(qt, pt, hd)
+        dname = str(qt).removeprefix("torch.")
+        name = "paged_prefill_f32" if hd == 64 else "paged_prefill_cuda_core"
+        for window in (0, 8 * page):
+            kw = dict(window=window, return_scores=True)
+            o, nk = paged_prefill_cuda(q, k, v, pos, bt, qp, **kw)
+            o2, nk2 = paged_prefill_plain(q, k, v, pos, bt, qp, **kw)
+            o3, _ = paged_prefill_cuda(q, k, v, pos, bt, qp, window=window,
+                                       per_qhead=True)
+            torch.cuda.synchronize()
+            case = f"{label} (KV {KV}, G {G}) q {dname} pool " \
+                f"{str(pt).removeprefix('torch.')} window {window} ({route})"
+            _check(worst, name, case, *_err(o, o2, dname),
+                   _norm_err(nk, nk2), hd=hd)
+            _check(worst, "paged_prefill_per_qhead", case,
+                   *_err(o3, o2, dname),
+                   extra=f"; bit-equal to the G-fold kernel: "
+                         f"{bool(torch.equal(o3, o))}", hd=hd)
+            if not torch.equal(o3, o):
+                fail(f"the per-Q-head prefill kernel is not bit-equal to "
+                     f"the G-fold one ({case})")
+        del k, v, q
+    KV, G, hd, page = CUDA_CORE_SHAPE
+    check_prefill_int8(torch, worst, "hd 48", CUDA_CORE_SHAPE, P,
+                       (0, 8 * page), f32, 710)
+    g = torch.Generator().manual_seed(720)
+    for window in (0, 256):
+        x = [torch.randn((1, 1000, n, hd), generator=g).cuda()
+             for n in (KV * G, KV, KV)]
+        o = flash_attention_cuda(*x, window=window)
+        o2 = flash_attention_plain(*x, window=window)
+        torch.cuda.synchronize()
+        _check(worst, "flash_attention_cuda_core", f"hd 48 float32 S 1000 "
+               f"window {window} ({flash_route(f32, hd)})",
+               *_err(o, o2, "float32"), hd=hd)
+
+
+def check_kernels(torch):
+    from repro_torch.kernels.flash_prefill import (F32_TENSOR_CORE,
+                                                   flash_attention_cuda,
                                                    flash_attention_plain,
                                                    flash_route,
                                                    paged_prefill_cuda,
@@ -828,6 +930,7 @@ def check_kernels(torch):
     check_dequant_division(torch)
     check_decode(torch, worst)
     check_family_shapes(torch, worst)
+    check_f32_pairs(torch, worst)
     seed = 0
     shapes = {**SHAPES,
               **{k: shape for k, (shape, _) in NEW_HD_SHAPES.items()},
@@ -854,10 +957,12 @@ def check_kernels(torch):
                                       block_table=bt, q_pos=qp) \
                     if route == "tensor_core" else None
                 label = f"{arch} {dname} window {window} ({route})"
+                name = "paged_prefill_f32" if route == F32_TENSOR_CORE \
+                    else "paged_prefill"
                 pad = float(o[B - 1].float().abs().max())
                 if pad:
-                    fail(f"paged_prefill: padding rows give {pad}, not 0")
-                _check(worst, "paged_prefill", label,
+                    fail(f"{name}: padding rows give {pad}, not 0")
+                _check(worst, name, label,
                        *_err(o, o2, dname, wt), _norm_err(nk, nk2), hd=hd)
                 fold = float((o3.float() - o.float()).abs().max())
                 _check(worst, "paged_prefill_per_qhead", label,
@@ -881,12 +986,14 @@ def check_kernels(torch):
                 route = flash_route(dt, hd)
                 wt = abs_value_weight(*x, window=window) \
                     if route == "tensor_core" else None
-                _check(worst, "flash_attention",
+                _check(worst, "flash_attention_f32" if route ==
+                       F32_TENSOR_CORE else "flash_attention",
                        f"{arch} {dname} S {S} window {window} ({route})",
                        *_err(o, o2, dname, wt), hd=hd)
                 del x, o, o2, wt
-            # the int8-native prefill routes (q f32: CUDA cores; q bf16:
-            # tensor cores); NaN scales on masked slots at the first shape
+            # the int8-native prefill routes (q f32: split TF32; q bf16:
+            # bf16), on the tensor cores; NaN scales on masked slots at the
+            # first shape
             check_prefill_int8(torch, worst, arch, (KV, G, hd, page), P,
                                (0, 8 * page), dt, seed + 200,
                                stale=arch == "llama-3.2-1b")
@@ -1098,11 +1205,129 @@ def time_kernels(torch, F, shape=None, dname="bfloat16", full=True):
     return res
 
 
-# the shapes the int8 prefill routes are timed at: phase 6's mixed step
-# (llama-3.2-1b, bf16 query: the int8 tensor-core route) and TINY's f32 hd 32
-# (the int8 CUDA-core route)
-INT8_TIMED = {"llama-3.2-1b": (SHAPES["llama-3.2-1b"], "bfloat16"),
-              "TINY (hd 32)": NEW_HD_SHAPES["TINY (hd 32)"]}
+# the shape the int8 prefill route under a bf16 query is timed at: phase 6's
+# mixed step (llama-3.2-1b)
+INT8_TIMED = {"llama-3.2-1b": (SHAPES["llama-3.2-1b"], "bfloat16")}
+# the shapes the f32 routes are timed at: llama-3.2-1b's heads (phase 16's)
+# and TINY's (the accuracy sweep's)
+F32_TIMED = {"llama-3.2-1b": SHAPES["llama-3.2-1b"],
+             "TINY (hd 32)": NEW_HD_SHAPES["TINY (hd 32)"][0]}
+
+
+def time_f32(torch, F, shape, floor):
+    """The f32 routes at ``shape`` (KV, G, hd, page): K3 over an f32 pool
+    and over an int8 pool under an f32 query (B 8, T 256, 49 slots, a mixed
+    step's positions, scores on), K4 on each (its device ms beside), and K5
+    on 4 prompts of 4096 tokens; each as ms, device ms (after a write and
+    a read flush), the plain version's ms (K5's at B 1), SDPA f32 on the
+    same inputs (over the gathered view, dequantized for int8; causal GQA
+    for K5) in both clocks, the launch floor ``floor`` and three bounds:
+    the bytes at 3.35 TB/s, 4 hd operations per valid pair at 67 TFLOP/s
+    (f32 CUDA cores) and at 165 (split TF32). ``bound`` is the larger of
+    the bytes' and split TF32's. Returns {name: row} in time_kernels'
+    format."""
+    from repro_torch.kernels.flash_prefill import (flash_attention_cuda,
+                                                   flash_attention_plain,
+                                                   flash_route,
+                                                   paged_prefill_cuda,
+                                                   paged_prefill_int8_plain,
+                                                   paged_prefill_plain,
+                                                   prefill_route)
+    from repro_torch.kernels.paged_attention import dequantize
+    from repro_torch.kernels.ref import (churned_pool, gather_block_table,
+                                         prefill_positions)
+    KV, G, hd, page = shape
+    H, f32 = KV * G, torch.float32
+    k, v, pos, bt, cur = churned_pool(B, P, page, KV, hd, f32, 100)
+    k8, v8, ks, vs, _, _, _ = churned_pool(B, P, page, KV, hd, torch.int8,
+                                           100)
+    g = torch.Generator().manual_seed(100)
+    torch.randn((B, KV, G, hd), generator=g)     # time_kernels' decode query
+    qf = torch.randn((B, T, H, hd), generator=g).cuda()
+    qp = prefill_positions(cur.cpu(), T).cuda()
+    kg, vg, pg = gather_block_table(k, v, pos, bt)
+    S = P * page
+    kpos, qpe = pg.reshape(B, 1, S), qp[:, :, None]
+    valid = (kpos >= 0) & (qpe >= 0) & (kpos <= qpe)          # (B, T, S)
+    flops = 4 * hd * H * int(valid.sum())
+    phys = torch.unique(bt.clamp_min(0))
+    n_el = phys.numel() * page * KV * hd
+    meta = phys.numel() * page * 4 + nbytes(bt)
+    io = 2 * nbytes(qf) + nbytes(qp)
+    norms = 2 * B * KV * P * page * 4
+    kv32, kv8 = 2 * n_el * 4 + meta, 2 * n_el + 2 * phys.numel() * page * \
+        KV * 4 + meta
+    kd, vd = kg.reshape(B, KV, S, hd), vg.reshape(B, KV, S, hd)
+    kd8, vd8 = (dequantize(x8, s8)[bt.clamp_min(0).long()]
+                .permute(0, 3, 1, 2, 4).reshape(B, KV, S, hd)
+                for x8, s8 in ((k8, ks), (v8, vs)))
+    x = [torch.randn((B1, S1, n, hd), generator=g).cuda()
+         for n in (H, KV, KV)]
+    flops_flash = 4 * hd * H * B1 * S1 * (S1 + 1) // 2
+    sdpa = F.scaled_dot_product_attention
+    sc = dict(k_scale=ks, v_scale=vs)
+    pre = dict(return_scores=True)
+    # name: (kernel, K4, plain, library, bytes, operations, route)
+    calls = {
+        "paged_prefill_f32": (
+            lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp, **pre),
+            lambda: paged_prefill_cuda(qf, k, v, pos, bt, qp,
+                                       per_qhead=True),
+            lambda: paged_prefill_plain(qf, k, v, pos, bt, qp, **pre),
+            lambda: sdpa(qf.transpose(1, 2), kd, vd,
+                         attn_mask=valid[:, None], enable_gqa=True),
+            kv32 + io + norms, flops, prefill_route(f32, f32, hd)),
+        "paged_prefill_int8_f32": (
+            lambda: paged_prefill_cuda(qf, k8, v8, pos, bt, qp, **sc, **pre),
+            lambda: paged_prefill_cuda(qf, k8, v8, pos, bt, qp, **sc,
+                                       per_qhead=True),
+            lambda: paged_prefill_int8_plain(qf, k8, v8, ks, vs, pos, bt, qp,
+                                             **pre),
+            lambda: sdpa(qf.transpose(1, 2), kd8, vd8,
+                         attn_mask=valid[:, None], enable_gqa=True),
+            kv8 + io + norms, flops, prefill_route(f32, torch.int8, hd)),
+        "flash_attention_f32": (
+            lambda: flash_attention_cuda(*x), None,
+            lambda: flash_attention_plain(*(t[:1] for t in x)),
+            lambda: sdpa(*(t.transpose(1, 2) for t in x), is_causal=True,
+                         enable_gqa=True),
+            2 * nbytes(x[0]) + nbytes(x[1], x[2]), flops_flash,
+            flash_route(f32, hd))}
+    res = {}
+    for name, (kernel, k4, plain, library, byts, ops, route) in \
+            calls.items():
+        few = dict(iters=5) if name == "flash_attention_f32" else {}
+        r = res[name] = dict(
+            ms=timed(torch, kernel, **few),
+            device_ms=device_timed(torch, kernel, **few),
+            device_clean_ms=device_timed(torch, kernel, clean=True, **few),
+            plain_ms=timed(torch, plain, **(dict(iters=3, warmup=1)
+                                            if few else {})),
+            library_ms=timed(torch, library, **few),
+            library_device_ms=device_timed(torch, library, **few),
+            bound=bound_ms(byts, ops, "float32_tf32x3"),
+            bound_f32_cores=bound_ms(byts, ops, "float32"),
+            floor_device_ms=floor, route=route, flops=ops)
+        if k4 is not None:
+            r["per_qhead_device_ms"] = device_timed(torch, k4)
+        k4 = f", K4 device {r['per_qhead_device_ms']:.4f}" \
+            if k4 is not None else ""
+        print(f"  {name} ({route}; KV {KV}, G {G}, hd {hd}): kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}, after a read "
+              f"flush {r['device_clean_ms']:.4f}{k4}; "
+              f"{ops / r['device_ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f} ms, SDPA f32 {r['library_ms']:.4f} ms "
+              f"(device {r['library_device_ms']:.4f}: kernel "
+              f"{r['device_ms'] / r['library_device_ms']:.3f}x), launch "
+              f"floor {floor:.4f}; bounds: bytes "
+              f"{byts / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
+              f"{ops / PEAK_FLOPS['float32'] * 1e3:.4f} (67 TFLOP/s) / "
+              f"{ops / PEAK_FLOPS['float32_tf32x3'] * 1e3:.4f} (165): "
+              f"{r['bound'][0] / r['device_ms']:.3f} of the bound",
+              flush=True)
+    del k, v, k8, v8, kd, vd, kd8, vd8, x, qf
+    torch.cuda.empty_cache()
+    return res
 
 
 def peak_above(torch, fn):
@@ -1171,7 +1396,7 @@ def time_int8_prefill(torch, F, shape, dname, floor):
         "dequantize": (lambda: (dequantize(k8, ks), dequantize(v8, vs)),
                        bound_ms(2 * pool_el * (1 + 4) + nbytes(ks, vs),
                                 2 * pool_el, "float32")),
-        "cuda_core_over_dequantized": (
+        "launch_over_dequantized": (
             lambda: paged_prefill_cuda(qf, kd, vd, pos, bt, qp, **pre),
             bound_ms(2 * n_el * 4 + meta + io, flops, "float32")),
         "old_path": (  # the same function as the new route: its bound
@@ -1197,7 +1422,7 @@ def time_int8_prefill(torch, F, shape, dname, floor):
     lib_ms, lib_dev = timed(torch, sdpa), device_timed(torch, sdpa)
     plain_ms = timed(torch, lambda: paged_prefill_int8_plain(
         qf, k8, v8, ks, vs, pos, bt, qp, **pre))
-    routes = {"dequantize": "plain torch", "cuda_core_over_dequantized":
+    routes = {"dequantize": "plain torch", "launch_over_dequantized":
               old_route, "old_path": f"dequantize + {old_route}",
               "new": new_route, "new_per_qhead": f"{new_route}, per-Q-head"}
     print(f"  int8 prefill, {dname} query (KV {KV}, G {G}, hd {hd}, B {B}, "
@@ -1556,11 +1781,11 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
         print(f"  engine {policy} {kv_dtype}: with probes every 2 decode "
               f"steps: {len(samples)} probes, tokens and launches equal "
               f"({lr})", flush=True)
+    route8 = f"paged_prefill/{INT8_F32_ROUTE}"
     if kv_dtype == "int8" and attn and (
-            not lk["paged_prefill"] or
-            lk["paged_prefill/int8_cuda_core"] != lk["paged_prefill"]):
-        fail(f"{what}: not every prefill launch took the int8 CUDA-core "
-             f"route: {lk}")
+            not lk["paged_prefill"] or lk[route8] != lk["paged_prefill"]):
+        fail(f"{what}: not every prefill launch took the {route8} route: "
+             f"{lk}")
     if tk != tp:
         fail(f"{what}: greedy tokens differ between kernels and plain")
     if len(sk) != len(sp) or any(not np.array_equal(a, b)
@@ -1606,7 +1831,7 @@ def engine_parity(torch, np, kv_dtype, policy="paged_eviction", arch=None,
 
 
 def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
-                decode_splits=1, on_step=None, cond=None):
+                decode_splits=1, on_step=None, cond=None, logits_out=None):
     """forward_prefill (of ``tokens`` (B, S), or (B, K, S) with codebooks,
     under the conditioning ``cond`` when given), then ``steps`` greedy
     decode_steps (the kernels' eviction ranking, fused_scores, on both).
@@ -1616,7 +1841,8 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
     live tokens per attention layer and row after prefill, per-step
     devstats (steps, NSTATS; zeros without an attention layer), prefill
     seconds, decode seconds); with codebooks the tokens are (B, steps,
-    K)."""
+    K). ``logits_out``, a list, when given, receives the prefill's logits
+    and every step's."""
     from repro_torch.core import devstats
     from repro_torch.core.policies import get_policy
     from repro_torch.models.transformer import (collect_step_stats,
@@ -1629,6 +1855,8 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
                                     valid=valid,
                                     total_seq_hint=tokens.shape[-1] + steps,
                                     plain_kernels=plain, cond=cond)
+    if logits_out is not None:
+        logits_out.append(logits)
     tok = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1646,6 +1874,8 @@ def oneshot_run(torch, params, cfg, ccfg, tokens, valid, steps, plain,
                                     fused_scores=True, plain_kernels=plain)
         st = collect_step_stats(cache)
         stats.append(none if st is None else st)
+        if logits_out is not None:
+            logits_out.append(logits)
         tok = logits.argmax(-1).to(torch.int32)
         out.append(tok)
         if on_step is not None:
@@ -1753,7 +1983,7 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
                      obs=None, max_batch=8, num_layers=None, params=None,
                      prompt_len=None, arch="llama-3.2-1b", budget=512,
                      max_len=2048, sharing=None, on_engine=None,
-                     token_budget=None):
+                     token_budget=None, dtype=None, plain_kernels=False):
     """Serve ``n_requests`` prompts of 1024-``max_len`` tokens (every other
     one opening with a shared 256-token prefix; each cut to ``prompt_len``
     tokens when given) on ``arch`` at full width, ``new_tokens`` greedy
@@ -1765,16 +1995,21 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
     ``sharing``, shared prefixes) and F1-F4 at the end. ``on_engine(eng)``,
     when given, runs once before the first request is submitted;
     ``token_budget``: the engine's tokens per step (default one prefill
-    chunk beside the decode rows). Returns
+    chunk beside the decode rows); ``dtype``: the model's dtype (default
+    the arch's); ``plain_kernels``: the kernels' plain versions (then no
+    kernel may launch). Returns
     (launches, engine, wall seconds, per-step wall seconds of
     ``eng.step()``)."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.transformer import init_model
     from repro_torch.serving import Engine
+    from repro_torch.kernels.flash_prefill import prefill_route
     cfg = get_arch(arch)
     if num_layers:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     t0 = time.perf_counter()
     if params is None:
         params = init_model(cfg, seed=0, device="cuda")
@@ -1782,7 +2017,8 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
         page_size=16, cache_budget=budget, policy=policy,
         dtype=kv_dtype), max_batch=max_batch, max_prompt_len=max_len,
         max_new_tokens=new_tokens, chunk_size=256, decode_splits=4,
-        token_budget=token_budget, device="cuda", obs=obs)
+        token_budget=token_budget, device="cuda", obs=obs,
+        plain_kernels=plain_kernels)
     torch.cuda.synchronize()
     # block-table widths differ by layer kind (a windowed layer's slab)
     slots = sorted({(spec.attn_kind, c.num_pages) for spec, c in
@@ -1819,13 +2055,18 @@ def serve_full_width(torch, np, kv_dtype, n_requests,
         fail("a sampled token is outside the vocabulary")
     dec = "paged_decode_int8" if kv_dtype == "int8" else "paged_decode"
     others = {"paged_decode", "paged_decode_int8"} - {dec}
-    if not launches[dec] or not launches["paged_prefill"] or \
-            any(launches[n] for n in others):
+    if plain_kernels and any(launches.values()):
+        fail(f"the plain run launched kernels: {launches}")
+    if not plain_kernels and (not launches[dec] or
+                              not launches["paged_prefill"] or
+                              any(launches[n] for n in others)):
         fail(f"the {kv_dtype} path's kernels did not run as expected: "
              f"{launches}")
-    # bf16 pool: every prefill launch on the tensor cores; int8 pool (int8
-    # pages under a bf16 query): every one on the int8 tensor-core route
-    route = "int8_tensor_core" if kv_dtype == "int8" else "tensor_core"
+    # every prefill launch on the route of the model's and the pool's
+    # dtypes: bf16 pool tensor cores, int8 pool (int8 pages under a bf16
+    # query) int8 tensor cores, an f32 model's f32 pool split TF32
+    route = prefill_route(getattr(torch, cfg.dtype),
+                          getattr(torch, kv_dtype), cfg.resolved_head_dim)
     if launches[f"paged_prefill/{route}"] != launches["paged_prefill"]:
         fail(f"{kv_dtype} serving: not every prefill launch took the "
              f"{route} route: {launches}")
@@ -1849,7 +2090,7 @@ def serve_int8(torch, np):
     holds both prefill and decode rows (copied when it is made; that step's
     peak is left out), the call is run again two ways: through the int8
     route and through the old path (``dequantize`` the pool, then the
-    CUDA-core route), each with its peak above its inputs and its output
+    float-pool route), each with its peak above its inputs and its output
     against the plain version. Returns serve_full_width's launches."""
     from repro_torch.core.paged_cache import PagedLayerCache
     from repro_torch.kernels import ops
@@ -1904,9 +2145,10 @@ def serve_int8(torch, np):
         ops.paged_prefill_attention = real_attn
         for n, fn in real_deq.items():
             setattr(PagedLayerCache, n, fn)
-    if any(deq_calls.values()) or launches["paged_prefill/cuda_core"]:
+    if any(deq_calls.values()) or launches["paged_prefill/cuda_core"] or \
+            launches["paged_prefill/f32_tensor_core"]:
         fail(f"phase 6: the int8 pool was dequantized ({deq_calls}) or a "
-             f"prefill launch took the CUDA-core route: {launches}")
+             f"prefill launch took a float pool's route: {launches}")
     if not seen:
         fail("phase 6: no attention call held both prefill and decode rows")
     mixed = [b for i, (m, b) in enumerate(peaks) if m and i != seen["step"]]
@@ -1937,7 +2179,7 @@ def serve_int8(torch, np):
     print(f"  one mixed step's attention (step {c['step'] + 1}, valid "
           f"queries per row {rows}, pool {c['k'].shape[0]} pages): peak "
           f"above its inputs, int8 tensor-core route {new_peak} bytes, old "
-          f"path (dequantize + CUDA-core route) {old_peak} bytes (the f32 "
+          f"path (dequantize + float-pool route) {old_peak} bytes (the f32 "
           f"copy alone {8 * c['k'].numel()}); against the plain version: "
           f"new {e_new:.3g} ({sh_new:.3g} of tc_bf16_bound), old {e_old:.3g} "
           f"({sh_old:.3g} of one bf16 step); {card_line()}", flush=True)
@@ -2734,7 +2976,7 @@ def musicgen_step_parity(torch, np):
     (mixed steps once a prompt is done), then 4 decode-only steps, under
     paged_eviction at budget 48 (page 8): greedy tokens per codebook,
     per-step devstats and the integer pool state equal, logits within
-    1e-4, pages evicted, K1 and K3 (CUDA cores) launched."""
+    1e-4, pages evicted, K1 and K3 (its f32 tensor-core route) launched."""
     from repro_torch.configs import CacheConfig, get_arch
     from repro_torch.core import devstats
     from repro_torch.models.multimodal import make_inputs
@@ -2769,8 +3011,8 @@ def musicgen_step_parity(torch, np):
     evicted = int(sum(int(st[devstats.PAGES_EVICTED])
                       for st in run["stats"]))
     if not evicted or not launches["paged_decode"] or \
-            launches["paged_prefill/cuda_core"] != launches["paged_prefill"] \
-            or not launches["paged_prefill"]:
+            launches["paged_prefill/f32_tensor_core"] != \
+            launches["paged_prefill"] or not launches["paged_prefill"]:
         fail(f"{what}: {evicted} pages evicted, launches {launches}")
     print(f"  forward_step {MUSICGEN} (reduced, f32): {len(run['s'])} steps "
           f"(mixed, then 4 decode-only), greedy tokens (B, K) per step, "
@@ -4450,9 +4692,9 @@ def train_recall(torch, np):
     t_eval = time.perf_counter() - t0
     launches = read_launches()
     if not launches["paged_decode"] or not launches["flash_attention"] or \
-            launches["flash_attention/cuda_core"] != \
+            launches["flash_attention/f32_tensor_core"] != \
             launches["flash_attention"]:
-        fail(f"9c: the one-shot path did not run K5 on the f32 CUDA-core "
+        fail(f"9c: the one-shot path did not run K5 on the f32 tensor-core "
              f"route and K1: {launches}")
     print(f"  9c TINY (f32, 2 layers, d 128, hd 32) trained {steps} steps "
           f"in {t_train:.1f} s ({1e3 * t_train / steps:.2f} ms/step): loss "
@@ -4463,6 +4705,111 @@ def train_recall(torch, np):
     if acc[("full", 32)] < RECALL_GATE:
         fail(f"9c: full-cache recall accuracy {acc[('full', 32)]:.4f} below "
              f"{RECALL_GATE}")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: llama-3.2-1b at full width in f32 (the f32 routes' main path)
+# ---------------------------------------------------------------------------
+
+F32_LOGIT_ATOL = TOL["float32"][0]
+
+
+def f32_full_width(torch, np):
+    """Phase 16: llama-3.2-1b's widths with random f32 weights from seed 0
+    and an f32 pool. (a) phase 5's one-shot prompts at ONESHOT_LAYERS
+    layers (budget 512, 32 greedy steps), (b) phase 4's serving workload at
+    SERVE_LAYERS layer(s) (16 requests, 32 tokens each), each through the
+    kernels and through their plain versions: greedy tokens equal, the
+    logits of every step within F32_LOGIT_ATOL, every K3 / K5 launch on the
+    f32 tensor-core routes (and none on another), no kernel in the plain
+    runs. Returns {"one_shot": launches, "serving": launches}."""
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.configs import CacheConfig, get_arch
+    from repro_torch.kernels.flash_prefill import (F32_TENSOR_CORE,
+                                                   flash_route)
+    from repro_torch.models.transformer import init_model
+    arch = "llama-3.2-1b"
+    base = dataclasses.replace(get_arch(arch), dtype="float32")
+    if flash_route(torch.float32, base.resolved_head_dim) != F32_TENSOR_CORE:
+        fail("phase 16: llama-3.2-1b's head dim has no f32 tensor-core route")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(base, num_layers=ONESHOT_LAYERS)
+    params = init_model(cfg, seed=0, device="cuda")
+    tokens, valid = oneshot_prompts(torch, np, cfg.vocab_size)
+    ccfg = CacheConfig(page_size=16, cache_budget=512,
+                       policy="paged_eviction", dtype="float32")
+    runs = []
+    for plain in (False, True):
+        logits = []
+        reset_launches()
+        toks, _, _, _, t_pre, t_dec = oneshot_run(
+            torch, params, cfg, ccfg, tokens, valid, 32, plain,
+            decode_splits=4, logits_out=logits)
+        runs.append((toks, read_launches(), logits, t_pre, t_dec))
+    (tk, one, lk, pre_k, dec_k), (tp, lp_launch, lp, pre_p, dec_p) = runs
+    what = f"phase 16 (a) one-shot f32 ({ONESHOT_LAYERS} layers)"
+    if one["flash_attention"] != cfg.num_layers or \
+            one["flash_attention/f32_tensor_core"] != cfg.num_layers or \
+            not one["paged_decode"] or any(lp_launch.values()):
+        fail(f"{what}: launches {one} (plain run {lp_launch})")
+    gaps = [float((a - b).abs().max()) for a, b in zip(lk, lp)]
+    gap = max(gaps)
+    scale = max(float(a.abs().max()) for a in lp)
+    print(f"  {what}: prefill {1e3 * pre_k:.1f} ms (plain {1e3 * pre_p:.1f}"
+          f"), mean decode step {1e3 * dec_k / 32:.2f} ms (plain "
+          f"{1e3 * dec_p / 32:.2f}); greedy tokens equal "
+          f"{bool(np.array_equal(tk, tp))} ({tk.size}); logits max abs diff "
+          f"{gap:.3g} (the prefill's {gaps[0]:.3g}, the decode steps' "
+          f"{max(gaps[1:]):.3g}; largest |logit| {scale:.3g}, tol "
+          f"{F32_LOGIT_ATOL}); launches {one}", flush=True)
+    if not np.array_equal(tk, tp):
+        fail(f"{what}: greedy tokens differ from the plain run's")
+    if gap > F32_LOGIT_ATOL:
+        fail(f"{what}: logits {gap:.3g} from the plain run's")
+    del params, lk, lp
+    torch.cuda.empty_cache()
+
+    # (b) serving: the logits of every step, captured where the engine
+    # samples them, against the plain run's step by step
+    captured, orig = [], engine_mod.sample_tokens
+
+    def capture(gen, logits, **kw):
+        captured.append(logits.clone())
+        return orig(gen, logits, **kw)
+
+    out = []
+    engine_mod.sample_tokens = capture
+    try:
+        for plain in (False, True):
+            captured.clear()
+            launches, eng, wall, _ = serve_full_width(
+                torch, np, "float32", 16, num_layers=SERVE_LAYERS,
+                dtype="float32", plain_kernels=plain)
+            toks = {r.request_id: list(r.output_tokens)
+                    for r in eng.scheduler.finished}
+            out.append((launches, list(captured), eng.stats, wall, toks))
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        engine_mod.sample_tokens = orig
+    (serving, ck, sk, wk, tk), (_, cp, sp, wp, tp) = out
+    what = f"phase 16 (b) serving f32 ({SERVE_LAYERS} layer)"
+    if tk != tp:
+        fail(f"{what}: greedy tokens differ from the plain run's")
+    if len(ck) != len(cp):
+        fail(f"{what}: {len(ck)} steps against the plain run's {len(cp)}")
+    gap = max(float((a - b).abs().max()) for a, b in zip(ck, cp))
+    if serving["paged_prefill/f32_tensor_core"] != serving["paged_prefill"]:
+        fail(f"{what}: prefill off the f32 tensor-core route: {serving}")
+    print(f"  {what}: {len(ck)} steps, {sk.tokens_generated} tokens in "
+          f"{wk:.2f} s (plain {wp:.2f} s), greedy tokens equal; logits of every step max abs "
+          f"diff {gap:.3g} (tol {F32_LOGIT_ATOL}); {sk.pages_evicted} pages "
+          f"evicted (plain {sp.pages_evicted}); launches {serving}",
+          flush=True)
+    if gap > F32_LOGIT_ATOL:
+        fail(f"{what}: logits {gap:.3g} from the plain run's")
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"one_shot": one, "serving": serving}
 
 
 def main() -> None:
@@ -4485,7 +4832,7 @@ def main() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"[1/15] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1/16] build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "entry func")):
@@ -4495,7 +4842,7 @@ def main() -> None:
         print(f"{title} (at {time.perf_counter() - t_start:.0f} s)",
               flush=True)
 
-    phase("[2/15] kernels against their plain versions")
+    phase("[2/16] kernels against their plain versions")
     t2 = time.perf_counter()
     reset_launches()
     worst = check_kernels(torch)
@@ -4505,14 +4852,17 @@ def main() -> None:
     int8_rows = {label: time_int8_prefill(torch, F, shape, dname, floor)
                  for label, (shape, dname) in INT8_TIMED.items()}
     timing["paged_prefill_int8"] = int8_rows["llama-3.2-1b"]
-    timing["paged_prefill_int8_cuda_core"] = int8_rows["TINY (hd 32)"]
+    f32_rows = {label: time_f32(torch, F, shape, floor)
+                for label, shape in F32_TIMED.items()}
+    timing.update(f32_rows["llama-3.2-1b"])
     other_hd = {shape[2]: time_kernels(torch, F, shape, dname, full=False)
                 for shape, dname in NEW_HD_SHAPES.values()}
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
+    other_shapes["TINY (hd 32), f32"] = f32_rows["TINY (hd 32)"]
     print(f"  phase 2: {time.perf_counter() - t2:.1f} s; {card}", flush=True)
 
-    phase("[3/15] kernels vs plain versions: engine (with trace, lineage and "
+    phase("[3/16] kernels vs plain versions: engine (with trace, lineage and "
           "timeline; probes on and off) and one-shot, float and int8 pools, "
           "every policy that evicts")
     int8_engine_launches = 0
@@ -4520,7 +4870,7 @@ def main() -> None:
         for kv_dtype in ("float32", "int8"):
             lk = engine_parity(torch, np, kv_dtype, policy)
             if kv_dtype == "int8":
-                int8_engine_launches += lk["paged_prefill/int8_cuda_core"]
+                int8_engine_launches += lk[f"paged_prefill/{INT8_F32_ROUTE}"]
         for kv_dtype in ("float32", "int8"):
             oneshot_parity(torch, np, kv_dtype, policy=policy)
     # a ragged prompt above 2048 tokens: the flash kernel on the card
@@ -4542,32 +4892,32 @@ def main() -> None:
     oneshot_parity(torch, np, "float32", arch=MUSICGEN, budget=48)
     train_parity(torch, np, arch=MUSICGEN, steps=2, seq=1024)
 
-    phase(f"[4/15] llama-3.2-1b at full width: serving, bf16 pool, with "
+    phase(f"[4/16] llama-3.2-1b at full width: serving, bf16 pool, with "
           f"metrics, trace, timeline and lineage ledger ({SERVE_LAYERS} "
           f"layers)")
     serve = serve_observed(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[5/15] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
+    phase("[5/16] llama-3.2-1b at full width: one-shot, bf16 and int8 pools")
     oneshot = oneshot_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[6/15] llama-3.2-1b at full width: serving, int8 pool "
+    phase(f"[6/16] llama-3.2-1b at full width: serving, int8 pool "
           f"({INT8_SERVE_LAYERS} layers)")
     serve8 = serve_int8(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[7/15] llama-3.2-1b at full width: the paper's baselines "
+    phase(f"[7/16] llama-3.2-1b at full width: the paper's baselines "
           f"({BASELINE_LAYERS} layers)")
     baselines_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase(f"[8/15] llama-3.2-1b at full width: eviction-regret probes "
+    phase(f"[8/16] llama-3.2-1b at full width: eviction-regret probes "
           f"({REGRET_LAYERS} layers)")
     regret_full_width(torch, np)
     torch.cuda.empty_cache()
 
-    phase("[9/15] training: card against CPU, llama-3.2-1b at full width "
+    phase("[9/16] training: card against CPU, llama-3.2-1b at full width "
           "then served from its checkpoint, TINY trained and scored")
     t9 = time.perf_counter()
     train_parity(torch, np)
@@ -4577,7 +4927,7 @@ def main() -> None:
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    phase("[10/15] the attention-only families at full width: "
+    phase("[10/16] the attention-only families at full width: "
           + ", ".join(f"{a} ({n} layers, budget {b})"
                       for a, (n, b) in FAMILIES.items()))
     t10 = time.perf_counter()
@@ -4591,7 +4941,7 @@ def main() -> None:
               for a, r in families.items()), flush=True)
     torch.cuda.empty_cache()
 
-    phase("[11/15] the recurrent families at full width: "
+    phase("[11/16] the recurrent families at full width: "
           + ", ".join(f"{a} ({n} layers)" for a, n in RECURRENT.items()))
     t11 = time.perf_counter()
     recurrent = {arch: recurrent_full_width(torch, np, arch, n, card)
@@ -4604,7 +4954,7 @@ def main() -> None:
           f"{jamba['one_shot']['paged_decode']}; {card}", flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[12/15] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
+    phase(f"[12/16] {MUSICGEN} at full width: one-shot (48 layers, bf16 and "
           f"int8 pools), forward_step and training ({MUSICGEN_CUT_LAYERS} "
           f"layers)")
     t12 = time.perf_counter()
@@ -4617,7 +4967,7 @@ def main() -> None:
           f"{music['step']['paged_decode']}; {card}", flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[13/15] tensor-parallel serving at tp {TP}, two ranks "
+    phase(f"[13/16] tensor-parallel serving at tp {TP}, two ranks "
           f"time-sharing the card over gloo: "
           + ", ".join(f"{a} reduced(tp=2)" for a in TP_REDUCED)
           + f" (f32, int8) against tp 1; {TP_LLAMA} ({TP_LLAMA_LAYERS} of 32 "
@@ -4628,7 +4978,7 @@ def main() -> None:
           flush=True)
     torch.cuda.empty_cache()
 
-    phase(f"[14/15] training over a grid, {GRID} gloo ranks time-sharing "
+    phase(f"[14/16] training over a grid, {GRID} gloo ranks time-sharing "
           f"the card: (a) " + ", ".join(GRID_REDUCED) + " reduced f32 "
           f"against one rank; (b) {GRID_FULL['b'][0]} at (data 2, model 2) "
           f"with ZeRO-1, (c) {GRID_FULL['c'][0]} expert-parallel at (data "
@@ -4639,7 +4989,7 @@ def main() -> None:
           flush=True)
     torch.cuda.empty_cache()
 
-    phase("[15/15] the examples on the card; the one-shot path at (data 2, "
+    phase("[15/16] the examples on the card; the one-shot path at (data 2, "
           "model 2), four gloo ranks sharing the card: "
           + ", ".join(SHARD_REDUCED) + " reduced against one rank, "
           f"llama-3.2-1b ({SHARD_FULL['layers']} layers, bf16); the dry run "
@@ -4659,18 +5009,28 @@ def main() -> None:
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s; {card}",
           flush=True)
 
+    phase("[16/16] llama-3.2-1b at full width in f32: one-shot "
+          f"({ONESHOT_LAYERS} layers) and serving ({SERVE_LAYERS} layer), "
+          "kernels against plain versions")
+    f32run = f32_full_width(torch, np)
+    torch.cuda.empty_cache()
+
     # launches on the main paths: decode and prefill from serving (phases 4
-    # and 6; K3's int8 CUDA-core route from phase 3's int8 engines, the
-    # reduced f32 config), flash attention from the one-shot prefill (phase
-    # 5); the per-Q-head kernel and the pool pass, oracles on no path, from
-    # phase 2
+    # and 6; K3's f32 routes from phase 16's serving and phase 3's int8
+    # engines, the reduced f32 config), flash attention from the one-shot
+    # prefill (phases 5 and 16); the per-Q-head kernel and the pool pass,
+    # oracles on no path, from phase 2
     launches = {"paged_decode": serve["paged_decode"],
                 "paged_decode_int8": serve8["paged_decode_int8"],
                 "paged_prefill": serve["paged_prefill"],
                 "paged_prefill_int8": serve8["paged_prefill/int8_tensor_core"],
-                "paged_prefill_int8_cuda_core": int8_engine_launches,
+                "paged_prefill_f32":
+                    f32run["serving"]["paged_prefill/f32_tensor_core"],
+                "paged_prefill_int8_f32": int8_engine_launches,
                 "paged_prefill_per_qhead": checked["paged_prefill_per_qhead"],
                 "flash_attention": oneshot["bfloat16"]["flash_attention"],
+                "flash_attention_f32":
+                    f32run["one_shot"]["flash_attention/f32_tensor_core"],
                 "block_score": checked["block_score"]}
     rows = []
     for name, meta in KERNELS.items():
@@ -4699,7 +5059,10 @@ def main() -> None:
                                  "bound_ms": t[name]["bound"][0],
                                  "bound_by": t[name]["bound"][1]}
                          for label, t in other_shapes.items() if name in t},
-                     **({"before": r["before"]} if "before" in r else {})})
+                     **{key: r[key] for key in ("before", "per_qhead_device_ms")
+                        if key in r},
+                     **({"bound_ms_f32_cores": r["bound_f32_cores"][0]}
+                        if "bound_f32_cores" in r else {})})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,7 @@
 // Shared pieces of the paged kernels, and the block-wide page walk of the
-// CUDA-core routes of the paged prefill (flash_prefill.cu: f32 queries over
-// an f32, bf16 or int8 pool, and a bf16 query over an f32 pool):
+// CUDA-core routes of the paged prefill (flash_prefill.cu, at a head dim
+// without a tensor-core tile: f32 queries over an f32, bf16 or int8 pool,
+// and a bf16 query over an f32 pool):
 // for one (request b, KV head) block, fold every page of a block-table
 // range into an online softmax over a tile of query rows. The decode kernel
 // (paged_attention.cu) has its own warp-level walk and uses only the

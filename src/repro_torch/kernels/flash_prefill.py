@@ -27,15 +27,20 @@ source is ``csrc/flash_attention.cu``; it replaces the JAX package's Pallas
 ``flash_attention_kernel``.
 
 **Routes.** Each CUDA wrapper picks its route from dtypes and head dim
-alone (:func:`prefill_route`, :func:`flash_route`): bf16 throughout, or a
-bf16 query over an int8 pool, at hd 32, 64, 80, 96 or 128 runs on the
-tensor cores; an f32 query (over any pool, int8 included) or a bf16 query
-over an f32 pool on the CUDA cores; anything else raises. The tensor-core
+alone (:func:`prefill_route`, :func:`flash_route`). At hd 32, 64, 80, 96 or
+128 every route runs on the tensor cores: bf16 throughout, or a bf16 query
+over an int8 pool, in bf16 (``attn_tile.cuh``); an f32 query (over any
+pool, int8 included) or a bf16 query over an f32 pool in split TF32
+(``attn_tile_f32.cuh``: three TF32 products per f32 product, f32
+accuracy). At other head dims an f32 query or a bf16 query over an f32
+pool runs on the CUDA cores; anything else raises. The bf16 tensor-core
 routes round each probability to bf16 before P V, so they are held to the
 plain version within :func:`repro_torch.kernels.ref.tc_bf16_bound`, not
-one bf16 rounding step.
+one bf16 rounding step; the split-TF32 routes to the f32 tolerance.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -95,7 +100,11 @@ def paged_prefill_int8_plain(q, k_pool, v_pool, k_scale, v_scale, pos,
 
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 INT8_TENSOR_CORE, INT8_CUDA_CORE = "int8_tensor_core", "int8_cuda_core"
-PREFILL_ROUTES = (TENSOR_CORE, CUDA_CORE, INT8_TENSOR_CORE, INT8_CUDA_CORE)
+F32_TENSOR_CORE = "f32_tensor_core"
+INT8_F32_TENSOR_CORE = "int8_f32_tensor_core"
+PREFILL_ROUTES = (TENSOR_CORE, CUDA_CORE, INT8_TENSOR_CORE, INT8_CUDA_CORE,
+                  F32_TENSOR_CORE, INT8_F32_TENSOR_CORE)
+FLASH_ROUTES = (TENSOR_CORE, F32_TENSOR_CORE, CUDA_CORE)
 # head dims the tensor-core tiles are built for (whole 16-column mma steps)
 TC_HEAD_DIMS = (32, 64, 80, 96, 128)
 
@@ -117,14 +126,23 @@ def prefill_route(q_dtype, pool_dtype, hd: int) -> str:
       ``"int8_tensor_core"`` (the same tiles; int8 pages copied in as int8
       and widened to bf16 in shared memory, exactly; the per-key scales
       applied to the scores and folded into the probabilities in f32);
-    - an f32 query over an int8 pool: ``"int8_cuda_core"`` (the CUDA-core
-      page walk dequantizing each value in registers as ``x * (s / 127)``);
     - an f32 query over an f32 or bf16 pool, or a bf16 query over an f32
-      pool: ``"cuda_core"`` (f32 products; rounding the f32 pool to bf16
-      would move the scores far beyond a one-rounding tolerance);
-    - anything else raises (a bf16 query at another hd included): no
-      route falls back to another."""
+      pool (widened exactly), at those head dims: ``"f32_tensor_core"``
+      (split TF32 on 128-row tiles: every f32 product as three TF32
+      products, f32 accuracy; rounding the f32 pool to bf16 would move the
+      scores far beyond a one-rounding tolerance);
+    - an f32 query over an int8 pool at those head dims:
+      ``"int8_f32_tensor_core"`` (the same tiles; int8 pages widened to f32
+      in shared memory as ``x * (s / 127)``, bit for bit the values of
+      :func:`dequantize`);
+    - at any other head dim, an f32 query over an int8 pool:
+      ``"int8_cuda_core"`` (the CUDA-core page walk dequantizing each value
+      in registers); an f32 query over an f32 or bf16 pool, or a bf16 query
+      over an f32 pool: ``"cuda_core"`` (f32 products on the CUDA cores);
+    - anything else raises (a bf16 query over a bf16 or int8 pool at
+      another hd included): no route falls back to another."""
     floats = (torch.float32, torch.bfloat16)
+    tc = hd in TC_HEAD_DIMS
     if q_dtype == torch.bfloat16 and pool_dtype == torch.bfloat16:
         _tc_head_dim("a bf16 query over a bf16 pool", hd)
         return TENSOR_CORE
@@ -132,11 +150,33 @@ def prefill_route(q_dtype, pool_dtype, hd: int) -> str:
         _tc_head_dim("a bf16 query over an int8 pool", hd)
         return INT8_TENSOR_CORE
     if q_dtype == torch.float32 and pool_dtype == torch.int8:
-        return INT8_CUDA_CORE
+        return INT8_F32_TENSOR_CORE if tc else INT8_CUDA_CORE
     if q_dtype in floats and pool_dtype in floats:
-        return CUDA_CORE
+        return F32_TENSOR_CORE if tc else CUDA_CORE
     raise TypeError(f"no prefill route for a {q_dtype} query over a "
                     f"{pool_dtype} pool")
+
+
+# rows one block of the f32 tensor-core routes holds, and keys per key tile
+# (csrc/flash_prefill.cu's kRowsF and attn_tile.cuh's kKeys)
+F32_TC_ROWS, KEY_TILE = 128, 64
+
+
+def prefill_splits(blocks: int, key_tiles: int, sms: int) -> int:
+    """Key-range splits of the f32 tensor-core prefill: 1 when the grid of
+    ``blocks`` row tiles already holds four blocks per SM, else enough
+    splits to reach that, at most one per two key tiles and 8 (each split
+    writes its rows' partial state, merged by a second kernel), then as few
+    as cover the key tiles at that many tiles per split."""
+    if blocks >= 4 * sms:
+        return 1
+    n = max(1, min(-(-4 * sms // blocks), key_tiles // 2, 8))
+    return -(-key_tiles // -(-key_tiles // n))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tile_rows(hd: int) -> int:
@@ -174,7 +214,11 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
     Launch counts: ``paged_prefill_cuda.launches`` (G-fold),
     ``.per_qhead_launches``, and per route over both grids
     ``.tensor_core_launches``, ``.cuda_core_launches``,
-    ``.int8_tensor_core_launches`` and ``.int8_cuda_core_launches``."""
+    ``.int8_tensor_core_launches``, ``.int8_cuda_core_launches``,
+    ``.f32_tensor_core_launches`` and ``.int8_f32_tensor_core_launches``.
+    The f32 tensor-core routes split each block's key range when the grid
+    is small (:func:`prefill_splits`); ``.splits`` is the last launch's
+    count."""
     build.refuse_autograd("paged_prefill", q, k_pool, v_pool, k_scale,
                           v_scale)
     if per_qhead and return_scores:
@@ -212,6 +256,20 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
         rc = lib.paged_prefill_tc(*head, int(window), float(scale),
                                   _DTYPES[k_pool.dtype], int(per_qhead),
                                   stream)
+    elif route in (F32_TENSOR_CORE, INT8_F32_TENSOR_CORE):
+        _check_16b(q=q, k_pool=k_pool, v_pool=v_pool)
+        rows = T if per_qhead else G * T
+        blocks = -(-rows // F32_TC_ROWS) * (H if per_qhead else KV) * B
+        nsplit = prefill_splits(blocks, -(-P * page // KEY_TILE),
+                                _sm_count(q.device.index))
+        part = None
+        if nsplit > 1:
+            part = torch.empty(nsplit * B * H * T * (hd + 2),
+                               dtype=torch.float32, device=q.device)
+        rc = lib.paged_prefill_f32tc(
+            *head, int(window), float(scale), _DTYPES[q.dtype],
+            _DTYPES[k_pool.dtype], int(per_qhead), ptr(part), nsplit, stream)
+        paged_prefill_cuda.splits = nsplit
     else:
         rc = lib.paged_prefill(*head, tile_rows(hd), int(window),
                                float(scale), _DTYPES[q.dtype],
@@ -229,6 +287,8 @@ def paged_prefill_cuda(q, k_pool, v_pool, pos, block_table, q_pos, *,
 _PREFILL_SIGNATURES = {
     "paged_prefill_tc": [PTR] * 11 + [INT] * 7 + [LONG] * 3 +
     [INT, FLOAT, INT, INT, PTR],
+    "paged_prefill_f32tc": [PTR] * 11 + [INT] * 7 + [LONG] * 3 +
+    [INT, FLOAT, INT, INT, INT, PTR, INT, PTR],
     "paged_prefill": [PTR] * 11 + [INT] * 7 + [LONG] * 3 + [INT] * 2 +
     [FLOAT, INT, INT, INT, PTR]}
 paged_prefill_cuda.launches = 0
@@ -237,6 +297,9 @@ paged_prefill_cuda.tensor_core_launches = 0
 paged_prefill_cuda.cuda_core_launches = 0
 paged_prefill_cuda.int8_tensor_core_launches = 0
 paged_prefill_cuda.int8_cuda_core_launches = 0
+paged_prefill_cuda.f32_tensor_core_launches = 0
+paged_prefill_cuda.int8_f32_tensor_core_launches = 0
+paged_prefill_cuda.splits = 0
 
 
 # ---------------------------------------------------------------------------
@@ -255,9 +318,9 @@ def flash_attention_plain(q, k, v, *, window: int = 0,
 def flash_route(dtype, hd: int) -> str:
     """The flash kernel's route, a function of dtype and head dim only: bf16
     at hd 32, 64, 80, 96 or 128 takes ``"tensor_core"`` (mma.sync on 128-row
-    tiles,
-    cp.async K/V ring); f32 at hd <= 128 takes ``"cuda_core"``; anything
-    else raises, with no fallback from one route to the other."""
+    tiles, cp.async K/V ring); f32 at those head dims ``"f32_tensor_core"``
+    (the same tiles in split TF32), at any other hd <= 128 ``"cuda_core"``;
+    anything else raises, with no fallback from one route to another."""
     if dtype == torch.bfloat16:
         if hd in TC_HEAD_DIMS:
             return TENSOR_CORE
@@ -265,6 +328,8 @@ def flash_route(dtype, hd: int) -> str:
                          f"{', '.join(map(str, TC_HEAD_DIMS))} (tensor-core "
                          f"route), not {hd}")
     if dtype == torch.float32:
+        if hd in TC_HEAD_DIMS:
+            return F32_TENSOR_CORE
         if hd <= 128:
             return CUDA_CORE
         raise ValueError(f"head dim {hd} above 128 is not supported")
@@ -278,8 +343,8 @@ def flash_attention_cuda(q, k, v, *, window: int = 0,
     :func:`flash_attention_plain`. Raises on an input that
     requires grad under autograd, on CPU tensors, on what no route
     takes, or on a failed launch. ``flash_attention_cuda.launches`` counts
-    the launches, ``.tensor_core_launches`` and ``.cuda_core_launches``
-    those of each route."""
+    the launches, ``.tensor_core_launches``, ``.f32_tensor_core_launches``
+    and ``.cuda_core_launches`` those of each route."""
     build.refuse_autograd("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -294,7 +359,7 @@ def flash_attention_cuda(q, k, v, *, window: int = 0,
                          f"v {tuple(v.shape)} do not form GQA attention")
     route = flash_route(q.dtype, hd)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if route == TENSOR_CORE:
+    if route != CUDA_CORE:
         _check_16b(q=q, k=k, v=v)
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty_like(q)
@@ -302,6 +367,7 @@ def flash_attention_cuda(q, k, v, *, window: int = 0,
     rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(), B, S, H, KV, hd, int(window),
                              float(scale), _DTYPES[q.dtype],
+                             int(route != CUDA_CORE),
                              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_attention")
     flash_attention_cuda.launches += 1
@@ -311,7 +377,8 @@ def flash_attention_cuda(q, k, v, *, window: int = 0,
 
 
 _FLASH_SIGNATURES = {"flash_attention": [PTR] * 4 + [INT] * 6 +
-                     [FLOAT, INT, PTR]}
+                     [FLOAT, INT, INT, PTR]}
 flash_attention_cuda.launches = 0
 flash_attention_cuda.tensor_core_launches = 0
+flash_attention_cuda.f32_tensor_core_launches = 0
 flash_attention_cuda.cuda_core_launches = 0

@@ -20,8 +20,10 @@ int8 pools: decode and chunked prefill read them natively on the card.
 The decode kernel dequantizes in registers; the prefill kernel takes a bf16
 query on its int8 tensor-core route (int8 pages widened to bf16 in shared
 memory, the scales applied to the scores and folded into the
-probabilities) and an f32 query on its int8 CUDA-core route (dequantized in
-registers). Neither dequantizes the pool first. Their plain versions
+probabilities) and an f32 query on its int8 split-TF32 route (int8 pages
+widened to f32 in shared memory as ``x * (s / 127)``; at a head dim without
+a tensor-core tile, the int8 CUDA-core route, dequantized in registers).
+Neither dequantizes the pool first. Their plain versions
 dequantize and run the float ones, as the JAX package does for the
 prefill. Page scoring (the pool pass, an oracle on no path) still
 dequantizes the pool in plain torch first.

@@ -12,18 +12,21 @@ heads), window 0 and 128, padding rows, float and int8 pools; the decode
 kernel also at llama-3.1-8b's and qwen2.5-3b's heads, G 1 and 2 at page 8,
 splits 1, 2, 4 and one page per split, every q / pool dtype pair, a row
 with no mapped slot and a row at cur_pos -1; contiguous prompts for the flash kernel (a length that is not a
-multiple of its tile, window 0 and 256). f32 within 1e-4; bf16 on the
-CUDA-core route (a bf16 query over an f32 pool) within 1e-5 + 2**-7 of the
-value (both compute in f32, so a bf16 output may differ by one rounding
-step); bf16 on the tensor-core routes within ``ref.tc_bf16_bound`` (each
+multiple of its tile, window 0 and 256). f32 within 1e-4 (the split-TF32
+tensor-core routes at hd 32, 64, 80, 96 and 128, the CUDA-core routes at
+hd 48); a bf16 query over an f32 pool (f32 arithmetic) within 1e-5 +
+2**-7 of the value (so a bf16 output may differ by one rounding step);
+bf16 on the bf16 tensor-core routes within ``ref.tc_bf16_bound`` (each
 probability is rounded to bf16 before P V); norms and page scores within
 1e-3 relative. Each launch's route is checked against its counter.
 The per-Q-head prefill kernel must equal the G-fold one bit for bit. On
 an int8 pool the prefill kernel reads the int8 values and scales: with a
 bf16 query on its int8 tensor-core route, within ``ref.tc_bf16_bound`` of
 the plain version over the dequantized pool; with an f32 query on its int8
-CUDA-core route, bit-equal to the CUDA-core route over the dequantized
-pool and within 1e-4 of the plain version; norms within 1e-5 relative.
+f32 tensor-core route (int8 CUDA-core route at hd 48), bit-equal to the f32
+route over the dequantized pool and within 1e-4 of the plain version;
+norms within 1e-5 relative. At TINY's shape (hd 32, KV 4, G 1) the f32
+prefill splits each block's key range (``paged_prefill_cuda.splits``).
 Under autograd every wrapper refuses an input that requires grad (the
 kernels have no backward pass); forward_train launches none of them.
 Every kernel also at the head dims beside 64 and 128 (``NEW_HD``): TINY's
@@ -174,9 +177,53 @@ def test_cuda_prefill_matches_plain(cuda, KV, G, hd, dtype, pool_dtype, atol,
         for x, y in zip(nk, nk2):
             torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
         # the per-Q-head grid: bit-equal to the fold
+        if route == "f32_tensor_core" and (KV, G, hd) == (4, 1, 32):
+            assert paged_prefill_cuda.splits > 1   # TINY: a small grid
         o3, _ = paged_prefill_cuda(q, k, v, pos, bt, qp, window=window,
                                    per_qhead=True)
         assert torch.equal(o3, o), float((o3.float() - o.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.int8)])
+def test_cuda_core_routes_at_other_head_dims(cuda, q_dtype, pool_dtype):
+    """hd 48 has no tensor-core tile: K3 / K4 (every pair an f32 route
+    takes) and K5 (f32) on their CUDA-core routes."""
+    KV, G, hd = 4, 2, 48
+    pool = ref.churned_pool(8, 49, 16, KV, hd, pool_dtype, seed=48,
+                            device=cuda)
+    *pool, pos, bt, cur = pool
+    qp = ref.prefill_positions(cur.cpu(), 256).to(cuda)
+    q = torch.randn((8, 256, KV * G, hd), device=cuda).to(q_dtype)
+    route = prefill_route(q_dtype, pool_dtype, hd)
+    assert route == ("int8_cuda_core" if pool_dtype == torch.int8
+                     else "cuda_core")
+    scales = dict(k_scale=pool[2], v_scale=pool[3]) if len(pool) == 4 \
+        else {}
+    plain = paged_prefill_int8_plain if scales else paged_prefill_plain
+    atol, rtol = (1e-4, 0.0) if q_dtype == torch.float32 else (1e-5, 2 ** -7)
+    for window in (0, 128):
+        before = getattr(paged_prefill_cuda, f"{route}_launches")
+        o, nk = paged_prefill_cuda(q, *pool[:2], pos, bt, qp, **scales,
+                                   window=window, return_scores=True)
+        assert getattr(paged_prefill_cuda, f"{route}_launches") == before + 1
+        o2, nk2 = plain(q, *pool, pos, bt, qp, window=window,
+                        return_scores=True)
+        torch.testing.assert_close(o, o2, atol=atol, rtol=rtol)
+        for x, y in zip(nk, nk2):
+            torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
+        o3, _ = paged_prefill_cuda(q, *pool[:2], pos, bt, qp, **scales,
+                                   window=window, per_qhead=True)
+        assert torch.equal(o3, o)
+    if q_dtype == torch.float32 and pool_dtype == torch.float32:
+        x = [torch.randn((1, 1000, n, hd), device=cuda) for n in (8, 4, 4)]
+        before = flash_attention_cuda.cuda_core_launches
+        o = flash_attention_cuda(*x, window=256)
+        assert flash_attention_cuda.cuda_core_launches == before + 1
+        torch.testing.assert_close(o, flash_attention_plain(*x, window=256),
+                                   atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda
@@ -190,7 +237,7 @@ def test_cuda_prefill_int8_matches_plain(cuda, KV, G, hd, dtype):
     qp = ref.prefill_positions(cur.cpu(), 256).to(cuda)
     q = torch.randn((8, 256, KV * G, hd), device=cuda).to(dtype)
     route = prefill_route(dtype, torch.int8, hd)
-    assert route == ("int8_cuda_core" if dtype == torch.float32
+    assert route == ("int8_f32_tensor_core" if dtype == torch.float32
                      else "int8_tensor_core")
     for window in (0, 128):
         kw = dict(window=window, return_scores=True)

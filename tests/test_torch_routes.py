@@ -3,11 +3,14 @@ decode kernel's shape rule, on the CPU.
 
 A route is a function of dtypes and head dim alone, written down in the
 wrappers (``prefill_route``, ``flash_route``): bf16 throughout at hd 32, 64,
-80, 96 or 128 runs on the tensor cores; an f32 query, or a bf16 query over an f32
-pool, on the CUDA cores; anything else raises. An int8 pool is read
+80, 96 or 128 runs on the tensor cores; an f32 query, or a bf16 query over
+an f32 pool, at those head dims on the tensor cores in split TF32, at any
+other on the CUDA cores; anything else raises. An int8 pool is read
 natively: a bf16 query over it takes the int8 tensor-core route at those
 head dims (and raises at any other, naming them), an f32 query the int8
-CUDA-core route. No route falls back to another. The tensor-core routes'
+split-TF32 route there and the int8 CUDA-core route elsewhere. No route
+falls back to another. The split-TF32 prefill splits each block's key
+range when its grid is small (``prefill_splits``). The tensor-core routes'
 16-byte copies need aligned bases and pool strides of whole 16 bytes (8
 bf16 or 16 int8 elements), which the wrappers check and refuse otherwise.
 
@@ -42,7 +45,10 @@ def test_prefill_bf16_pair_takes_tensor_cores(hd):
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 96, 128])
 def test_prefill_f32_and_bf16_over_f32_take_cuda_cores(q_dtype, pool_dtype,
                                                        hd):
-    assert fp.prefill_route(q_dtype, pool_dtype, hd) == fp.CUDA_CORE
+    """The CUDA cores at a head dim without a tensor-core tile (16); the
+    split-TF32 tensor-core route at the others."""
+    want = fp.F32_TENSOR_CORE if hd in fp.TC_HEAD_DIMS else fp.CUDA_CORE
+    assert fp.prefill_route(q_dtype, pool_dtype, hd) == want
 
 
 @pytest.mark.parametrize("q_dtype,pool_dtype,hd,exc", [
@@ -65,7 +71,47 @@ def test_prefill_bf16_over_int8_takes_int8_tensor_cores(hd):
 
 @pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 128])
 def test_prefill_f32_over_int8_takes_int8_cuda_cores(hd):
-    assert fp.prefill_route(F32, torch.int8, hd) == fp.INT8_CUDA_CORE
+    """The int8 CUDA-core route at 16 and 48; the int8 split-TF32 route at
+    the tensor-core head dims."""
+    want = fp.INT8_F32_TENSOR_CORE if hd in fp.TC_HEAD_DIMS else \
+        fp.INT8_CUDA_CORE
+    assert fp.prefill_route(F32, torch.int8, hd) == want
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("q_dtype,pool_dtype,route", [
+    (F32, F32, "f32_tensor_core"), (F32, BF16, "f32_tensor_core"),
+    (BF16, F32, "f32_tensor_core"), (F32, torch.int8, "int8_f32_tensor_core"),
+    (BF16, BF16, "tensor_core"), (BF16, torch.int8, "int8_tensor_core")])
+def test_prefill_every_pair_on_tensor_cores_at_tc_head_dims(hd, q_dtype,
+                                                            pool_dtype, route):
+    assert fp.prefill_route(q_dtype, pool_dtype, hd) == route
+    assert route in fp.PREFILL_ROUTES
+
+
+@pytest.mark.parametrize("hd", [8, 16, 48, 72, 112, 136])
+@pytest.mark.parametrize("q_dtype,pool_dtype,route", [
+    (F32, F32, "cuda_core"), (F32, BF16, "cuda_core"), (BF16, F32, "cuda_core"),
+    (F32, torch.int8, "int8_cuda_core")])
+def test_prefill_f32_routes_keep_cuda_cores_elsewhere(hd, q_dtype, pool_dtype,
+                                                      route):
+    """What the port served before at any head dim still has a route."""
+    assert fp.prefill_route(q_dtype, pool_dtype, hd) == route
+
+
+@pytest.mark.parametrize("blocks,key_tiles,sms,splits", [
+    (64, 13, 132, 5),      # TINY's mixed step: B 8 x KV 4 x 2 row tiles
+    (512, 13, 132, 2),     # llama-3.2-1b's: 8 row tiles per (b, kv)
+    (128, 13, 132, 5),
+    (528, 13, 132, 1),     # four blocks per SM already
+    (527, 13, 132, 2),
+    (8, 13, 132, 5),       # at most one split per two key tiles: 6 would
+                           # take 3 tiles each, and 5 cover the 13
+    (8, 40, 132, 8),       # and at most 8
+    (4, 1, 132, 1),        # a single key tile is never split
+    (64, 3, 132, 1)])
+def test_prefill_splits(blocks, key_tiles, sms, splits):
+    assert fp.prefill_splits(blocks, key_tiles, sms) == splits
 
 
 @pytest.mark.parametrize("hd", [16, 48, 72, 136])
@@ -84,7 +130,20 @@ def test_prefill_bf16_over_int8_refuses_other_head_dims(hd):
     (F32, 128, fp.CUDA_CORE),
 ])
 def test_flash_route(dtype, hd, route):
-    assert fp.flash_route(dtype, hd) == route
+    """``route`` holds for bf16, and for f32 at a head dim without a
+    tensor-core tile; f32 at the others takes the split-TF32 route."""
+    want = fp.F32_TENSOR_CORE if dtype == F32 and hd in fp.TC_HEAD_DIMS \
+        else route
+    assert fp.flash_route(dtype, hd) == want
+
+
+@pytest.mark.parametrize("hd,route", [
+    (8, "cuda_core"), (16, "cuda_core"), (32, "f32_tensor_core"),
+    (48, "cuda_core"), (64, "f32_tensor_core"), (80, "f32_tensor_core"),
+    (96, "f32_tensor_core"), (112, "cuda_core"), (128, "f32_tensor_core")])
+def test_flash_route_f32(hd, route):
+    assert fp.flash_route(F32, hd) == route
+    assert route in fp.FLASH_ROUTES
 
 
 @pytest.mark.parametrize("dtype,hd,exc", [
