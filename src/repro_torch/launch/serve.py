@@ -12,8 +12,8 @@ driver does. ``--reduced`` serves the family's tiny CPU-sized variant;
 ``--device cpu`` runs the kernels' plain torch versions on the CPU.
 ``--profile START:COUNT`` (repeatable) traces steps START .. START+COUNT-1
 with ``torch.profiler`` and prints each window's device time by kernel and
-the device's busy share (with ``--profile-annotations`` the host regions
-``engine.plan`` and ``engine.step`` show in its table).
+the device's busy share (the host regions ``engine.plan`` and
+``engine.step`` and the program's spans show in its table).
 
 Observability (``repro_torch.obs``): the metrics dashboard (TTFT, TPOT, ITL,
 queue, plan and step histograms; pool counters) is printed after the run
@@ -157,8 +157,6 @@ def main() -> None:
     ap.add_argument("--no-metrics", action="store_true",
                     help="disable all engine instrumentation: bare caches, "
                          "no stats vector and no per-step read of it")
-    ap.add_argument("--profile-annotations", action="store_true",
-                    help="wrap plan/step in torch.profiler.record_function")
     ap.add_argument("--tp", type=int, default=1, metavar="N",
                     help="tensor-parallel degree: N ranks, KV-head-sharded "
                          "pools and kernels, replicated scheduler")
@@ -201,7 +199,6 @@ def serve(group, args) -> None:
                  decode_splits=args.decode_splits, device=device,
                  obs=ObsConfig(metrics=not args.no_metrics,
                                trace_path=args.trace,
-                               profiler_annotations=args.profile_annotations,
                                timeline=args.timeline is not None,
                                lineage=args.lineage,
                                regret_every=args.regret_every),

@@ -50,6 +50,7 @@ from repro_torch.core.paged_cache import PagedLayerCache
 from repro_torch.core.policies import get_policy
 from repro_torch.core.prefill import compress, page_selection
 from repro_torch.models import attention as attn_mod
+from repro_torch.obs.trace import annotation
 from repro_torch.sharding import rules
 
 
@@ -214,12 +215,13 @@ def decode_attention(lp: dict, cfg, h, kvc: PagedLayerCache, cur_pos, active,
     hq = MA if msz > 1 and cfg.num_heads % msz == 0 else None
     # the projections on DTensors (as the prefill's), then this rank's
     # rows and heads
-    q, k, v = attn_mod.decode_project_qkv(lp, cfg, h, cur_pos)
-    qd = rules.place(grid, q, (b, hq, None))
-    h0 = rules.shard_offset(qd, 1)
-    q = qd.to_local()
-    kv0 = rules.shard_offset(rules.place(grid, k, (b, hk, None)), 1)
-    k, v = (rules.to_local(grid, t, (b, hk, None)) for t in (k, v))
+    with annotation("decode.qkv"):
+        q, k, v = attn_mod.decode_project_qkv(lp, cfg, h, cur_pos)
+        qd = rules.place(grid, q, (b, hq, None))
+        h0 = rules.shard_offset(qd, 1)
+        q = qd.to_local()
+        kv0 = rules.shard_offset(rules.place(grid, k, (b, hk, None)), 1)
+        k, v = (rules.to_local(grid, t, (b, hk, None)) for t in (k, v))
     pos_l = rules.to_local(grid, cur_pos, (b,))
     B_l, H_l = q.shape[:2]
     r0 = rules.shard_offset(rules.place(grid, cur_pos, (b,)), 0)
@@ -235,17 +237,19 @@ def decode_attention(lp: dict, cfg, h, kvc: PagedLayerCache, cur_pos, active,
                          f"evenly over their KV heads (group {G})")
 
     def attend(c):
-        o, _ = attn_mod.decode_attention(
-            q, _head_view(c, slice(r0, r0 + B_l), lo, hi, whole_heads),
-            cur_pos=pos_l, window=window, num_splits=decode_splits,
-            plain=plain)
+        with annotation("decode.attn"):
+            o, _ = attn_mod.decode_attention(
+                q, _head_view(c, slice(r0, r0 + B_l), lo, hi, whole_heads),
+                cur_pos=pos_l, window=window, num_splits=decode_splits,
+                plain=plain)
         out.append(o)
 
     decode_append(whole, k_all, v_all, rules.full(cur_pos),
                   _policy(policy, grid, hk), ccfg, active=rules.full(active),
                   attend=attend)
-    o = rules.from_local(grid, out[0].reshape(B_l, -1), (b, hq))
-    o = o @ lp["wo"]
+    with annotation("decode.attn"):
+        o = rules.from_local(grid, out[0].reshape(B_l, -1), (b, hq))
+        o = o @ lp["wo"]
     return o, shard_layer_cache(grid, cfg, whole, whole.batch, hk is not None)
 
 

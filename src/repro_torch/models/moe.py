@@ -39,6 +39,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, dense_init, dtype_of
+from repro_torch.obs.trace import annotation
 from repro_torch.sharding import rules
 
 
@@ -152,18 +153,22 @@ def _moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor, cap: int,
     """Dispatch -> experts -> combine. x: (B, S, D) -> (out, MoEStats).
     ``reduce``: the sum over the ranks that hold the experts' other d_ff
     shards, applied to their f32 outputs (the JAX package's ``psum_axis``);
-    ``x_disp``: the dispatch source (default x)."""
-    probs, top_p, top_e, keep, dst, buf = _dispatch_buffer(
-        params, cfg, x, x if x_disp is None else x_disp, cap)
-    act = activation(cfg.act)
-    h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) * \
-        torch.einsum("becd,edf->becf", buf, params["w_up"])
-    if reduce is None:
-        eout = torch.einsum("becf,efd->becd", h, params["w_down"])
-    else:
-        eout = reduce(torch.einsum("becf,efd->becd", h.float(),
-                                   params["w_down"].float())).to(x.dtype)
-    return _combine(cfg, eout, keep, dst, top_p, probs, top_e, x.dtype)
+    ``x_disp``: the dispatch source (default x). The three stages are the
+    spans ``moe.dispatch``, ``moe.experts`` and ``moe.combine``."""
+    with annotation("moe.dispatch"):
+        probs, top_p, top_e, keep, dst, buf = _dispatch_buffer(
+            params, cfg, x, x if x_disp is None else x_disp, cap)
+    with annotation("moe.experts"):
+        act = activation(cfg.act)
+        h = act(torch.einsum("becd,edf->becf", buf, params["w_gate"])) * \
+            torch.einsum("becd,edf->becf", buf, params["w_up"])
+        if reduce is None:
+            eout = torch.einsum("becf,efd->becd", h, params["w_down"])
+        else:
+            eout = reduce(torch.einsum("becf,efd->becd", h.float(),
+                                       params["w_down"].float())).to(x.dtype)
+    with annotation("moe.combine"):
+        return _combine(cfg, eout, keep, dst, top_p, probs, top_e, x.dtype)
 
 
 def _moe_block_ep(params: dict, cfg: ModelConfig, x, x_disp, cap: int,
@@ -175,19 +180,22 @@ def _moe_block_ep(params: dict, cfg: ModelConfig, x, x_disp, cap: int,
     B, S, D = x.shape
     E = cfg.num_experts
     E_loc = E // ep
-    probs, top_p, top_e, keep, dst, buf = _dispatch_buffer(
-        params, cfg, x, x_disp, cap)
-    # forward all-to-all: each expert's slots to the rank that holds it
-    t = a2a(buf.movedim(1, 0).reshape(ep, E_loc, B, cap, D))
-    h_in = t.movedim(1, 0).reshape(E_loc, ep * B * cap, D)
-    act = activation(cfg.act)
-    h = act(torch.matmul(h_in, params["w_gate"])) * \
-        torch.matmul(h_in, params["w_up"])
-    eo = reduce(torch.matmul(h.float(), params["w_down"].float()))
-    eo = eo.to(x.dtype).reshape(E_loc, ep, B, cap, D).movedim(1, 0)
-    # reverse all-to-all: the outputs home
-    eout = a2a(eo).reshape(E, B, cap, D).movedim(1, 0)
-    return _combine(cfg, eout, keep, dst, top_p, probs, top_e, x.dtype)
+    with annotation("moe.dispatch"):
+        probs, top_p, top_e, keep, dst, buf = _dispatch_buffer(
+            params, cfg, x, x_disp, cap)
+        # forward all-to-all: each expert's slots to the rank that holds it
+        t = a2a(buf.movedim(1, 0).reshape(ep, E_loc, B, cap, D))
+        h_in = t.movedim(1, 0).reshape(E_loc, ep * B * cap, D)
+    with annotation("moe.experts"):
+        act = activation(cfg.act)
+        h = act(torch.matmul(h_in, params["w_gate"])) * \
+            torch.matmul(h_in, params["w_up"])
+        eo = reduce(torch.matmul(h.float(), params["w_down"].float()))
+    with annotation("moe.combine"):
+        eo = eo.to(x.dtype).reshape(E_loc, ep, B, cap, D).movedim(1, 0)
+        # reverse all-to-all: the outputs home
+        eout = a2a(eo).reshape(E, B, cap, D).movedim(1, 0)
+        return _combine(cfg, eout, keep, dst, top_p, probs, top_e, x.dtype)
 
 
 def _mean_stats(grid, stats: MoEStats, axes: tuple) -> MoEStats:

@@ -53,6 +53,8 @@ final state (mamba's conv window too) carries it into decode.
 """
 from __future__ import annotations
 
+import functools
+from contextlib import nullcontext
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -82,6 +84,7 @@ from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm, soft_cap)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward, moe_forward_decode
+from repro_torch.obs.trace import annotation
 from repro_torch.sharding import rules
 from repro_torch.sharding.rules import map_tree, vocab_embedding, whole_like
 
@@ -613,6 +616,18 @@ def intact_prefix_pages(cache: ModelCache, row: int) -> torch.Tensor:
 # single-token decode steps
 # ---------------------------------------------------------------------------
 
+def _spanned(name: str):
+    """Decorator: every call of the function is the span ``name``
+    (``obs.trace.annotation``)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with annotation(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
+
+
 def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
                   plain_kernels: bool = False, train: bool = False,
                   return_state: bool = False, cross=None, ac=None):
@@ -623,30 +638,36 @@ def layer_forward(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
     mixer when ``return_state`` (``mamba_prefill``, ``mlstm_chunkwise`` or
     ``slstm_forward`` returning it; else ``mamba_forward`` and the others
     without it, and None). ``train``: attention by the training route
-    (``attention_forward``'s), never a kernel. ``ac``: the activation
-    constraint over a grid, which pins x first and reaches the attention,
-    mamba and MoE blocks (a recurrent mixer's final state:
+    (``attention_forward``'s), never a kernel; otherwise (the one-shot
+    prefill) the attention half of an attention layer is the span
+    ``prefill.attn`` and the MLP half ``prefill.mlp``. ``ac``: the
+    activation constraint over a grid, which pins x first and reaches the
+    attention, mamba and MoE blocks (a recurrent mixer's final state:
     ``grid_oneshot.recurrent_prefill``)."""
     if ac is not None:
         x = ac(x)
-    h = apply_norm(lp["norm1"], x)
     extras = None
-    if spec.mixer == "attn":
-        a, extras = attn_mod.attention_forward(lp["attn"], cfg, spec, h,
-                                               positions, plain=plain_kernels,
-                                               train=train, ac=ac)
-    elif return_state:
-        fn = RECURRENT_PREFILL[spec.mixer]
-        a, extras = fn(lp[spec.mixer], cfg, h) if ac is None else \
-            grid_oneshot.recurrent_prefill(fn, lp[spec.mixer], cfg, h, ac)
-    elif spec.mixer == "mamba":
-        a = mamba_mod.mamba_forward(lp["mamba"], cfg, h, ac=ac)
-    else:
-        fwd = (xlstm_mod.mlstm_chunkwise if spec.mixer == "mlstm" else
-               xlstm_mod.slstm_forward)
-        a = fwd(lp[spec.mixer], cfg, h)
+    with nullcontext() if train or spec.mixer != "attn" else \
+            annotation("prefill.attn"):
+        h = apply_norm(lp["norm1"], x)
+        if spec.mixer == "attn":
+            a, extras = attn_mod.attention_forward(
+                lp["attn"], cfg, spec, h, positions, plain=plain_kernels,
+                train=train, ac=ac)
+        elif return_state:
+            fn = RECURRENT_PREFILL[spec.mixer]
+            a, extras = fn(lp[spec.mixer], cfg, h) if ac is None else \
+                grid_oneshot.recurrent_prefill(fn, lp[spec.mixer], cfg, h,
+                                               ac)
+        elif spec.mixer == "mamba":
+            a = mamba_mod.mamba_forward(lp["mamba"], cfg, h, ac=ac)
+        else:
+            fwd = (xlstm_mod.mlstm_chunkwise if spec.mixer == "mlstm" else
+                   xlstm_mod.slstm_forward)
+            a = fwd(lp[spec.mixer], cfg, h)
     x = cross_block(lp, cfg, x + a, cross)
-    x, aux = mlp_block(lp, cfg, spec, x, dense_combine=False, ac=ac)
+    with nullcontext() if train else annotation("prefill.mlp"):
+        x, aux = mlp_block(lp, cfg, spec, x, dense_combine=False, ac=ac)
     return x, aux, extras
 
 
@@ -684,16 +705,17 @@ def _prefill_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, positions,
         # out-of-window tokens at paging time (keeps the slab small)
         cur = torch.where(valid, positions, -1).amax(-1, keepdim=True)
         kv_valid = valid & (positions > cur - window)
-    if ac is None:
-        cache = compress_and_page(k, v, positions, kv_valid, policy, ccfg,
-                                  seq_len_hint=hint,
-                                  cache_dtype=dtype_of(ccfg.dtype))
-    else:
-        cache = grid_oneshot.compress_and_page(
-            cfg, k, v, positions, kv_valid, policy, ccfg, hint,
-            dtype_of(ccfg.dtype), ac)
-        if xc is not None:
-            xc = grid_oneshot.place_cross(cfg, xc, ac)
+    with annotation("prefill.compress"):
+        if ac is None:
+            cache = compress_and_page(k, v, positions, kv_valid, policy,
+                                      ccfg, seq_len_hint=hint,
+                                      cache_dtype=dtype_of(ccfg.dtype))
+        else:
+            cache = grid_oneshot.compress_and_page(
+                cfg, k, v, positions, kv_valid, policy, ccfg, hint,
+                dtype_of(ccfg.dtype), ac)
+    if ac is not None and xc is not None:
+        xc = grid_oneshot.place_cross(cfg, xc, ac)
     return x, cache, xc
 
 
@@ -714,6 +736,7 @@ def _last_valid(x, valid, ac):
 
 
 @torch.no_grad()
+@_spanned("prefill")
 def forward_prefill(params: dict, cfg: ModelConfig, tokens,
                     policy: EvictionPolicy, ccfg: CacheConfig, valid=None,
                     total_seq_hint: int | None = None,
@@ -752,7 +775,8 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens,
         layers.append(c)
         cross.append(xc)
     x_last, n_valid = _last_valid(x, valid, ac)
-    logits = lm_logits(params, cfg, x_last)
+    with annotation("prefill.logits"):
+        logits = lm_logits(params, cfg, x_last)
     return logits, ModelCache(layers=layers, cur_pos=n_valid, cross=cross)
 
 
@@ -766,48 +790,64 @@ def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc,
     self-attention. Returns (x, the layer's cache): the same cache updated
     in place, or over a grid (``ac``, x pinned first) its new layout, the
     attention with the pool's bookkeeping and the recurrent mixer run as
-    regions on local shards (``grid_oneshot``)."""
+    regions on local shards (``grid_oneshot``). The attention layer's
+    stages are spans: ``decode.qkv`` (norm1 and the projections),
+    ``decode.append`` and ``decode.evict`` (``decode_append``),
+    ``decode.attn`` (the attention, and again ``wo``, which runs after
+    the eviction) and ``decode.mlp``."""
     if ac is not None:
         x = ac(x)
-    h = apply_norm(lp["norm1"], x)
     if spec.mixer != "attn":
+        h = apply_norm(lp["norm1"], x)
         if ac is None:
             m, new = RECURRENT_STEP[spec.mixer](lp[spec.mixer], cfg, h, kvc)
             _assign(kvc, new)
         else:
             m, kvc = grid_oneshot.recurrent_decode(
                 RECURRENT_STEP[spec.mixer], lp[spec.mixer], cfg, h, kvc, ac)
-        return mlp_block(lp, cfg, spec, x + m, dense_combine=True,
-                         ac=ac)[0], kvc
+        with annotation("decode.mlp"):
+            return mlp_block(lp, cfg, spec, x + m, dense_combine=True,
+                             ac=ac)[0], kvc
     window = attn_mod.spec_window(cfg, spec)
-    if kvc.stats is not None:
-        kvc.stats.zero_()
     if ac is None:
-        q, k, v = attn_mod.decode_project_qkv(lp["attn"], cfg, h, cur_pos)
+        with annotation("decode.qkv"):
+            h = apply_norm(lp["norm1"], x)
+            if kvc.stats is not None:
+                kvc.stats.zero_()
+            q, k, v = attn_mod.decode_project_qkv(lp["attn"], cfg, h,
+                                                  cur_pos)
         out = []
 
         def attend(c):
-            o, pscores = attn_mod.decode_attention(
-                q, c, cur_pos=cur_pos, window=window,
-                num_splits=decode_splits, want_scores=fused_scores,
-                plain=plain_kernels)
+            with annotation("decode.attn"):
+                o, pscores = attn_mod.decode_attention(
+                    q, c, cur_pos=cur_pos, window=window,
+                    num_splits=decode_splits, want_scores=fused_scores,
+                    plain=plain_kernels)
             out.append(o)
             return pscores
 
         decode_append(kvc, k, v, cur_pos, policy, ccfg, active=active,
                       attend=attend)
-        m = out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
+        with annotation("decode.attn"):
+            m = out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
     else:
+        h = apply_norm(lp["norm1"], x)
+        if kvc.stats is not None:
+            kvc.stats.zero_()
         m, kvc = grid_oneshot.decode_attention(
             lp["attn"], cfg, h, kvc, cur_pos, active, policy, ccfg, window,
             decode_splits, plain_kernels, ac)
     x = x + m
     if xc is not None:
         x = cross_block(lp, cfg, x[:, None], xc)[:, 0]
-    return mlp_block(lp, cfg, spec, x, dense_combine=True, ac=ac)[0], kvc
+    with annotation("decode.mlp"):
+        return mlp_block(lp, cfg, spec, x, dense_combine=True,
+                         ac=ac)[0], kvc
 
 
 @torch.no_grad()
+@_spanned("decode.step")
 def decode_step(params: dict, cfg: ModelConfig, tokens, cache: ModelCache,
                 policy: EvictionPolicy, ccfg: CacheConfig, active=None,
                 decode_splits: int = 1, fused_scores: bool = False,
@@ -837,7 +877,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: ModelCache,
         x, cache.layers[i] = _decode_layer(
             lp, cfg, spec, x, cache.layers[i], xc, cur_pos, policy, ccfg,
             active, decode_splits, fused_scores, plain_kernels, ac)
-    logits = lm_logits(params, cfg, x)
+    with annotation("decode.logits"):
+        logits = lm_logits(params, cfg, x)
     cache.cur_pos = torch.where(active, cur_pos + 1, cur_pos)
     if ac is not None:
         cache.cur_pos = rules.place(ac.grid, cache.cur_pos, (ac.batch_axes,))

@@ -1,6 +1,7 @@
 """Serving telemetry + forensics of the torch port: a copy of the JAX
-package's ``repro.obs`` (numpy and the stdlib only), with the same
-``ObsConfig`` and ``EngineObs``.
+package's ``repro.obs`` (numpy and the stdlib, and torch's profiler for
+the spans of ``trace.annotation``), with the same ``ObsConfig`` and
+``EngineObs``.
 
 Pieces, deliberately decoupled from each other and from the engine:
 
@@ -8,8 +9,9 @@ Pieces, deliberately decoupled from each other and from the engine:
   histograms with real p50/p90/p99, snapshot-able to JSON and renderable
   as a text dashboard.
 - :mod:`repro_torch.obs.trace` — buffered JSONL trace (schema v2: step /
-  event / probe records + version-dispatched validator) and optional
-  ``torch.profiler`` annotation scopes.
+  event / probe records + version-dispatched validator) and the
+  ``annotation`` spans, which a ``torch.profiler`` profile records and
+  which cost a shared nullcontext when none does.
 - :mod:`repro_torch.core.devstats` — the device half: the int32 stats
   vector the pool mutators accumulate during the step, read once per step
   and reconciled into the registry.
@@ -56,9 +58,6 @@ class ObsConfig:
     trace_path   : write one JSONL record per step here (None == no trace);
                    lineage events and regret probes also land on this
                    stream when enabled
-    profiler_annotations : wrap plan/step in torch.profiler
-                   record_function scopes (off by default; only useful
-                   under a profiler)
     program_ceiling : distinct step shapes the engine expects at steady
                    state (T == chunk and T == 1); crossing it flips the
                    unexpected_compile flag on that step's trace event and
@@ -74,7 +73,6 @@ class ObsConfig:
     """
     metrics: bool = True
     trace_path: str | None = None
-    profiler_annotations: bool = False
     program_ceiling: int = 2
     timeline: bool = False
     lineage: bool = False

@@ -29,12 +29,18 @@ normal interpreter exit still lands the buffered tail; the engine loop
 additionally flushes on error. SIGKILL can still lose at most
 ``flush_every - 1`` records — by design (no fsync on the hot path).
 
-``annotation(name)`` wraps a host region in
-``torch.profiler.record_function`` when profiler annotations are enabled —
-otherwise it is a zero-cost nullcontext, so the engine can always write
-``with trace.annotation("engine.step"):`` unconditionally; under
-``torch.profiler`` (``launch/serve.py --profile``) the regions show as
-``engine.plan`` and ``engine.step``.
+``annotation(name)`` names a host region on the profiler's own clock while
+a ``torch.profiler`` profile records (a function-scoped record, as an
+aten op's: the region is a host span and casts no mirror onto the
+device's timeline), and is a shared nullcontext otherwise, so the code
+writes ``with annotation("decode.evict"):`` unconditionally. The engine
+names ``engine.plan`` and ``engine.step``; the one-shot path
+(``models/transformer.py``) names its prefill and decode stages:
+``prefill`` (``prefill.attn``, ``prefill.mlp``, ``prefill.compress``,
+``prefill.logits``, and in an MoE block ``moe.dispatch``,
+``moe.experts``, ``moe.combine``) and ``decode.step`` (``decode.qkv``,
+``decode.append``, ``decode.attn``, ``decode.evict``, ``decode.mlp``,
+``decode.logits``).
 """
 from __future__ import annotations
 
@@ -42,6 +48,9 @@ import atexit
 import contextlib
 import json
 from typing import IO
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
 
 TRACE_SCHEMA_VERSION = 2
 
@@ -246,14 +255,17 @@ class TraceWriter:
         self.close()
 
 
-def annotation(name: str, enabled: bool = True):
-    """Context manager: ``torch.profiler.record_function(name)`` when
-    enabled, else a nullcontext. Lets device profiles line up with
-    host-side trace events."""
-    if not enabled:
-        return contextlib.nullcontext()
-    import torch.profiler
-    return torch.profiler.record_function(name)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotation(name: str):
+    """Context manager: a host span ``name`` in the profile while
+    ``torch.profiler`` records, else a shared nullcontext (no record, no
+    callback: about half a microsecond). The span adds no tensor op and
+    reads nothing from the device."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 def main(argv=None) -> int:

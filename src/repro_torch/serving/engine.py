@@ -316,7 +316,7 @@ class Engine:
         oc = self.obs.cfg
         self.last_hook_s = 0.0
         t_plan0 = time.perf_counter()
-        with annotation("engine.plan", enabled=oc.profiler_annotations):
+        with annotation("engine.plan"):
             plan = self.scheduler.plan()
         plan_dt = time.perf_counter() - t_plan0
         h0 = time.perf_counter()
@@ -355,7 +355,7 @@ class Engine:
 
         t0 = time.perf_counter()
         dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        with annotation("engine.step", enabled=oc.profiler_annotations):
+        with annotation("engine.step"):
             out = forward_step(
                 self.params, self.cfg, dev(tokens), dev(n_tok), self.cache,
                 self.policy, self.ccfg, decode_mask=dev(decode_mask),

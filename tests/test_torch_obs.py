@@ -477,7 +477,7 @@ def test_serve_cli_obs_flags(tmp_path, monkeypatch, capsys):
         "--prompt-len", "24", "--new-tokens", "6", "--chunk", "8",
         "--device", "cpu", "--trace", f["t.jsonl"], "--timeline",
         f["tl.json"], "--lineage", "--regret-every", "2", "--snapshot",
-        f["s.json"], "--profile-annotations"])
+        f["s.json"]])
     serve.main()
     out = capsys.readouterr().out
     assert "reconcile: ok" in out and "probes" in out
