@@ -58,7 +58,12 @@ Phases (any failure exits non-zero; none is skipped):
               over f32 and int8 pools (f32 query) and K5, at TINY's heads
               and llama-3.2-1b's, each with SDPA f32's device time, the
               launch floor and both operation bounds (f32 CUDA cores, 67
-              TFLOP/s; split TF32, 165) beside the bytes'; prints phase
+              TFLOP/s; split TF32, 165) beside the bytes'. Then Alg. 3's
+              bookkeeping kernels (pool_append, paged_evict) and their
+              plain versions over 32 decode steps of one layer at the
+              nemo12b.longdoc cell's shape (B 6, 129 slots, 800 pages, KV
+              8, hd 128, page 16, bf16): device ms, ms with the host,
+              launch calls a layer, equal pools at the end; prints phase
               2's seconds
   3. parity   a reduced f32 config (KV 2, G 2) run twice on the card, through
               the kernels and through their plain versions, under
@@ -394,7 +399,11 @@ def launch_counters():
                                                    paged_prefill_cuda)
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_int8_cuda)
+    from repro_torch.kernels.pool_step import (paged_evict_cuda,
+                                               pool_append_cuda)
     return {"paged_decode": (paged_attention_cuda, "launches"),
+            "pool_append": (pool_append_cuda, "launches"),
+            "paged_evict": (paged_evict_cuda, "launches"),
             "paged_decode_int8": (paged_attention_int8_cuda, "launches"),
             "paged_prefill": (paged_prefill_cuda, "launches"),
             "paged_prefill_per_qhead": (paged_prefill_cuda,
@@ -1330,6 +1339,204 @@ def time_f32(torch, F, shape, floor):
     return res
 
 
+# Alg. 3's bookkeeping kernels at the nemo12b.longdoc cell's shape: B 6,
+# 129 slots of 16 tokens, a pool of 800 pages, KV 8, hd 128, bf16; each
+# row holding 2048 prompt tokens (the budget) and its empty working page
+POOL_STEP_SHAPE = dict(B=6, P=129, N=800, page=16, KV=8, hd=128,
+                       budget=2048)
+
+
+def _launch_calls(torch, fn) -> int:
+    """The launch calls (kernels, copies, fills) one call of ``fn`` makes,
+    by the profiler's runtime events, as the benchmark's
+    ``decode_launches`` counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.spans import LAUNCH
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if LAUNCH.match(e.name))
+
+
+def _within_2ulp(torch, got, want) -> bool:
+    """Whether f32 ``got`` lies within 2 ulp of ``want``, non-finite
+    entries equal."""
+    fin = torch.isfinite(want)
+    if not (torch.equal(torch.isfinite(got), fin) and
+            torch.equal(got[~fin], want[~fin])):
+        return False
+    w = want[fin].abs()
+    ulp = torch.nextafter(w, torch.full_like(w, float("inf"))) - w
+    return bool(((got[fin] - want[fin]).abs() <= 2 * ulp).all())
+
+
+def pool_step_parity(torch, state, pol, cfg, toks, poss) -> bool:
+    """time_pool_step's lockstep check (see there); fails on any
+    difference. Returns whether every score the kernel computed was
+    bit-equal to vk_ratio_score's."""
+    from repro_torch.core.importance import vk_ratio_score
+    from repro_torch.kernels.pool_step import (pool_append_cuda,
+                                               pool_append_plain)
+    fields = ("k", "v", "pos", "score", "block_table", "ref_count",
+              "cur_page", "cur_off", "stats")
+    outcome = ("pages_evicted", "tokens_evicted", "forced_evictions",
+               "victim_page", "victim_score")
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+    def bits(t):
+        return t.view(as_int[t.dtype]) if t.dtype in as_int else t
+    same = True
+    for given in (False, True):
+        a, b = state(stats=True), state(stats=True)
+        for t, (k, v) in enumerate(toks):
+            score = vk_ratio_score(k, v)
+            pool_append_cuda(a, k, v, poss[t], score if given else None)
+            pool_append_plain(b, k, v, poss[t], score)
+            if not given:
+                if not _within_2ulp(torch, a.score, b.score):
+                    fail(f"pool_step: the scores pool_append computed at "
+                         f"step {t} lie beyond 2 ulp of vk_ratio_score's")
+                same &= torch.equal(bits(a.score), bits(b.score))
+                b.score_buf.copy_(a.score_buf)
+            ps = a.page_scores()
+            got = pol.post_write(a, cfg, page_scores=ps)
+            want = pol.post_write(b, cfg, page_scores=ps.clone(), plain=True)
+            for f in fields:
+                if not torch.equal(bits(getattr(a, f)), bits(getattr(b, f))):
+                    fail(f"pool_step: {f} differs between the kernels and "
+                         f"the plain versions after step {t} (score "
+                         f"{'handed in' if given else 'computed'})")
+            for f in outcome:
+                x, y = getattr(got, f), getattr(want, f)
+                if x.dtype != y.dtype or not torch.equal(bits(x), bits(y)):
+                    fail(f"pool_step: outcome {f} differs between the "
+                         f"kernel and the plain version at step {t}")
+    return same
+
+
+def time_pool_step(torch, floor):
+    """pool_append and paged_evict (kernels/pool_step.py) against their
+    plain versions over 32 decode steps of one layer from the same state (a
+    page boundary, and an eviction in every row, at steps 16 and 32), the
+    page scores given as the fused epilogue gives them: each kernel's ms
+    with the host (wall to a synchronize), then its device ms (a second
+    pass; the card first spins for ten times the host's time, as
+    device_timed does, so that the events bracket the device's work
+    alone) and launch calls a layer, and the same of the plain versions.
+    Then the same 32 steps of both in lockstep with stats on, once with the
+    kernel computing Alg. 1's score itself and once with the score handed
+    in: after every step each pool field, the stats and the outcome tensors
+    must be bit-equal; a score the kernel computed must lie within 2 ulp of
+    vk_ratio_score's (whether its bits are equal is printed) and is then
+    handed to the plain pool, and a score handed in must come out
+    bit-equal."""
+    from repro_torch.configs import CacheConfig
+    from repro_torch.core.importance import vk_ratio_score
+    from repro_torch.core.paged_cache import (init_layer_cache,
+                                              write_prompt_pages)
+    from repro_torch.core.policies import get_policy
+    from repro_torch.kernels.pool_step import (pool_append_cuda,
+                                               pool_append_plain)
+    s = POOL_STEP_SHAPE
+    B, KV, hd, page, C = s["B"], s["KV"], s["hd"], s["page"], s["budget"]
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda")
+
+    def state(stats=False):
+        c = init_layer_cache(B, s["P"], page, KV, hd, dt,
+                             pool_pages=s["N"], track_stats=stats,
+                             device="cuda")
+        g.manual_seed(29)
+        kv = [torch.randn((B, C, KV, hd), generator=g, device="cuda")
+              .to(dt) for _ in range(2)]
+        pos = torch.arange(C, dtype=torch.int32, device="cuda").expand(B, C)
+        return write_prompt_pages(c, *kv, pos, vk_ratio_score(*kv))
+
+    pol = get_policy("paged_eviction")
+    cfg = CacheConfig(page_size=page, cache_budget=C,
+                      policy="paged_eviction", dtype="bfloat16")
+    steps = 32
+    g.manual_seed(30)
+    toks = [[torch.randn((B, KV, hd), generator=g, device="cuda").to(dt)
+             for _ in range(2)] for _ in range(steps)]
+    cur = torch.full((B,), C, dtype=torch.int32, device="cuda")
+    poss = [cur + t for t in range(steps)]
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    if not _CYCLES_PER_MS:
+        device_timed(torch, lambda: None, iters=1, warmup=0)
+    paths = {
+        "kernel": (lambda c, k, v, p: pool_append_cuda(c, k, v, p),
+                   lambda c, ps: pol.post_write(c, cfg, page_scores=ps)),
+        "plain": (lambda c, k, v, p: pool_append_plain(
+                      c, k, v, p, vk_ratio_score(k, v)),
+                  lambda c, ps: pol.post_write(c, cfg, page_scores=ps,
+                                               plain=True)),
+    }
+    res = {}
+    for name, (append, evict) in paths.items():
+        append(state(), *toks[0], cur)        # warm-up (loads the library)
+        times = {"host": ([], []), "device": ([], [])}
+        for mode, (t_app, t_ev) in times.items():
+            c = state()
+            evicted = 0
+            # the spin outlasts ten times the host's enqueue of a step
+            spin = 10 * max(map(sum, zip(*times["host"])), default=0.0)
+            for t, (k, v) in enumerate(toks):
+                ps = c.page_scores()
+                torch.cuda.synchronize()
+                if mode == "device":
+                    torch.cuda._sleep(int(max(0.5, spin) *
+                                          _CYCLES_PER_MS[0]))
+                    e0, e1, e2 = ev(), ev(), ev()
+                    e0.record()
+                    append(c, k, v, poss[t])
+                    e1.record()
+                    out = evict(c, ps)
+                    e2.record()
+                    e2.synchronize()
+                    t_app.append(e0.elapsed_time(e1))
+                    t_ev.append(e1.elapsed_time(e2))
+                else:
+                    t0 = time.perf_counter()
+                    append(c, k, v, poss[t])
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    out = evict(c, ps)
+                    torch.cuda.synchronize()
+                    t_app.append(1e3 * (t1 - t0))
+                    t_ev.append(1e3 * (time.perf_counter() - t1))
+                evicted += int(out.pages_evicted.sum())
+            if evicted != B * (steps // page):
+                fail(f"pool_step {name}: {evicted} pages evicted over "
+                     f"{steps} steps, not one a row every {page}")
+        k, v = toks[0]
+        ps, pos = c.page_scores(), cur + steps
+        res[name] = {
+            kind: dict(device_ms=sum(times["device"][i]) / steps,
+                       ms=sum(times["host"][i]) / steps,
+                       launches=_launch_calls(torch, fn))
+            for i, (kind, fn) in enumerate((
+                ("append", lambda: append(c, k, v, pos)),
+                ("evict", lambda: evict(c, ps))))}
+    for kind, kernel in (("append", "pool_append"), ("evict", "paged_evict")):
+        k, pl = res["kernel"][kind], res["plain"][kind]
+        print(f"  {kernel}: device {k['device_ms']:.4f} ms, with the host "
+              f"{k['ms']:.4f} ms, {k['launches']} launch call(s) a layer; "
+              f"plain {pl['device_ms']:.4f} ms device, {pl['ms']:.4f} ms "
+              f"with the host, {pl['launches']} launch calls; launch floor "
+              f"{floor:.4f} ms (B {B}, P {s['P']}, N {s['N']}, KV {KV}, hd "
+              f"{hd}, page {page}, bf16, mean of {steps} steps)", flush=True)
+    same = pool_step_parity(torch, state, pol, cfg, toks, poss)
+    print(f"  pool_step: pools, stats and outcomes bit-equal after each of "
+          f"{steps} steps with the score computed in the kernel and with it "
+          f"handed in; the kernel's scores within 2 ulp, "
+          f"{'bit-equal to' if same else 'not bit-equal to'} "
+          f"vk_ratio_score's", flush=True)
+    return res
+
+
 def peak_above(torch, fn):
     """(bytes the card's allocator held at its peak during ``fn`` above what
     it held before, fn's result)."""
@@ -2246,6 +2453,10 @@ def oneshot_full_width(torch, np):
             fail(f"one-shot {kv_dtype}: the prefill did not run all "
                  f"{cfg.num_layers} flash launches on the tensor cores: "
                  f"{launches}")
+        if not launches[dec] == launches["pool_append"] == \
+                launches["paged_evict"]:
+            fail(f"one-shot {kv_dtype}: Alg. 3's kernels did not run once "
+                 f"a layer and decode step each: {launches}")
         max_live = int(live.max())
         if max_live > budget + page:
             fail(f"one-shot {kv_dtype}: {max_live} live tokens after "
@@ -4860,6 +5071,7 @@ def main() -> None:
     other_shapes = {label: time_kernels(torch, F, shape, full=False)
                     for label, (shape, _, _) in FAMILY_SHAPES.items()}
     other_shapes["TINY (hd 32), f32"] = f32_rows["TINY (hd 32)"]
+    pool_step = time_pool_step(torch, floor)
     print(f"  phase 2: {time.perf_counter() - t2:.1f} s; {card}", flush=True)
 
     phase("[3/16] kernels vs plain versions: engine (with trace, lineage and "
@@ -5063,6 +5275,18 @@ def main() -> None:
                         if key in r},
                      **({"bound_ms_f32_cores": r["bound_f32_cores"][0]}
                         if "bound_f32_cores" in r else {})})
+    # Alg. 3's bookkeeping: one launch each a layer and decode step; bound
+    # by the launch floor (~60 KB touched)
+    for kind, name in (("append", "pool_append"), ("evict", "paged_evict")):
+        k, pl = pool_step["kernel"][kind], pool_step["plain"][kind]
+        rows.append({"name": name, "route": "cuda",
+                     "launches": oneshot["bfloat16"][name],
+                     "launches_per_layer": k["launches"], "ms": k["ms"],
+                     "device_ms": k["device_ms"], "plain_ms": pl["ms"],
+                     "plain_device_ms": pl["device_ms"],
+                     "plain_launches_per_layer": pl["launches"],
+                     "bound_ms": floor, "bound_by": "launch floor",
+                     "shape": POOL_STEP_SHAPE})
     print(f"done in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

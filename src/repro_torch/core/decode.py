@@ -3,18 +3,18 @@ time (``repro.core.decode`` of the JAX package): append K/V at the write
 head, then let the policy evict and roll the page over."""
 from __future__ import annotations
 
-import torch
-
 from repro_torch.configs.base import CacheConfig
-from repro_torch.core.paged_cache import (PagedLayerCache, chunk_rollover,
-                                          write_token)
-from repro_torch.core.policies import EvictionOutcome, EvictionPolicy
+from repro_torch.core.paged_cache import PagedLayerCache
+from repro_torch.core.policies import (EvictionOutcome, EvictionPolicy,
+                                       plain_kw)
+from repro_torch.kernels.pool_step import pool_append_cuda, pool_append_plain
 from repro_torch.obs.trace import annotation
 
 
 def decode_append(cache: PagedLayerCache, k_tok, v_tok, pos_tok,
                   policy: EvictionPolicy, cfg: CacheConfig,
-                  active=None, attend=None) -> EvictionOutcome:
+                  active=None, attend=None, plain: bool = False
+                  ) -> EvictionOutcome:
     """Append one token per request and run the policy's eviction hook.
     k_tok, v_tok: (B, KV, hd); pos_tok: (B,) int32. Updates ``cache`` in
     place and returns it with the eviction outcome.
@@ -23,18 +23,22 @@ def decode_append(cache: PagedLayerCache, k_tok, v_tok, pos_tok,
     after the write and before the eviction, so that its fused score
     epilogue sees the new token and ranks the pages the policy evicts.
 
-    The write is the span ``decode.append`` and the policy's hook the span
+    On a CUDA pool the append is one launch of ``pool_append``
+    (kernels/pool_step.py), which computes the policy's token score itself
+    where that score is Alg. 1's ratio over this device's heads; on a CPU
+    pool, or with ``plain``, it is the kernel's plain version. The write is
+    the span ``decode.append`` and the policy's hook the span
     ``decode.evict``."""
     with annotation("decode.append"):
-        if active is None:
-            active = torch.ones((cache.batch,), dtype=torch.bool,
-                                device=cache.device)
-        score = policy.write_score(k_tok, v_tok, pos_tok)
-        # lazy rollover: a chunked prefill parks the head full when a chunk
-        # ends on a page boundary; the first decode write allocates the page
-        chunk_rollover(cache, active & (cache.cur_off >= cache.page_size))
-        write_token(cache, k_tok, v_tok, pos_tok, score, active=active)
+        if cache.device.type == "cuda" and not plain:
+            score = None if policy.local_vk_ratio else \
+                policy.write_score(k_tok, v_tok, pos_tok)
+            pool_append_cuda(cache, k_tok, v_tok, pos_tok, score, active)
+        else:
+            pool_append_plain(cache, k_tok, v_tok, pos_tok,
+                              policy.write_score(k_tok, v_tok, pos_tok),
+                              active)
     page_scores = attend(cache) if attend is not None else None
     with annotation("decode.evict"):
         return policy.post_write(cache, cfg, active=active,
-                                 page_scores=page_scores)
+                                 page_scores=page_scores, **plain_kw(plain))

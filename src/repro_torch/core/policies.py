@@ -51,6 +51,15 @@ from repro_torch.core.paged_cache import (
     rollover_to_free_page,
     start_new_page,
 )
+from repro_torch.kernels.pool_step import paged_evict_cuda
+
+
+def plain_kw(plain: bool) -> dict:
+    """The keyword arguments that pass ``plain`` on to ``decode_append``
+    and ``EvictionPolicy.post_write``: ``{"plain": True}`` when set and
+    nothing otherwise, so that a hook put in their place with the older
+    signature, which takes no ``plain``, still runs on the kernels' path."""
+    return {"plain": True} if plain else {}
 
 
 class EvictionOutcome(NamedTuple):
@@ -91,6 +100,13 @@ class EvictionPolicy:
 
     def __init__(self, tp_group=None):
         self.tp_group = tp_group
+
+    @property
+    def local_vk_ratio(self) -> bool:
+        """Whether :meth:`write_score` is Alg. 1's ratio over this device's
+        heads alone (no group averages them across ranks): then the decode
+        append kernel (kernels/pool_step.py) computes it itself."""
+        return False
 
     # --- slab sizing --------------------------------------------------------
     def _round_slab(self, cfg: CacheConfig, pages: int) -> int:
@@ -161,7 +177,10 @@ class EvictionPolicy:
 
     # --- Alg.3: decode bookkeeping -------------------------------------------
     def post_write(self, cache: PagedLayerCache, cfg: CacheConfig,
-                   active=None, page_scores=None) -> EvictionOutcome:
+                   active=None, page_scores=None,
+                   plain: bool = False) -> EvictionOutcome:
+        """``plain``: the torch version on a CUDA pool too, where a policy
+        has a kernel for the hook (PagedEviction)."""
         raise NotImplementedError
 
 
@@ -202,7 +221,8 @@ class FullCache(EvictionPolicy):
             reclaim_empty_pages(cache, gate=gate)
         return cache
 
-    def post_write(self, cache, cfg, active=None, page_scores=None):
+    def post_write(self, cache, cfg, active=None, page_scores=None,
+                   plain=False):
         if active is None:
             active = torch.ones((cache.batch,), dtype=torch.bool,
                                 device=cache.device)
@@ -220,6 +240,10 @@ class FullCache(EvictionPolicy):
 class PagedEviction(EvictionPolicy):
     """Structured block-wise eviction (paper Alg. 1-3)."""
     name = "paged_eviction"
+
+    @property
+    def local_vk_ratio(self) -> bool:
+        return self.tp_group is None
 
     def write_score(self, k_tok, v_tok, pos_tok):
         return importance.vk_ratio_score(k_tok, v_tok, self.tp_group)
@@ -248,7 +272,15 @@ class PagedEviction(EvictionPolicy):
         evict_pages_mask(cache, evict)
         return reclaim_empty_pages(cache, gate=gate)
 
-    def post_write(self, cache, cfg, active=None, page_scores=None):
+    def post_write(self, cache, cfg, active=None, page_scores=None,
+                   plain=False):
+        """On a CUDA pool one launch of ``paged_evict``
+        (kernels/pool_step.py); on a CPU pool, or with ``plain``, its plain
+        version below."""
+        if cache.device.type == "cuda" and not plain:
+            return EvictionOutcome(cache, *paged_evict_cuda(
+                cache, cfg.cache_budget, cfg.protect_recent, active,
+                page_scores))
         if active is None:
             active = torch.ones((cache.batch,), dtype=torch.bool,
                                 device=cache.device)
@@ -296,7 +328,8 @@ class StreamingLLM(EvictionPolicy):
         return torch.where(cache.pos_view() < cfg.num_sink_tokens,
                            torch.inf, cache.score_view())
 
-    def post_write(self, cache, cfg, active=None, page_scores=None):
+    def post_write(self, cache, cfg, active=None, page_scores=None,
+                   plain=False):
         if active is None:
             active = torch.ones((cache.batch,), dtype=torch.bool,
                                 device=cache.device)
@@ -325,7 +358,8 @@ class _UnstructuredTokenPolicy(EvictionPolicy):
         total = -(-seq_len // cfg.page_size)
         return self._round_slab(cfg, min(total, 2 * cfg.budget_pages + 2))
 
-    def post_write(self, cache, cfg, active=None, page_scores=None):
+    def post_write(self, cache, cfg, active=None, page_scores=None,
+                   plain=False):
         if active is None:
             active = torch.ones((cache.batch,), dtype=torch.bool,
                                 device=cache.device)

@@ -47,7 +47,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.decode import decode_append
 from repro_torch.core.paged_cache import PagedLayerCache
-from repro_torch.core.policies import get_policy
+from repro_torch.core.policies import get_policy, plain_kw
 from repro_torch.core.prefill import compress, page_selection
 from repro_torch.models import attention as attn_mod
 from repro_torch.obs.trace import annotation
@@ -246,7 +246,7 @@ def decode_attention(lp: dict, cfg, h, kvc: PagedLayerCache, cur_pos, active,
 
     decode_append(whole, k_all, v_all, rules.full(cur_pos),
                   _policy(policy, grid, hk), ccfg, active=rules.full(active),
-                  attend=attend)
+                  attend=attend, **plain_kw(plain))
     with annotation("decode.attn"):
         o = rules.from_local(grid, out[0].reshape(B_l, -1), (b, hq))
         o = o @ lp["wo"]

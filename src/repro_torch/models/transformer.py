@@ -73,7 +73,7 @@ from repro_torch.core.paged_cache import (
     release_rows,
     row_intact_prefix_pages,
 )
-from repro_torch.core.policies import EvictionPolicy
+from repro_torch.core.policies import EvictionPolicy, plain_kw
 from repro_torch.core.prefill import compress_and_page
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -482,7 +482,8 @@ def _step_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc, *,
     if want_taps:
         tap = {"k": k, "v": v, "q": q, "o": o, "live_pos": kvc.pos_view()}
     if has_decode:
-        policy.post_write(kvc, ccfg, active=decode_mask, page_scores=pscores)
+        policy.post_write(kvc, ccfg, active=decode_mask, page_scores=pscores,
+                          **plain_kw(plain_kernels))
     if has_prefill:
         policy.chunk_prefill_evict(kvc, ccfg, active=prefill_mask,
                                    window=window, page_scores=pscores)
@@ -828,7 +829,7 @@ def _decode_layer(lp: dict, cfg: ModelConfig, spec: LayerSpec, x, kvc, xc,
             return pscores
 
         decode_append(kvc, k, v, cur_pos, policy, ccfg, active=active,
-                      attend=attend)
+                      attend=attend, **plain_kw(plain_kernels))
         with annotation("decode.attn"):
             m = out[0].reshape(x.shape[0], -1) @ lp["attn"]["wo"]
     else:
