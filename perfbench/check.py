@@ -29,7 +29,9 @@ where that file names it:
   replayed from the program's own pages after the prefill, and the page
   the program's final state lacks must be one of the full pages at the
   step that evicts (1.0 when it is not, or when the final state is not
-  the pages less that one).
+  the pages less that one). Under a policy that never evicts (``full``)
+  it reads 0 when the final state is the start and the decode's own
+  tokens, 1 otherwise.
 
 The decode is followed from the program's own pages after its prefill:
 the reference decodes over the positions the program kept (their keys and
@@ -39,8 +41,10 @@ f32 scores rank apart; that start is judged by ``kept_miss`` against the
 reference's own selection.
 
 A cell compares the numbers its limits file names; the others are printed
-as readings. The reference runs after the window, one request and one
-layer at a time, on the weights both sides were handed.
+as readings. The reference is the one its configuration names
+(``spec.reference``; ``reference/__init__.py`` gives its interface). It
+runs after the window, one request and one layer at a time, on the
+weights both sides were handed.
 """
 from __future__ import annotations
 
@@ -48,8 +52,8 @@ import sys
 
 import torch
 
-from perfbench import traffic as traffic_mod
-from perfbench.reference.model import Alg3, Reference
+from perfbench import spec, traffic as traffic_mod
+from perfbench.reference.model import alg3
 
 NUMBERS = ("token_gap", "prefill_gap", "prefill_logit_err",
            "decode_gap_med", "kept_miss", "kept_miss_mean", "evict_gap")
@@ -72,10 +76,11 @@ def logit_err(logits: torch.Tensor, ref: torch.Tensor) -> float:
 
 def evict_gap(start: tuple, final: set, scores: list, n: int, T: int,
               ccfg: dict) -> float:
-    """Alg. 3 replayed from ``start`` = (slots, head) over T decode tokens,
-    ranked by ``scores``, against the ``final`` live positions the side
-    judged was left with (see the module's ``evict_gap``)."""
-    alg = Alg3(*start, scores, ccfg["page_size"], ccfg["cache_budget"])
+    """Alg. 3 of the policy of ``ccfg`` replayed from ``start`` = (slots,
+    head) over T decode tokens, ranked by ``scores``, against the ``final``
+    live positions the side judged was left with (see the module's
+    ``evict_gap``)."""
+    alg = alg3(start, scores, ccfg)
     for i in range(T):
         alg.write(n + i)
     had = {t for s in start[0] if s for t in s} | set(range(n, n + T))
@@ -98,13 +103,13 @@ def evict_choices(start: tuple, scores: list, n: int, T: int,
     """At the first eviction of Alg. 3 replayed from ``start`` over T decode
     tokens: each full page's mean score above the lowest, relative to the
     lowest, ascending (what ``evict_gap`` reads for each choice of victim);
-    empty without an eviction."""
-    alg = Alg3(*start, scores, ccfg["page_size"], ccfg["cache_budget"])
+    empty without an eviction that chooses among full pages."""
+    alg = alg3(start, scores, ccfg)
     for i in range(T):
         alg.write(n + i)
         if alg.evictions:
             break
-    if not alg.evictions:
+    if not alg.evictions or not alg.evictions[0][0]:
         return []
     means = sorted(sum(scores[t] for t in p) / len(p)
                    for p in alg.evictions[0][0])
@@ -168,7 +173,7 @@ def _inputs(rec, row: int):
             torch.as_tensor(rec.served[row]))
 
 
-def program_numbers(ref: Reference, rec, row: int, ccfg: dict):
+def program_numbers(ref, rec, row: int, ccfg: dict):
     """(the numbers of request ``row`` of the call ``rec``, the reference's
     result), the reference following the program's pages."""
     n, prompt, served = _inputs(rec, row)
@@ -181,8 +186,7 @@ def program_numbers(ref: Reference, rec, row: int, ccfg: dict):
         return {k: 1e30 for k in NUMBERS}, res
 
 
-def control_reading(ref: Reference, ctl: Reference, rec, row: int,
-                    ccfg: dict) -> dict:
+def control_reading(ref, ctl, rec, row: int, ccfg: dict) -> dict:
     """The control's numbers over request ``row``'s prompt and served
     tokens: ``ctl`` (the reference in fp8) in the program's place."""
     n, prompt, served = _inputs(rec, row)
@@ -198,7 +202,7 @@ def run_check(prog, cell, seed: int, records: list) -> tuple[dict, list]:
     picks = traffic_mod.check_sample(cell.traffic, seed,
                                      [r.call for r in records])
     by_index = {r.call.index: r for r in records}
-    ref = Reference(prog.params, cell.config)
+    ref = spec.reference(cell.config, cell.here)(prog.params, cell.config)
     per = []
     for ci, row in picks:
         numbers, res = program_numbers(ref, by_index[ci], row,

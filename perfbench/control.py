@@ -72,11 +72,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from perfbench import harness, traffic as traffic_mod
     from perfbench.check import control_reading, program_numbers
-    from perfbench.reference.model import Reference
-    from perfbench.spec import load_cell
+    from perfbench.spec import load_cell, reference
     from repro_torch.kernels.build import build_all
     build_all()
     cell = load_cell(args.workload)
+    Reference = reference(cell.config, cell.here)
     out = open(args.out, "a") if args.out else None
     for i, seed in enumerate(args.seeds):
         t = time.time()

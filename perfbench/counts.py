@@ -7,24 +7,72 @@ operations per (query head, visible key) pair; a kernel reads each input
 byte once and writes each output byte once. A share of a peak states the
 card's power limit beside it: below 700 W the card runs slower than the
 peak assumes.
+
+Each layer is charged by its kind (``LayerSpec.mixer``). An attention
+layer: the q / k / v / o projections, 4 * hd operations a visible pair,
+its K / V pages. A Mamba-1 layer (d_inner di, d_state ds, dt_rank dr,
+d_conv dc), operations per token, the products only: in_proj 2 * D * 2di,
+the depthwise conv 2 * dc * di, x_proj 2 * di * (dr + 2ds), dt_proj 2 *
+dr * di, the scan 4 * di * ds (the state's update and its read by C),
+out_proj 2 * di * D; a decode step reads the mixer's weights once (dt_bias,
+A_log and D in f32) and reads and writes each row's f32 state (di, ds) and
+its conv window (dc - 1, di) in the model's dtype. Then the layer's MLP:
+dense, or the router and the k routed experts. Another mixer raises.
 """
 from __future__ import annotations
 
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, bf16
 PEAK_HBM_BYTES = 3.35e12      # HBM3 bandwidth
 BF16 = 2
+F32 = 4
 
 
 def _attn_dims(cfg):
     return cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
 
 
+def _mamba_dims(cfg):
+    return (cfg.mamba_d_inner, cfg.mamba_d_state, cfg.resolved_dt_rank,
+            cfg.mamba_d_conv)
+
+
+def _mixer(spec) -> str:
+    if spec.mixer not in ("attn", "mamba"):
+        raise ValueError(f"no count for a {spec.mixer} layer")
+    return spec.mixer
+
+
+def mamba_flops(cfg) -> int:
+    """Operations per token of one Mamba-1 mixer (module docstring)."""
+    di, ds, dr, dc = _mamba_dims(cfg)
+    D = cfg.d_model
+    return (2 * D * 2 * di + 2 * dc * di + 2 * di * (dr + 2 * ds)
+            + 2 * dr * di + 4 * di * ds + 2 * di * D)
+
+
+def mamba_weight_bytes(cfg, elt: int = BF16) -> int:
+    di, ds, dr, dc = _mamba_dims(cfg)
+    D = cfg.d_model
+    return ((D * 2 * di + dc * di + di + di * (dr + 2 * ds) + dr * di
+             + di * D) * elt + (di + di * ds + di) * F32)
+
+
+def mamba_state_bytes(cfg, B: int, elt: int = BF16) -> int:
+    """One decode step's reads and writes of B rows' state in one layer."""
+    di, ds, _, dc = _mamba_dims(cfg)
+    return 2 * B * (di * ds * F32 + (dc - 1) * di * elt)
+
+
 def layer_linear_flops(cfg, spec) -> int:
-    """Operations per token of one layer's products: q / k / v / o
-    projections and the MLP, or the router and the k routed experts."""
+    """Operations per token of one layer's products: the mixer's (q / k / v
+    / o projections, or a Mamba mixer's) and the MLP's, or the router's
+    and the k routed experts'."""
     hd, H, KV = _attn_dims(cfg)
     D = cfg.d_model
-    f = 2 * D * (H + 2 * KV) * hd + 2 * H * hd * D
+    if _mixer(spec) == "attn":
+        f = 2 * D * (H + 2 * KV) * hd + 2 * H * hd * D
+    else:
+        f = mamba_flops(cfg)
     if spec.mlp == "moe":
         f += 2 * D * cfg.num_experts
         f += cfg.num_experts_per_tok * 2 * 3 * D * cfg.d_ff
@@ -100,7 +148,11 @@ def weight_bytes(cfg, experts_read: int | None = None,
     D = cfg.d_model
     total = cfg.vocab_size * D * elt + D * elt          # head, final norm
     for spec in cfg.layer_specs():
-        total += (D * (H + 2 * KV) * hd + H * hd * D) * elt + 2 * D * elt
+        if _mixer(spec) == "attn":
+            total += (D * (H + 2 * KV) * hd + H * hd * D) * elt
+        else:
+            total += mamba_weight_bytes(cfg, elt)
+        total += 2 * D * elt
         if spec.mlp == "moe":
             e = cfg.num_experts if experts_read is None else experts_read
             total += D * cfg.num_experts * 4 + e * 3 * D * cfg.d_ff * elt
@@ -114,15 +166,18 @@ def decode_step(cfg, B: int, mapped_pages: int, live_tokens: int,
     """(operations, bytes) of one whole decode step of B rows: the layers'
     products and the head for each row, attention over the live keys; the
     weights read once (a MoE layer the at most B * k experts its rows
-    route to), the live K / V pages once, the logits written."""
+    route to), the live K / V pages once, each Mamba layer's state read
+    and written, the logits written."""
     hd, H, KV = _attn_dims(cfg)
     L = cfg.num_attn_layers()
     ops = B * (linear_flops_per_token(cfg) + head_flops(cfg)) \
         + 4 * hd * H * live_tokens * L
     experts = min(cfg.num_experts, B * cfg.num_experts_per_tok) \
         if cfg.num_experts else None
+    mamba = sum(_mixer(s) == "mamba" for s in cfg.layer_specs())
     nbytes = (weight_bytes(cfg, experts, elt)
               + L * mapped_pages * page * (KV * hd * 2 * elt + 4)
+              + mamba * mamba_state_bytes(cfg, B, elt)
               + B * cfg.vocab_size * 4)
     return ops, nbytes
 

@@ -199,12 +199,10 @@ def measure(prog: Program, cell: Cell, seed: int, seconds: float) -> Window:
 def end_to_end(win: Window, setup_s: float, peak_bytes: int) -> dict:
     """The cell's end-to-end numbers over the window."""
     recs = win.records
-    steps = sum(r.steps for r in recs)
     valid = sum(int(r.call.lengths.sum()) for r in recs)
     rows = sum(len(r.call.lengths) for r in recs)
     return {
         "ttft_s": sum(r.ttft * len(r.call.lengths) for r in recs) / rows,
-        "tpot_ms": 1e3 * sum(r.decode_s for r in recs) / steps,
         "prompt_tok_s": valid / win.seconds,
         "peak_mem_gib": peak_bytes / 2 ** 30,
         "setup_s": setup_s,
@@ -288,6 +286,9 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.reset_peak_memory_stats(dev)
     win = measure(prog, cell, seed, seconds)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    log("window calls (ttft s, decode ms a step, issue ms a step): " + "; ".join(
+        f"{r.ttft:.4f} {1e3 * r.decode_s / r.steps:.3f} "
+        f"{1e3 * r.issue_s / r.steps:.3f}" for r in win.records))
     bad = forbidden_modules()
     if bad:
         raise SystemExit(f"modules of {', '.join(bad)} are loaded in the "

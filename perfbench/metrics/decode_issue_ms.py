@@ -1,6 +1,7 @@
 """decode_issue_ms: host milliseconds from entering decode_step to its
 return, with no synchronize, meaned over the window's decode steps (the
-host's launch work, which paces the decode). Moves tpot_ms."""
+host's launch work, which paces the decode). Moves prompt_tok_s: the
+window holds the decode."""
 
 
 def read(ctx):

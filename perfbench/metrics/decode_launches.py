@@ -1,7 +1,7 @@
 """decode_launches: the host's launch calls (kernel launches, copies,
 fills: ``spans.LAUNCH``) made inside the program's ``decode.step`` spans
 of the profiled call, per decode step: what a fused or graphed step has
-to cut. Moves tpot_ms."""
+to cut. Moves prompt_tok_s: the window holds the decode."""
 
 from perfbench import spans
 

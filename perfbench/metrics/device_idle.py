@@ -1,5 +1,6 @@
 """device_idle: the share of the profiled call's wall span that no device
-activity's interval covers. Moves tpot_ms (the decode is host-paced)."""
+activity's interval covers. Moves prompt_tok_s: the window holds the
+host-paced decode."""
 
 
 def read(ctx):

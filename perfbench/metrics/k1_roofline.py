@@ -1,9 +1,10 @@
-"""k1_roofline: K1's least time over the profiled call's decode steps
-(the larger of operations at 989 TFLOP/s and bytes at 3.35 TB/s: the
-mapped pages' K / V and positions, q, the split partials and the fused
-norms written) over its device time, summed by kernel name
+"""k1_roofline: K1's least time over the profiled call's decode steps (the
+larger of operations at 989 TFLOP/s and bytes at 3.35 TB/s: the mapped
+pages' K / V and positions, q, the split partials and the fused norms
+written) over its device time, summed by kernel name
 (csrc/paged_attention.cu: paged_decode_kernel). The split merge
-(combine_splits) is plain torch and not counted. Moves tpot_ms."""
+(combine_splits) is plain torch and not counted. Moves prompt_tok_s: the
+window holds the decode."""
 
 from perfbench import counts
 

@@ -1,7 +1,8 @@
 """mfu.decode: the whole decode step's roofline share: the chip's least
 time for each step (the larger of its operations at 989 TFLOP/s and its
 bytes at 3.35 TB/s: weights read once, the live K / V pages once, the
-logits written) over the window's decode wall time. Moves tpot_ms."""
+logits written) over the window's decode wall time. Moves prompt_tok_s:
+the window holds the decode."""
 
 from perfbench import counts
 

@@ -1,7 +1,7 @@
-"""mlp_host_ms: host milliseconds inside the program's ``decode.mlp``
-spans (norm2 and the dense MLP, or the MoE layer's dense all-expert
-combine), summed over the layers, per decode step of the profiled call.
-Moves tpot_ms."""
+"""mlp_host_ms: host milliseconds inside the program's ``decode.mlp`` spans
+(norm2 and the dense MLP, or the MoE layer's dense all-expert combine),
+summed over the layers, per decode step of the profiled call. Moves
+prompt_tok_s: the window holds the decode."""
 
 from perfbench import spans
 

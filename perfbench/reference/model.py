@@ -17,13 +17,18 @@ t0..t(T-1)):
   kept;
 - Alg. 2: each layer's token scores mean_h ||v|| / mean_h ||k|| (k after
   RoPE), the ``cache_budget`` best kept (ties to the earlier token), in
-  position order, in pages of ``page_size``;
+  position order, in pages of ``page_size``; under the ``full`` policy
+  every token of the prompt;
 - Alg. 3 over the decode: each step writes its token to the working page,
   attends over every live token, and when the working page is full and
   more than ``cache_budget`` tokens live, evicts the full page of lowest
   mean token score (ties to the lower logical slot), then rolls onto the
-  first free slot;
+  first free slot; under ``full`` it never evicts;
 - the logits of the last prompt token and of each decode step.
+
+A row has the logical slots of the program's slab (``logical_slots``):
+the padded prompt and its decode in pages, capped under
+``paged_eviction`` at the budget's pages and a working page.
 
 Given ``follow``, the decode starts from those pages (the program's after
 its prefill) instead of the reference's own selection, which is returned
@@ -40,6 +45,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 ROWS = 1024          # query rows per attention block
@@ -111,6 +117,14 @@ def capacity(factor: float, S: int, k: int, E: int) -> int:
     return max(cap - cap % -8, 8)
 
 
+def _take(positions: list, *ts):
+    """Each of ``ts`` at ``positions``, by one index tensor: indexing by
+    the list itself costs ~10 ms a tensor at the full cache's 15k."""
+    ix = torch.from_numpy(np.array(positions, dtype=np.int64)).to(
+        ts[0].device)
+    return tuple(t[ix] for t in ts)
+
+
 @dataclass
 class Layer:
     kept: torch.Tensor               # (C,) kept positions, ascending
@@ -140,9 +154,10 @@ class Reference:
         self.E = m.get("num_local_experts", 0)
         self.k = m.get("num_experts_per_tok", 0)
         self.ar = Arith(precision)
-        if self.cache["policy"] != "paged_eviction" or m.get("sliding_window"):
-            raise ValueError("the reference follows paged_eviction without "
-                             "a window")
+        evicts(self.cache["policy"])
+        if m.get("sliding_window") or m.get("attn_layer_period"):
+            raise ValueError("this reference runs attention layers without "
+                             "a window, every layer")
 
     # ----------------------------------------------------------- blocks
     def _attend_prefill(self, q, k, v):
@@ -227,12 +242,11 @@ class Reference:
         from ``start`` = (logical slots, head). q (T, H, hd), k / v
         (n + T, KV, hd) by position, sc (n + T,) token scores. Returns
         (attention outputs (T, H, hd), the live positions at the end)."""
-        cache = Alg3(*start, sc.tolist(), self.cache["page_size"],
-                     self.cache["cache_budget"])
+        cache = alg3(start, sc.tolist(), self.cache)
         outs = []
         for i in range(q.shape[0]):
             cache.write(n + i, attend=lambda live: outs.append(
-                self._attend_one(q[i], k[live], v[live])))
+                self._attend_one(q[i], *_take(live, k, v))))
         return torch.stack(outs), {t for s in cache.slots if s for t in s}
 
     # ------------------------------------------------------------ request
@@ -258,10 +272,8 @@ class Reference:
         if self.E:
             cap = capacity(self.m["moe_capacity_factor"], padded_len, self.k,
                            self.E)
-        budget, page = self.cache["cache_budget"], self.cache["page_size"]
-        # logical slots per row: the slab of the prompt and its decode,
-        # capped at the budget's pages and a working page
-        P = min(-(-(padded_len + T) // page), budget // page + 1)
+        page = self.cache["page_size"]
+        P = logical_slots(self.cache, padded_len, T)
         layers = []
         for lp in p["layers"]:
             a = lp["attn"]
@@ -273,8 +285,7 @@ class Reference:
                      self.m["rope_theta"])
             v = ar.mm(h, wv).reshape(n + T, self.KV, self.hd)
             sc = token_scores(k, v)
-            order = torch.sort(-sc[:n], stable=True).indices[:min(budget, n)]
-            kept = order.sort().values
+            kept = alg2_keep(sc[:n], self.cache)
             ids = kept.tolist()
             start = follow[len(layers)] if follow is not None else \
                 Alg3.after_prefill(
@@ -297,18 +308,63 @@ class Reference:
         return Result(logits=logits, layers=layers)
 
 
+EVICTS = {"paged_eviction": True, "full": False}
+
+
+def evicts(policy: str) -> bool:
+    """Whether Alg. 3 evicts under ``policy``; the policies this reference
+    does not follow raise."""
+    if policy not in EVICTS:
+        raise ValueError(f"the reference follows {' and '.join(EVICTS)}, "
+                         f"not {policy}")
+    return EVICTS[policy]
+
+
+def logical_slots(cache: dict, padded_len: int, T: int) -> int:
+    """A row's logical slots, as the program's policy sizes its slab for a
+    prompt of ``padded_len`` and T decode tokens: their pages, capped
+    under an evicting policy at the budget's pages and a working page."""
+    page = cache["page_size"]
+    P = -(-(padded_len + T) // page)
+    if evicts(cache["policy"]):
+        P = min(P, cache["cache_budget"] // page + 1)
+    return P
+
+
+def alg2_keep(sc: torch.Tensor, cache: dict) -> torch.Tensor:
+    """Alg. 2 over a prompt's token scores ``sc`` (n,): the kept positions,
+    ascending: the ``cache_budget`` best (ties to the earlier token), or
+    every one under a policy that never evicts."""
+    n = sc.shape[0]
+    if not evicts(cache["policy"]):
+        return torch.arange(n, device=sc.device)
+    order = torch.sort(-sc, stable=True).indices[:min(cache["cache_budget"],
+                                                      n)]
+    return order.sort().values
+
+
+def alg3(start: tuple, scores: list, cache: dict) -> "Alg3":
+    """Alg. 3 of the configuration's ``cache`` from ``start`` = (slots,
+    head)."""
+    return Alg3(*start, scores, cache["page_size"], cache["cache_budget"],
+                evicts(cache["policy"]))
+
+
 class Alg3:
     """Alg. 3's bookkeeping of one row of one layer: logical slots, each a
     list of positions or None (unmapped), and the working slot ``cur``.
-    ``scores`` by position rank the pages."""
+    ``scores`` by position rank the pages. ``evicts`` False: the ``full``
+    policy's, which never evicts; with no slot free it parks the head,
+    which then starts over (an eviction of the head's page)."""
 
     def __init__(self, slots: list, cur: int, scores: list, page: int,
-                 budget: int):
+                 budget: int, evicts: bool = True):
         self.slots = [None if s is None else list(s) for s in slots]
         self.cur = cur
         if self.slots[cur] is None:
             self.slots[cur] = []
         self.scores, self.page, self.budget = scores, page, budget
+        self.evicts = evicts
         self.evictions: list = []     # (the full pages, the one evicted)
 
     @staticmethod
@@ -332,7 +388,7 @@ class Alg3:
             attend([t for s in self.slots if s for t in s])
         if len(self.slots[self.cur]) < self.page:
             return
-        if self.live() > self.budget:
+        if self.evicts and self.live() > self.budget:
             means = [self._mean(s) if s is not None and len(s) >= self.page
                      else math.inf for s in self.slots]
             j = min(range(len(self.slots)), key=lambda i: means[i])
@@ -341,7 +397,10 @@ class Alg3:
                                    list(self.slots[j])))
             self.slots[j] = None
         free = [j for j, s in enumerate(self.slots) if s is None]
-        if not free:
+        if not free and not self.evicts:
+            self.evictions.append(([], list(self.slots[self.cur])))
+            free = [self.cur]
+        elif not free:
             # no slot left: the fewest-token page other than the head goes
             cand = [(len(s), j) for j, s in enumerate(self.slots)
                     if s and j != self.cur]

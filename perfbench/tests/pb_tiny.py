@@ -14,15 +14,24 @@ from perfbench.spec import MODEL_KEYS, Cell  # noqa: E402
 
 LOOSE = {"token_gap": 1e-3, "prefill_logit_err": 1e-3,
          "decode_gap_med": 1e-3, "kept_miss": 0.0, "evict_gap": 0.0}
-# each tiny family stands in for the cell of its architecture
-CELL = {"mistral-nemo-12b": "nemo12b.longdoc",
-        "mixtral-8x7b": "mixtral8x7b.longdoc"}
+# each tiny family, under a policy, stands in for the cell of its
+# architecture
+CELL = {("mistral-nemo-12b", "paged_eviction"): "nemo12b.longdoc",
+        ("mixtral-8x7b", "paged_eviction"): "mixtral8x7b.longdoc",
+        ("mistral-nemo-12b", "full"): "nemo12b.longdoc_full"}
+# the source keys of a hybrid's config (and the second name of the
+# expert count), which the attention-only families' configs do not hold
+HYBRID_KEYS = ("num_experts", "mamba_d_state", "mamba_d_conv",
+               "mamba_expand", "mamba_dt_rank", "attn_layer_period",
+               "expert_layer_period")
 
 
-def tiny_config(arch: str = "mistral-nemo-12b") -> dict:
+def tiny_config(arch: str = "mistral-nemo-12b",
+                policy: str = "paged_eviction") -> dict:
     from repro_torch.configs import get_arch
     cfg = get_arch(arch).reduced()
-    model = {key: getattr(cfg, field) for key, field in MODEL_KEYS.items()}
+    model = {key: getattr(cfg, field) for key, field in MODEL_KEYS.items()
+             if key not in HYBRID_KEYS}
     model.update(sliding_window=None, rms_norm_eps=1e-6, hidden_act="silu",
                  tie_word_embeddings=False, torch_dtype="float32")
     if not cfg.num_experts:
@@ -31,7 +40,7 @@ def tiny_config(arch: str = "mistral-nemo-12b") -> dict:
             model.pop(key)
     return {"name": f"tiny-{arch}", "port_arch": arch, "model": model,
             "cache": {"page_size": 8, "cache_budget": 64,
-                      "policy": "paged_eviction", "dtype": "float32"},
+                      "policy": policy, "dtype": "float32"},
             "decode": {"decode_splits": 2, "fused_scores": True}}
 
 
@@ -47,11 +56,11 @@ def tiny_traffic(rows: int = 2, steps: int = 12) -> dict:
 
 
 def tiny_cell(arch: str = "mistral-nemo-12b", limits: dict | None = None,
-              **traffic) -> Cell:
+              policy: str = "paged_eviction", **traffic) -> Cell:
     from perfbench.spec import benchmark
     bench = benchmark()
     return Cell(name=f"tiny.{arch}", config_name=f"tiny-{arch}",
-                traffic_name="tiny", config=tiny_config(arch),
+                traffic_name="tiny", config=tiny_config(arch, policy),
                 traffic=tiny_traffic(**traffic), limits=limits or LOOSE,
                 end_to_end=bench["end_to_end"],
                 per_layer=bench["per_layer"])

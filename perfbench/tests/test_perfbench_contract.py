@@ -57,8 +57,15 @@ def test_benchmark_json_shape():
         assert (PB / "traffic" / f"{w['traffic']}.json").exists()
         assert (PB / "limits" / f"{w['name']}.json").exists()
         cell = spec.load_cell(w["name"])
-        assert {m["name"] for m in cell.end_to_end} == e2e
+        reported = {m["name"] for m in cell.end_to_end}
+        # set-up and at least one more end-to-end metric, a per-layer one,
+        # and each per-layer metric moves one that the cell reports
+        assert "setup_s" in reported and len(reported) >= 2
         assert cell.per_layer
+        assert all(m["moves"] in reported for m in cell.per_layer)
+    cells = {w["name"] for w in b["workloads"]}
+    for m in b["end_to_end"] + b["per_layer"]:
+        assert set(m.get("workloads", cells)) <= cells
     for m in b["per_layer"]:
         assert (PB / "metrics" / f"{m['name']}.py").exists()
         assert m["moves"] in e2e and m["source"] in (
@@ -96,10 +103,25 @@ def _digest(root: Path) -> dict:
             .hexdigest() for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-def test_a_cell_is_added_by_files_alone(tmp_path):
+OWN_REFERENCE = """from .model import Reference as _Model
+
+
+class Reference(_Model):
+    runs = 0
+
+    def run(self, *a, **kw):
+        type(self).runs += 1
+        return super().run(*a, **kw)
+"""
+
+
+@pytest.mark.parametrize("own_reference", [False, True])
+def test_a_cell_is_added_by_files_alone(tmp_path, own_reference):
     """A new configuration, traffic mix, limits, metric reader and
     workload entry are found by name; no file already there changes
-    except BENCHMARK.json's lists."""
+    except BENCHMARK.json's lists. With ``own_reference``, a tiny
+    configuration names a reference module of its own, written beside
+    model.py, and ``run_check`` judges the cell's answers with it."""
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(PB, tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__", ".cache"))
@@ -136,10 +158,75 @@ def test_a_cell_is_added_by_files_alone(tmp_path):
         class window:
             records = [1, 2, 3]
     assert reader(Ctx) == 3
+    if own_reference:
+        _check_with_own_reference(tmp_path, pb)
     after = _digest(pb)
     assert all(after[k] == v for k, v in before.items())
     assert "nemo12b.longdoc" not in [m.get("workloads", [None])[0]
                                      for m in cell.per_layer[-1:]]
+
+
+def _check_with_own_reference(root: Path, pb: Path):
+    from perfbench import check, traffic as tm
+    (pb / "reference" / "own_ref.py").write_text(OWN_REFERENCE)
+    cfg = {**pb_tiny.tiny_config(), "name": "tiny-own",
+           "reference": "own_ref"}
+    (pb / "configs" / "tiny-own.json").write_text(json.dumps(cfg))
+    (pb / "traffic" / "tiny.json").write_text(
+        json.dumps(pb_tiny.tiny_traffic()))
+    (pb / "limits" / "tiny.own.json").write_text(json.dumps(pb_tiny.LOOSE))
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["workloads"].append({"name": "tiny.own", "config": "tiny-own",
+                           "traffic": "tiny", "chips": 1, "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    cell = spec.load_cell("tiny.own", root=root)
+    Own = spec.reference(cell.config, cell.here)
+    assert Own.__module__ == "perfbench.reference.own_ref"
+    prog = harness.setup(cell, 5, "cpu")
+    call = tm.make_call(cell.traffic, prog.cfg.vocab_size, 5, 0)
+    rec = harness.run_call(prog, call, cell.traffic["decode_steps"])
+    numbers, picks = check.run_check(prog, cell, 5, [rec])
+    assert Own.runs == len(picks) > 0
+    assert check.verdict(numbers, cell.limits), numbers
+
+
+def _model(**extra):
+    return {**pb_tiny.tiny_config(), **extra}
+
+
+def test_hybrid_keys_are_applied():
+    cfg = _model(name="tiny-jamba", port_arch="jamba-1.5-large-398b")
+    cfg["model"] = {**cfg["model"], "attn_layer_period": 8,
+                    "expert_layer_period": 2, "num_experts": 16,
+                    "num_local_experts": 16, "num_experts_per_tok": 2,
+                    "mamba_d_state": 16, "mamba_d_conv": 4,
+                    "mamba_expand": 2, "mamba_dt_rank": 32,
+                    "num_hidden_layers": 8}
+    mc = spec.model_config(cfg)
+    assert (mc.attn_every, mc.moe_every, mc.num_experts, mc.mamba_d_state,
+            mc.mamba_d_conv, mc.mamba_expand, mc.mamba_dt_rank) == \
+        (8, 2, 16, 16, 4, 2, 32)
+    assert [s.mixer for s in mc.layer_specs()].count("attn") == 1
+
+
+def test_port_keys_map_a_files_own_keys():
+    cfg = _model(port_keys={"use_qk_norm": "qk_norm"})
+    cfg["model"] = {**cfg["model"], "use_qk_norm": True}
+    assert spec.model_config(cfg).qk_norm is True
+
+
+@pytest.mark.parametrize("key", ["attn_layer_offset", "num_experts"])
+def test_an_unmapped_or_conflicting_key_raises(key):
+    """A key the port does not apply raises, naming it; so do two keys of
+    the source that set one field apart (num_experts against
+    num_local_experts)."""
+    cfg = _model()
+    cfg["model"] = {**cfg["model"], "num_local_experts": 0, key: 4}
+    with pytest.raises(ValueError, match=key):
+        spec.model_config(cfg)
+    cfg["model"].pop(key)
+    cfg["model"]["max_position_embeddings"] = 4096     # states no run shape
+    spec.model_config(cfg)
 
 
 def _imports(path: Path) -> set:

@@ -1,8 +1,8 @@
 """A run with the timed path broken underneath, the look for a card
 skipped: each fault the cells can have makes ``correct`` false, judged by
 the cell's own limits (``limits/<cell>.json``) on the tiny family of its
-architecture. (The exchange between chips is no fault here: every cell
-has one chip.)"""
+architecture under its policy. (The exchange between chips is no fault
+here: every cell has one chip.)"""
 import time
 
 import pytest
@@ -18,24 +18,27 @@ def _run(cell):
                            time.time(), log=lambda *a: None)
 
 
-def _cell(arch):
-    cell = pb_tiny.tiny_cell(arch, rows=2,
-                             limits=load_cell(pb_tiny.CELL[arch]).limits)
+def _cell(key):
+    arch, policy = key
+    cell = pb_tiny.tiny_cell(arch, rows=2, policy=policy,
+                             limits=load_cell(pb_tiny.CELL[key]).limits)
     cell.traffic["check_requests"] = 4
     return cell
 
 
-ARCHS = ["mistral-nemo-12b", "mixtral-8x7b"]
+CELLS = list(pb_tiny.CELL)
+EVICTING = [k for k in CELLS if k[1] != "full"]
+IDS = [pb_tiny.CELL[k] for k in CELLS]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CELLS, ids=IDS)
 def test_sound_run_is_correct(arch):
     line = _run(_cell(arch))
     assert line["correct"], line["check"]
     assert line["check"]["evict_gap"]["value"] == 0.0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CELLS, ids=IDS)
 def test_step_that_returns_its_state_unchanged(arch, monkeypatch):
     """decode_append writes nothing and evicts nothing: the step attends
     to the cache as the prefill left it."""
@@ -48,7 +51,7 @@ def test_step_that_returns_its_state_unchanged(arch, monkeypatch):
     assert not line["correct"], line["check"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CELLS, ids=IDS)
 def test_half_the_batch_left_out(arch, monkeypatch):
     """The prefill runs the first half of the rows and hands their answer
     to the rest."""
@@ -65,7 +68,7 @@ def test_half_the_batch_left_out(arch, monkeypatch):
     assert not line["correct"], line["check"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CELLS, ids=IDS)
 @pytest.mark.parametrize("where", ["forward_prefill", "decode_step"])
 def test_token_altered_where_produced(arch, where, monkeypatch):
     """The logits that give a served token come out shifted by one id."""
@@ -80,7 +83,8 @@ def test_token_altered_where_produced(arch, where, monkeypatch):
     assert not line["correct"], line["check"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", EVICTING,
+                         ids=[pb_tiny.CELL[k] for k in EVICTING])
 @pytest.mark.parametrize("fault", ["none", "second", "scores"])
 def test_eviction_goes_wrong(arch, fault, monkeypatch):
     """Alg. 3's step evicts no page, the second-lowest full page instead
@@ -105,4 +109,15 @@ def test_eviction_goes_wrong(arch, fault, monkeypatch):
                         page_scores=page_scores)
         monkeypatch.setattr(policies.PagedEviction, "post_write", skewed)
     line = _run(_cell(arch))
+    assert not line["correct"], line["check"]
+
+
+def test_program_that_evicts_fails_the_full_check(monkeypatch):
+    """The program runs PagedEviction (Alg. 2 to the budget, Alg. 3's
+    evictions) where the configuration states the full cache."""
+    from repro_torch.core import policies
+    orig = policies.get_policy
+    monkeypatch.setattr(policies, "get_policy",
+                        lambda name, **kw: orig("paged_eviction", **kw))
+    line = _run(_cell(("mistral-nemo-12b", "full")))
     assert not line["correct"], line["check"]

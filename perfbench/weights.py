@@ -5,9 +5,14 @@ the port's parameter tree (its structure read from ``init_model`` on the
 meta device), each leaf scaled in place. Both the program and the
 reference read these very tensors.
 
-Scales by leaf: RMSNorm scales 1; the embedding and the head N(0, 0.02^2);
-every other matrix N(0, 1 / fan_in), fan_in its second-to-last axis (the
-router, in f32, alike).
+Rules by leaf: norm scales 1; biases 0; the embedding and the head N(0,
+0.02^2); every other leaf of two or more axes N(0, 1 / fan_in), fan_in its
+second-to-last axis (the router, in f32, alike). A Mamba mixer's leaves as
+``models/mamba.py:init_mamba`` makes them, each from its own draws:
+``conv_b`` 0, ``D`` 1, ``A_log`` the S4D-real log(1..d_state) of every
+channel, ``dt_bias`` the inverse softplus of a dt log-uniform in [1e-3,
+1e-1] (u the normal CDF of the leaf's draws); ``conv_w``, ``x_proj``,
+``dt_proj`` by the rule of matrices. Any other leaf of one axis raises.
 """
 from __future__ import annotations
 
@@ -43,15 +48,40 @@ def _rebuild(tree):
     return None
 
 
-def scale_of(path: tuple, shape: tuple) -> float | None:
-    """The leaf's standard deviation; None for a norm scale (ones)."""
-    if path[-1] in ("scale",):
-        return None
-    if path[-1] in ("bias",):
-        return 0.0
-    if path[0] in ("embed", "lm_head"):
-        return 0.02
-    return 1.0 / math.sqrt(shape[-2])
+ONES = ("scale", "q_norm", "k_norm", "out_norm", "D")
+ZEROS = ("bias", "bq", "bk", "bv", "conv_b", "b_gates", "b_igate", "b_fgate")
+DT_RANGE = (1e-3, 1e-1)
+
+
+def _dt_bias(z: torch.Tensor) -> torch.Tensor:
+    """Standard normal draws -> softplus^-1 of dt, log-uniform in
+    ``DT_RANGE``."""
+    u = 0.5 * (1.0 + torch.erf(z / math.sqrt(2.0)))
+    lo, hi = (math.log(d) for d in DT_RANGE)
+    return torch.log(torch.expm1(torch.exp(lo + u * (hi - lo))))
+
+
+def init_leaf(path: tuple, leaf: torch.Tensor) -> None:
+    """The leaf's values, in place, from its standard normal draws."""
+    name = path[-1]
+    if name in ONES:
+        leaf.fill_(1.0)
+    elif name in ZEROS:
+        leaf.zero_()
+    elif name == "A_log":
+        ds = leaf.shape[-1]
+        leaf.copy_(torch.log(torch.arange(1, ds + 1, dtype=leaf.dtype,
+                                          device=leaf.device)))
+    elif name == "dt_bias":
+        leaf.copy_(_dt_bias(leaf))
+    elif path[0] in ("embed", "lm_head"):
+        leaf.mul_(0.02)
+    elif leaf.dim() >= 2:
+        leaf.mul_(1.0 / math.sqrt(leaf.shape[-2]))
+    else:
+        where = ".".join(map(str, path))
+        raise ValueError(f"no rule for the weights of {where} "
+                         f"{tuple(leaf.shape)}")
 
 
 def make_params(cfg, seed: int, device) -> dict:
@@ -73,11 +103,7 @@ def make_params(cfg, seed: int, device) -> dict:
         for path, t in group:
             leaf = flat[at:at + t.numel()].view(t.shape)
             at += t.numel()
-            s = scale_of(path, tuple(t.shape))
-            if s is None:
-                leaf.fill_(1.0)
-            else:
-                leaf.mul_(s)
+            init_leaf(path, leaf)
             _set(out, path, leaf)
     return out
 
